@@ -1,0 +1,296 @@
+"""HRNetV2 backbone in PyTorch.
+
+Counterpart of hcmoco_tpu/models/hrnet.py, with the reference torch module
+names (official_hrnet.py: conv1/bn1, layer1.{b}.conv{k}/bn{k},
+transition{t}.{i}, stage{s}.{m}.branches / fuse_layers), so reference state
+dicts load with strict=True.
+
+Activations are NCHW tensors held in torch.channels_last memory, so a 1x1
+site views its input as the (B*H*W, C) matrix that kernel K1 takes, without
+a copy.  Convs run in `dtype` (bf16 on the card); BN math in f32; params and
+BN statistics are f32.
+
+HCMOCO_CONVBN_FUSE=1, read when the model is built, routes every 1x1
+stride-1 ConvBN site in training through conv1x1_bn_stats + bn_apply_stats
+(ops/matmul_bn.py), which compute the BN channel sums in the conv's
+epilogue; `set_convbn_fuse` switches a built model.  Both paths update the BN
+running statistics with torch semantics (unbiased running variance).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.config import HRNetConfig, HRNetStageSpec
+from ..ops.matmul_bn import bn_apply_stats, conv1x1_bn_stats
+
+# flax momentum 0.99 (hrnet.py bn_momentum) == torch momentum 0.01
+BN_MOMENTUM = 0.01
+
+
+def convbn_fuse_enabled() -> bool:
+    """HCMOCO_CONVBN_FUSE=1: BN channel sums from the 1x1 conv's epilogue."""
+    return os.environ.get("HCMOCO_CONVBN_FUSE", "0") == "1"
+
+
+def set_convbn_fuse(module: nn.Module, on: bool) -> nn.Module:
+    """Switch every 1x1 ConvBN site under `module` to the fused (on) or the
+    plain path, whatever HCMOCO_CONVBN_FUSE was when it was built."""
+    for m in module.modules():
+        if isinstance(m, (ConvBN, Bottleneck)):
+            m.convbn_fuse = on
+    return module
+
+
+def _is_fusable(conv: nn.Conv2d) -> bool:
+    return conv.kernel_size == (1, 1) and conv.stride == (1, 1)
+
+
+def _update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                          var: torch.Tensor, n: int) -> None:
+    """nn.BatchNorm2d's running-stat update from a biased batch var."""
+    if n < 2:
+        raise ValueError("BatchNorm in training needs more than 1 value per "
+                         f"channel, got {n}")
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var * (n / (n - 1)), alpha=m)
+        bn.num_batches_tracked.add_(1)
+
+
+def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
+            relu: bool, dtype: torch.dtype, fuse: bool = False
+            ) -> torch.Tensor:
+    """One ConvBN site: conv in `dtype`, BN in f32, output in `dtype`.
+    With `fuse`, a 1x1 stride-1 site in training takes the fused path."""
+    w = conv.weight.to(dtype)
+    if fuse and bn.training and _is_fusable(conv):
+        b, cin, h, wd = x.shape
+        x2d = x.to(dtype).permute(0, 2, 3, 1).reshape(-1, cin)
+        y2d, s1, s2 = conv1x1_bn_stats(x2d, w.reshape(w.shape[0], cin))
+        out2d, mean, var = bn_apply_stats(y2d, s1, s2, bn.weight, bn.bias,
+                                          bn.eps)
+        _update_running_stats(bn, mean.detach(), var.detach(), y2d.shape[0])
+        y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
+    else:
+        y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding)
+        y = bn(y.float()).to(dtype)
+    return F.relu(y) if relu else y
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
+
+
+class ConvBN(nn.Sequential):
+    """conv + BN (+ReLU) as children "0"/"1": the reference's Sequential."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 relu: bool, dtype: torch.dtype):
+        super().__init__(_conv(cin, cout, kernel, stride),
+                         nn.BatchNorm2d(cout, momentum=BN_MOMENTUM))
+        self.relu = relu
+        self.compute_dtype = dtype
+        self.convbn_fuse = convbn_fuse_enabled()
+
+    def forward(self, x):
+        return conv_bn(self[0], self[1], x, self.relu, self.compute_dtype,
+                       self.convbn_fuse)
+
+
+class BasicBlock(nn.Module):
+    """3x3-3x3 residual block (official_hrnet.py:32-61); expansion 1."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int,
+                 downsample: bool, dtype: torch.dtype):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.bn1 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv2 = _conv(planes, planes, 3, 1)
+        self.bn2 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.downsample = (ConvBN(inplanes, planes, 1, stride, False, dtype)
+                           if downsample else None)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        out = conv_bn(self.conv1, self.bn1, x, True, d)
+        out = conv_bn(self.conv2, self.bn2, out, False, d)
+        res = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + res)
+
+
+class Bottleneck(nn.Module):
+    """1x1-3x3-1x1 residual block (official_hrnet.py:64-102); expansion 4."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int,
+                 downsample: bool, dtype: torch.dtype):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = _conv(inplanes, planes, 1, 1)
+        self.bn1 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.conv3 = _conv(planes, out, 1, 1)
+        self.bn3 = nn.BatchNorm2d(out, momentum=BN_MOMENTUM)
+        self.downsample = (ConvBN(inplanes, out, 1, stride, False, dtype)
+                           if downsample else None)
+        self.compute_dtype = dtype
+        self.convbn_fuse = convbn_fuse_enabled()
+
+    def forward(self, x):
+        d, fuse = self.compute_dtype, self.convbn_fuse
+        out = conv_bn(self.conv1, self.bn1, x, True, d, fuse)
+        out = conv_bn(self.conv2, self.bn2, out, True, d)
+        out = conv_bn(self.conv3, self.bn3, out, False, d, fuse)
+        res = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + res)
+
+
+_BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
+
+
+def _make_blocks(block_name: str, inplanes: int, planes: int, n: int,
+                 dtype: torch.dtype) -> nn.Sequential:
+    block = _BLOCKS[block_name]
+    out = planes * block.expansion
+    layers = []
+    for b in range(n):
+        cin = inplanes if b == 0 else out
+        layers.append(block(cin, planes, 1, b == 0 and cin != out, dtype))
+    return nn.Sequential(*layers)
+
+
+def _resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize on NCHW in f32, align_corners=False."""
+    if x.shape[2] == h and x.shape[3] == w:
+        return x
+    out = F.interpolate(x.float(), size=(h, w), mode="bilinear",
+                        align_corners=False)
+    return out.to(x.dtype)
+
+
+class HRModule(nn.Module):
+    """One HighResolutionModule: per-branch residual blocks + full fusion.
+
+    Fusion (official_hrnet.py:177-249): j>i upsample = 1x1 conv+BN then
+    bilinear; j<i downsample = chained stride-2 3x3 conv+BN(+ReLU except
+    the last); diagonal identity; SUM-fused then ReLU.
+    """
+
+    def __init__(self, spec: HRNetStageSpec, in_channels: Sequence[int],
+                 dtype: torch.dtype):
+        super().__init__()
+        nb = spec.num_branches
+        expansion = _BLOCKS[spec.block].expansion
+        out_ch = [c * expansion for c in spec.num_channels]
+        self.branches = nn.ModuleList(
+            _make_blocks(spec.block, in_channels[i], spec.num_channels[i],
+                         spec.num_blocks[i], dtype) for i in range(nb))
+        self.fuse_layers = None
+        if nb > 1:
+            fuse = []
+            for i in range(nb):
+                row = []
+                for j in range(nb):
+                    if j > i:
+                        row.append(ConvBN(out_ch[j], out_ch[i], 1, 1, False,
+                                          dtype))
+                    elif j == i:
+                        row.append(None)
+                    else:
+                        row.append(nn.Sequential(*(
+                            ConvBN(out_ch[j],
+                                   out_ch[i] if k == i - j - 1 else out_ch[j],
+                                   3, 2, k != i - j - 1, dtype)
+                            for k in range(i - j))))
+                fuse.append(nn.ModuleList(row))
+            self.fuse_layers = nn.ModuleList(fuse)
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        ys = [branch(x) for branch, x in zip(self.branches, xs)]
+        if self.fuse_layers is None:
+            return ys
+        fused = []
+        for i, row in enumerate(self.fuse_layers):
+            h, w = ys[i].shape[2], ys[i].shape[3]
+            acc = ys[i]
+            for j, layer in enumerate(row):
+                if j > i:
+                    acc = acc + _resize_bilinear(layer(ys[j]), h, w)
+                elif j < i:
+                    acc = acc + layer(ys[j])
+            fused.append(F.relu(acc))
+        return fused
+
+
+class HRNet(nn.Module):
+    """HRNetV2 backbone.  Input NCHW; returns the 4 feature maps (NCHW)."""
+
+    def __init__(self, config: HRNetConfig, in_channels: int = 3,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.compute_dtype = dtype
+        stem = config.stem_channels
+        self.conv1 = _conv(in_channels, stem, 3, 2)
+        self.bn1 = nn.BatchNorm2d(stem, momentum=BN_MOMENTUM)
+        self.conv2 = _conv(stem, stem, 3, 2)
+        self.bn2 = nn.BatchNorm2d(stem, momentum=BN_MOMENTUM)
+
+        s1 = config.stage1
+        self.layer1 = _make_blocks(s1.block, stem, s1.num_channels[0],
+                                   s1.num_blocks[0], dtype)
+        pre = [s1.num_channels[0] * _BLOCKS[s1.block].expansion]
+        for si, spec in ((2, config.stage2), (3, config.stage3),
+                         (4, config.stage4)):
+            cur = [c * _BLOCKS[spec.block].expansion
+                   for c in spec.num_channels]
+            trans = []
+            for i in range(spec.num_branches):
+                if i < len(pre):
+                    trans.append(ConvBN(pre[i], cur[i], 3, 1, True, dtype)
+                                 if pre[i] != cur[i] else None)
+                else:
+                    chain = []
+                    for j in range(i + 1 - len(pre)):
+                        cin = pre[-1]
+                        cout = cur[i] if j == i - len(pre) else cin
+                        chain.append(ConvBN(cin, cout, 3, 2, True, dtype))
+                    trans.append(nn.Sequential(*chain))
+            setattr(self, f"transition{si - 1}", nn.ModuleList(trans))
+            setattr(self, f"stage{si}", nn.Sequential(*(
+                HRModule(spec, cur, dtype)
+                for _ in range(spec.num_modules))))
+            pre = cur
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        d = self.compute_dtype
+        x = x.to(dtype=d, memory_format=torch.channels_last)
+        x = conv_bn(self.conv1, self.bn1, x, True, d)
+        x = conv_bn(self.conv2, self.bn2, x, True, d)
+        xs = [self.layer1(x)]
+        for si in (2, 3, 4):
+            new = []
+            for i, t in enumerate(getattr(self, f"transition{si - 1}")):
+                # a new branch grows from the lowest-resolution map
+                src = xs[i] if i < len(xs) else xs[-1]
+                new.append(src if t is None else t(src))
+            xs = getattr(self, f"stage{si}")(new)
+        return xs
+
+
+def fused_sites(encoder: HRNet) -> int:
+    """Number of ConvBN sites of an HRNet that HCMOCO_CONVBN_FUSE=1 routes
+    through K1 (one K1 launch each per training forward)."""
+    return sum(1 for m in encoder.modules()
+               if isinstance(m, nn.Conv2d) and _is_fusable(m))

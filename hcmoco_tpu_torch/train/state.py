@@ -1,0 +1,55 @@
+"""Train state: model + optimizer + memory banks + step (counterpart of
+hcmoco_tpu/train/state.py).
+
+The JAX package keeps these in one immutable pytree; here they are the
+usual stateful torch objects, updated in place by the train step.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Iterable, Tuple
+
+import torch
+from torch import nn
+
+from ..contrast.memory import init_memory
+from ..core.config import TrainConfig
+from .schedules import learning_rate_fn
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    banks: torch.Tensor  # (n_modal, n_data, dim) f32, rows L2-normalised
+    step: int = 0        # global iteration
+
+
+def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor],
+                   steps_per_epoch: int
+                   ) -> Tuple[torch.optim.Optimizer, Callable[[int], float]]:
+    """SGD with heavy-ball momentum and L2 on every param, the same update
+    as the JAX package's optax add_decayed_weights -> trace ->
+    scale_by_learning_rate.  The caller sets the lr from the returned
+    schedule before each step."""
+    lr_fn = learning_rate_fn(cfg, steps_per_epoch)
+    opt = torch.optim.SGD(params, lr=lr_fn(0), momentum=cfg.momentum,
+                          weight_decay=cfg.weight_decay, nesterov=False)
+    return opt, lr_fn
+
+
+def create_train_state(cfg: TrainConfig, model: nn.Module,
+                       generator: torch.Generator, n_data: int,
+                       steps_per_epoch: int) -> TrainState:
+    """Optimizer over all of model's params and randomly initialised banks
+    drawn from `generator`, on the model's device."""
+    if not cfg.mem.startswith("bank"):
+        raise NotImplementedError(
+            f"mem {cfg.mem} is not ported yet: ROADMAP.md Queue 1 item 11")
+    device = next(model.parameters()).device
+    opt, _ = make_optimizer(cfg, model.parameters(), steps_per_epoch)
+    n_modal = {"RGB": 1, "CMC": 2, "RGBD2S": 3}[cfg.modal]
+    banks = init_memory(generator, n_modal, n_data, cfg.feat_dim,
+                        device=device)
+    return TrainState(model=model, optimizer=opt, banks=banks)
