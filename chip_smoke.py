@@ -1,7 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
-kernels, holds each against its plain PyTorch version at the main path's
-shapes, and drives the stage-1 HCMoCo train step (HRNet-W18 x2 + SemGCN,
-320^2 crops, bank NCE with K=16384) with HCMOCO_CONVBN_FUSE=1.
+kernels, holds each against its plain PyTorch version at the main paths'
+shapes, and drives the two stage-1 train steps the port has:
+
+  * HCMoCo (HRNet-W18 x2 + SemGCN, 320^2 crops, bank NCE with K=16384,
+    bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernel K1;
+  * HRNetPN (HRNet-W18 + PointNet++ MSG on 4096 depth points + SemGCN,
+    320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
+    steps under torch.profiler (device ms per kernel class).
 
     python3 chip_smoke.py
 
@@ -10,8 +15,11 @@ code is non-zero unless all of them passed.  The last line of stdout is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 
-and the line before it a JSON object with each kernel's launches on the
-main path, its error against the plain version and both times.
+and the line before it a JSON object with each kernel's launches on its
+main path, its error against the plain version, its time, the plain
+version's, the least time the card could take for the same work (`bound_ms`,
+from this run's shapes and data and the H100 SXM's published peaks) and,
+where one PyTorch call computes the same function, that call's time.
 TF32 is off for matmuls and cuDNN convs: f32 means f32 here.  Nothing of
 JAX or of the JAX package (hcmoco_tpu) is imported; the script checks that
 before it prints its last line.
@@ -30,7 +38,12 @@ import torch
 
 STEPS = 5
 BATCH = 32
+PN_BATCH = 64
 N_DATA = 8192
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_S = 3.35e12
+BF16_OPS_S = 989e12
+F32_OPS_S = 67e12  # outside the tensor cores
 
 
 def card_line() -> str:
@@ -60,6 +73,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |v| (8 significant bits)."""
     return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time for `nbytes` of device memory traffic and `ops`
+    operations at the card's peaks: the larger of the two, and which."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
 
 
 def check_k1(card: str) -> dict:
@@ -120,12 +143,268 @@ def check_k1(card: str) -> dict:
               f"{plain_ms:.4f} ms, y max|err| {float(err.max()):.6g}, "
               f"s1/s2/dx/dw ok [{card}]")
         if main is None:
-            main = (ms, plain_ms)
+            # x and w read, y and the two f32 sums written; 2RKC bf16 ops
+            main = dict(ms=ms, plain_ms=plain_ms, **bound(
+                2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
+                BF16_OPS_S))
     return {"name": "mm_bn_stats (fused 1x1 conv + BN stats)",
             "route": "cuda",
             "source": "hcmoco_tpu_torch/csrc/matmul_bn.cu",
             "replaces": "hcmoco_tpu/ops/pallas/matmul_bn.py:34",
-            "max_abs_err": max_err, "ms": main[0], "plain_ms": main[1]}
+            "max_abs_err": max_err, "library_ms": None, **main}
+
+
+def point_levels(dev, batch_size: int, size: int, n_points: int):
+    """The point sets of the HRNetPN path for one synthetic batch, through
+    the plain versions: depth2pts's cloud and the sorted FPS centers of the
+    four SA levels (l_xyz[0..4] of Pointnet2MSG), and the clouds' validity.
+    About half the samples have no depth, so their clouds are all zeros."""
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.pointnet2_model import depth2pts
+    from hcmoco_tpu_torch.ops.fps import fps_plain
+    from hcmoco_tpu_torch.ops.point_ops import gather_points
+
+    b = synthetic_contrast_batch(np.random.default_rng(0), batch_size,
+                                 size=size, n_data=N_DATA)
+    t = {k: torch.from_numpy(b[k]).to(dev)
+         for k in ("rgbd", "depth_mask", "grid_xy", "depth_mean")}
+    cloud, _, _, valid = depth2pts(
+        t["rgbd"][..., 3], t["depth_mask"], t["grid_xy"], 424.0, 512.0,
+        t["depth_mean"], n_points, generator=torch.Generator(dev).manual_seed(0))
+    if bool(valid.all()) or not bool(valid.any()):
+        raise AssertionError("the batch must hold valid and zero clouds")
+    levels = [cloud]
+    for k in range(4):
+        xyz = levels[-1]
+        m = max(n_points // 4 ** k, 1)
+        idx = (torch.arange(m, device=dev, dtype=torch.int32).expand(
+            batch_size, m) if m == xyz.shape[1] else fps_plain(xyz, m))
+        levels.append(gather_points(xyz, torch.sort(idx, dim=-1).values))
+    return levels, valid
+
+
+def kernel_entry(name: str, source: str, replaces: str, err: float,
+                 ms: float, plain_ms: float, bnd: dict,
+                 library_ms=None) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"hcmoco_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
+
+
+def scatter_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                  abs_sum: torch.Tensor) -> float:
+    """A scatter-add gradient of the kernel against the plain version's.
+    Both sum in f32 with atomics, in an order that changes from run to run,
+    then round to the table dtype: they may differ by one ulp of that dtype
+    plus 1e-5 of the sum of the magnitudes added into the element."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    ulp = (bf16_ulp(torch.maximum(a.abs(), b.abs()))
+           if got.dtype == torch.bfloat16 else 0.0)
+    bad = err > ulp + 1e-5 * abs_sum
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
+                             f"err {float(err.max())}")
+    return float(err.max())
+
+
+def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
+                 size: int = 320, n_points: int = 4096) -> list:
+    """K2-K6 against their plain versions at every call of one HRNetPN step
+    (the path's shapes, bs64), inputs from a synthetic batch with zero
+    clouds.  Indices and distances equal, gathers exact, scatter-add grads
+    within `scatter_close`; kernel times for every call, the plain
+    versions' (and K5's PyTorch call) at each kernel's largest call."""
+    from hcmoco_tpu_torch.models.pointnet2_model import (MLPS, NSAMPLE,
+                                                         RADIUS)
+    from hcmoco_tpu_torch.ops import ball_query as bq
+    from hcmoco_tpu_torch.ops import fps as fp
+    from hcmoco_tpu_torch.ops import point_gather as pg
+    from hcmoco_tpu_torch.ops import three_nn as tn
+    from hcmoco_tpu_torch.ops._points import sq_dists
+    from hcmoco_tpu_torch.ops.point_ops import interpolation_weights
+
+    levels, valid = point_levels(dev, batch_size, size, n_points)
+    zero = ~valid
+    b = batch_size
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+
+    # K2: sa1-sa3 (sa0 takes the identity)
+    for k in (1, 2, 3):
+        xyz, m = levels[k], levels[k + 1].shape[1]
+        got, want = fp.fps_cuda(xyz, m), fp.fps_plain(xyz, m)
+        if not torch.equal(got, want) or bool(got[zero].any()):
+            raise AssertionError(f"K2 fps {tuple(xyz.shape)}->{m}: "
+                                 f"{int((got != want).sum())} indices off")
+        ms = cuda_ms(lambda: fp.fps_cuda(xyz, m))
+        print(f"K2 fps ({b},{xyz.shape[1]},3)->{m}: kernel {ms:.4f} ms, "
+              f"indices equal [{card}]")
+        if k == 1:
+            n = xyz.shape[1]
+            # 10 f32 ops a point a round: 3 sub, 3 mul, 2 add, min, compare
+            k2 = kernel_entry(
+                "fps (furthest point sampling)", "fps.cu",
+                "hcmoco_tpu/ops/pallas/fps.py:26", 0.0, ms,
+                cuda_ms(lambda: fp.fps_plain(xyz, m)),
+                bound(b * n * 12 + b * m * 4, 10 * b * n * (m - 1),
+                      F32_OPS_S))
+
+    # K3: every SA level and scale; the largest call is sa0 scale 1
+    gidxs = []
+    for k in range(4):
+        xyz, centers = levels[k], levels[k + 1]
+        n, m = xyz.shape[1], centers.shape[1]
+        for i, (r, s) in enumerate(zip(RADIUS[k], NSAMPLE[k])):
+            got = bq.ball_query_cuda(xyz, centers, r, s)
+            want = bq.ball_query_plain(xyz, centers, r, s)
+            # a zero cloud: every point hits, so the slots take 0..S-1
+            first = torch.arange(s, device=dev, dtype=torch.int32)
+            first = torch.where(first < n, first, 0)
+            if not torch.equal(got, want) or not bool(
+                    (got[zero] == first).all()):
+                raise AssertionError(f"K3 ball query sa{k} scale {i}: "
+                                     f"{int((got != want).sum())} off")
+            gidxs.append((k, i, got))
+            ms = cuda_ms(lambda: bq.ball_query_cuda(xyz, centers, r, s))
+            print(f"K3 ball query sa{k}.{i} N={n} M={m} S={s} r={r}: kernel "
+                  f"{ms:.4f} ms, indices equal [{card}]")
+            if (k, i) == (0, 1):
+                # the points a first-hit scan must test: up to the S-th hit
+                r2 = torch.tensor(r * r, dtype=torch.float32, device=dev)
+                tested = 0
+                for c0 in range(0, m, 256):
+                    cs = (sq_dists(centers[:, c0:c0 + 256], xyz) < r2).cumsum(
+                        -1, dtype=torch.int32)
+                    pos = (cs >= s).int().argmax(-1) + 1
+                    tested += int(torch.where(cs[..., -1] >= s, pos, n).sum())
+                # 9 f32 ops a tested point: 3 sub, 3 mul, 2 add, compare
+                k3 = kernel_entry(
+                    "ball_query (first-hit fill)", "ball_query.cu",
+                    "hcmoco_tpu/ops/pallas/ball_query.py:24", 0.0, ms,
+                    cuda_ms(lambda: bq.ball_query_plain(xyz, centers, r, s)),
+                    bound(b * (n + m) * 12 + b * m * s * 4, 9 * tested,
+                          F32_OPS_S))
+                print(f"  {tested} point tests needed, "
+                      f"{tested / (b * m * n):.4f} of all pairs")
+
+    # K4: every FP level; the largest call is fp0, 4096 x 4096
+    nns = []
+    for i in range(4):
+        unknown, known = levels[i], levels[i + 1]
+        n, m = unknown.shape[1], known.shape[1]
+        dist, idx = tn.three_nn_cuda(unknown, known)
+        pdist, pidx = tn.three_nn_plain(unknown, known)
+        w = interpolation_weights(dist)
+        if (not torch.equal(idx, pidx) or not torch.equal(dist, pdist)
+                or not bool((idx[zero] == torch.arange(
+                    3, device=dev, dtype=torch.int32)).all())
+                or not torch.allclose(w[zero], torch.full_like(w[zero],
+                                                               1 / 3))):
+            raise AssertionError(f"K4 three-NN fp{i}: "
+                                 f"{int((idx != pidx).sum())} indices off")
+        nns.append((idx, w))
+        ms = cuda_ms(lambda: tn.three_nn_cuda(unknown, known))
+        print(f"K4 three-NN fp{i} N={n} M={m}: kernel {ms:.4f} ms, indices "
+              f"and distances equal [{card}]")
+        if i == 0:
+            # 9 f32 ops a pair: 3 sub, 3 mul, 2 add, compare
+            k4 = kernel_entry(
+                "three_nn", "three_nn.cu",
+                "hcmoco_tpu/ops/pallas/three_nn.py:25", 0.0, ms,
+                cuda_ms(lambda: tn.three_nn_plain(unknown, known)),
+                bound(b * (n + m) * 12 + b * n * 24, 9 * b * n * m,
+                      F32_OPS_S))
+
+    # K5: the grouping of every SA scale, forward and backward; the
+    # largest call is sa0 scale 1, (64, 4096, 32, 32) bf16 out
+    err5b = 0.0
+    for k, i, gidx in gidxs:
+        n, c = levels[k].shape[1], MLPS[k][i][0]
+        _, m, s = gidx.shape
+        table = torch.randn((b, n, c), generator=g, device=dev).bfloat16()
+        gout = torch.randn((b, m, s, c), generator=g, device=dev).bfloat16()
+        got = pg.group_rows_cuda(table, gidx)
+        if not torch.equal(got, pg.group_rows_plain(table, gidx)):
+            raise AssertionError(f"K5 group fwd sa{k}.{i}: not exact")
+        err5b = max(err5b, scatter_close(
+            f"K5 group bwd sa{k}.{i}", pg.group_rows_bwd_cuda(gout, gidx, n),
+            pg.group_rows_bwd_plain(gout, gidx, n),
+            pg.group_rows_bwd_plain(gout.float().abs(), gidx, n)))
+        ms_f = cuda_ms(lambda: pg.group_rows_cuda(table, gidx))
+        ms_b = cuda_ms(lambda: pg.group_rows_bwd_cuda(gout, gidx, n))
+        print(f"K5 group sa{k}.{i} ({b},{n},{c})->({m},{s}): fwd {ms_f:.4f} "
+              f"ms exact, bwd {ms_b:.4f} ms within tol [{card}]")
+        if (k, i) != (0, 1):
+            continue
+        rows, out_b = b * m * s, b * m * s * c * 2
+        # one PyTorch call each: advanced indexing; index_add_ (in bf16)
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        flat = (gidx + (torch.arange(b, device=dev, dtype=torch.int32)
+                        * n)[:, None, None]).reshape(-1)
+        acc = torch.zeros((b * n, c), dtype=torch.bfloat16, device=dev)
+        k5f = kernel_entry(
+            "group_rows fwd (row gather)", "point_gather.cu",
+            "hcmoco_tpu/ops/pallas/window_group.py:108", 0.0, ms_f,
+            cuda_ms(lambda: pg.group_rows_plain(table, gidx)),
+            bound(b * n * c * 2 + rows * 4 + out_b, 0, F32_OPS_S),
+            cuda_ms(lambda: table[bidx, gidx]))
+        k5b = kernel_entry(
+            "group_rows bwd (f32 atomic scatter-add)", "point_gather.cu",
+            "hcmoco_tpu/ops/pallas/window_group.py:125", 0.0, ms_b,
+            cuda_ms(lambda: pg.group_rows_bwd_plain(gout, gidx, n)),
+            bound(out_b + rows * 4 + b * n * c * 2, rows * c, F32_OPS_S),
+            cuda_ms(lambda: acc.index_add_(0, flat, gout.reshape(-1, c))))
+        # the zero clouds' rows all land on their first S table rows
+        for label, sel in (("valid", valid), ("zero-cloud", zero)):
+            gs, gi = gout[sel].contiguous(), gidx[sel].contiguous()
+            t = cuda_ms(lambda: pg.group_rows_bwd_cuda(gs, gi, n))
+            print(f"  K5 bwd on the {int(sel.sum())} {label} samples alone: "
+                  f"{t:.4f} ms, {t / int(sel.sum()):.5f} ms a sample")
+
+    # K6: the interpolation of every FP level, forward and backward; the
+    # largest call is fp1, (64, 4096, 512) bf16 out from 1024 rows
+    err6b = 0.0
+    for i, (idx, w) in enumerate(nns):
+        m = levels[i + 1].shape[1]
+        c = (256, 512, 512, 1024)[i]  # the known features' width
+        n = idx.shape[1]
+        feat = torch.randn((b, m, c), generator=g, device=dev).bfloat16()
+        gout = torch.randn((b, n, c), generator=g, device=dev).bfloat16()
+        if not torch.equal(pg.interpolate_rows_cuda(feat, idx, w),
+                           pg.interpolate_rows_plain(feat, idx, w)):
+            raise AssertionError(f"K6 interpolate fwd fp{i}: not exact")
+        err6b = max(err6b, scatter_close(
+            f"K6 interpolate bwd fp{i}",
+            pg.interpolate_rows_bwd_cuda(gout, idx, w, m),
+            pg.interpolate_rows_bwd_plain(gout, idx, w, m),
+            pg.interpolate_rows_bwd_plain(gout.float().abs(), idx, w, m)))
+        ms_f = cuda_ms(lambda: pg.interpolate_rows_cuda(feat, idx, w))
+        ms_b = cuda_ms(lambda: pg.interpolate_rows_bwd_cuda(gout, idx, w, m))
+        print(f"K6 interpolate fp{i} ({b},{m},{c})->{n}: fwd {ms_f:.4f} ms "
+              f"exact, bwd {ms_b:.4f} ms within tol [{card}]")
+        if i != 1:
+            continue
+        small = b * m * c * 2 + b * n * 24  # feat or grad, idx and weights
+        k6f = kernel_entry(
+            "interpolate_rows fwd (weighted 3-row gather)", "point_gather.cu",
+            "hcmoco_tpu/ops/pallas/window_interp.py:80", 0.0, ms_f,
+            cuda_ms(lambda: pg.interpolate_rows_plain(feat, idx, w)),
+            bound(small + b * n * c * 2, 5 * b * n * c, F32_OPS_S))
+        k6b = kernel_entry(
+            "interpolate_rows bwd (f32 atomic scatter-add)",
+            "point_gather.cu", "hcmoco_tpu/ops/pallas/window_interp.py:100",
+            0.0, ms_b,
+            cuda_ms(lambda: pg.interpolate_rows_bwd_plain(gout, idx, w, m)),
+            bound(small + b * n * c * 2, 6 * b * n * c, F32_OPS_S))
+        for label, sel in (("valid", valid), ("zero-cloud", zero)):
+            gs, ii, ww = (x[sel].contiguous() for x in (gout, idx, w))
+            t = cuda_ms(lambda: pg.interpolate_rows_bwd_cuda(gs, ii, ww, m))
+            print(f"  K6 bwd on the {int(sel.sum())} {label} samples alone: "
+                  f"{t:.4f} ms, {t / int(sel.sum()):.5f} ms a sample")
+    k5b["max_abs_err"], k6b["max_abs_err"] = err5b, err6b
+    return [k2, k3, k4, k5f, k5b, k6f, k6b]
 
 
 def make_cfg(**kw):
@@ -139,19 +418,32 @@ def make_cfg(**kw):
     return resolve_config(TrainConfig(**base))
 
 
+BATCH_KEYS = ("rgbd", "index", "skeleton", "use_depth", "use_rgb",
+              "depth_mask", "grid_xy", "depth_mean", "pts_u")
+
+
 def to_device(batch: dict, device) -> dict:
-    keys = ("rgbd", "index", "skeleton", "use_depth", "use_rgb")
-    return {k: torch.from_numpy(batch[k]).to(device) for k in keys}
+    return {k: torch.from_numpy(batch[k]).to(device) for k in BATCH_KEYS
+            if k in batch}
 
 
-def small_reference_check(card: str) -> None:
-    """One f32 train step of the tiny (width-4, 32^2) model on the card vs
-    the same step on the CPU (the CPU path is held against the JAX package
-    by tests/test_torch_*.py): losses, updated params and banks within rel
-    1e-4.  Plain ConvBN path: K1 is bf16-only, and the tiny model in bf16
-    moves its features by 2% between any two bf16 implementations, so K1
-    is held against its plain version by check_k1 and, at W18, by the
-    fused-vs-unfused step in drive_slice."""
+def small_reference_check(card: str, arch: str = "HRNet") -> None:
+    """One f32 train step of the tiny (width-4, 32^2; HRNetPN: 64 points)
+    model on the card vs the same step on the CPU (the CPU path is held
+    against the JAX package by tests/test_torch_*.py): losses, updated
+    params and banks within rel 1e-4.  Plain ConvBN path: K1 is bf16-only,
+    and the tiny model in bf16 moves its features by 2% between any two
+    bf16 implementations, so K1 is held against its plain version by
+    check_k1 and, at W18, by the fused-vs-unfused step in drive_slice.
+
+    The HRNetPN step runs K2-K6 on the card and their plain versions on
+    the CPU, with the depth2pts uniforms pinned and zero clouds in the
+    batch.  Its point encoder (encoder2) is f32-ill-conditioned at this
+    size (tests/test_torch_pn_train_step.py): what the point cloud's
+    feature feeds (the losses of the directions with modality 2, bank 2)
+    is held to rel 1e-3, atol 5e-4, and encoder2's parameters to the same
+    step with encoder2 in float64 on the CPU: the card's f32 parameters
+    must lie within 3x the CPU f32 step's distance from it."""
     from hcmoco_tpu_torch.contrast.memory import sample_negative_counts
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.models.build import build_model
@@ -159,22 +451,35 @@ def small_reference_check(card: str) -> None:
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
 
-    cfg = make_cfg(width=4, crop_size=32, batch_size=6, nce_k=15,
-                   compute_dtype="float32")
+    cfg = make_cfg(arch=arch, width=4, crop_size=32, batch_size=6, nce_k=15,
+                   compute_dtype="float32", pn_num_points=64)
     rng = np.random.default_rng(1)
     batch = synthetic_contrast_batch(rng, 6, size=32, n_data=64)
-    # depth of every sample non-zero: the synthetic all-zero depth samples
-    # leave the tiny depth encoder too ill-conditioned to compare
-    batch["rgbd"] = (rng.standard_normal((6, 32, 32, 6)) * 0.5).astype(
-        np.float32)
+    if arch == "HRNet":
+        # depth of every sample non-zero: the synthetic all-zero depth
+        # samples leave the tiny depth encoder too ill-conditioned to
+        # compare
+        batch["rgbd"] = (rng.standard_normal((6, 32, 32, 6)) * 0.5).astype(
+            np.float32)
+    else:
+        batch["pts_u"] = rng.random((6, 64), dtype=np.float32)
+        if not 0 < int(batch["use_depth"].sum()) < 6:
+            raise AssertionError("the batch must hold valid and zero clouds")
     counts = sample_negative_counts(torch.Generator().manual_seed(2), 6, 64,
                                     15)
     torch.manual_seed(0)
-    model = set_convbn_fuse(build_model(cfg), False)
+    model = set_convbn_fuse(build_model(cfg, device="cpu"), False)
     banks = None
     res = {}
-    for dev in ("cpu", "cuda"):
+    runs = ["cpu", "cuda"] + (["cpu-f64"] if arch == "HRNetPN" else [])
+    for run in runs:
+        dev = run.split("-")[0]
         m = copy.deepcopy(model).to(dev)
+        if run == "cpu-f64":  # encoder2 in float64: the reference
+            m.encoder2.double()
+            for mod in m.encoder2.modules():
+                if hasattr(mod, "compute_dtype"):
+                    mod.compute_dtype = torch.float64
         st = create_train_state(cfg, m, torch.Generator(dev).manual_seed(3),
                                 n_data=64, steps_per_epoch=10)
         if banks is None:
@@ -185,19 +490,50 @@ def small_reference_check(card: str) -> None:
         step = make_contrast_train_step(cfg, m, steps_per_epoch=10)
         losses = {k: float(v) for k, v in step(st, b).items()
                   if k.startswith("nce_loss") or k == "loss"}
-        res[dev] = (losses, {k: v.cpu() for k, v in m.state_dict().items()},
+        res[run] = (losses, {k: v.cpu() for k, v in m.state_dict().items()},
                     st.banks.cpu())
     (l_ref, sd_ref, b_ref), (l_got, sd_got, b_got) = res["cpu"], res["cuda"]
+    pn_tol = dict(rtol=1e-3, atol=5e-4)
     for k, ref in l_ref.items():
-        if not abs(l_got[k] - ref) <= 1e-4 * abs(ref):
+        tol = pn_tol if arch == "HRNetPN" and "2" in k else dict(
+            rtol=1e-4, atol=0.0)
+        if not abs(l_got[k] - ref) <= tol["atol"] + tol["rtol"] * abs(ref):
             raise AssertionError(f"tiny step {k}: card {l_got[k]} vs cpu {ref}")
-    for k, ref in list(sd_ref.items()) + [("banks", b_ref)]:
-        got = sd_got[k] if k != "banks" else b_got
-        if ref.is_floating_point():
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
-                                       msg=lambda m, k=k: f"tiny step {k}: {m}")
-    print(f"tiny f32 step, card vs cpu: loss {l_got['loss']:.6f} vs "
-          f"{l_ref['loss']:.6f}, params and banks within rtol 1e-4 [{card}]")
+    for i in range(b_ref.shape[0]):
+        torch.testing.assert_close(
+            b_got[i], b_ref[i],
+            **(pn_tol if arch == "HRNetPN" and i == 1 else
+               dict(rtol=1e-4, atol=1e-5)),
+            msg=lambda m, i=i: f"tiny step bank {i + 1}: {m}")
+    dist = {"cuda": 0.0, "cpu": 0.0}
+    for k, ref in sd_ref.items():
+        if not ref.is_floating_point():
+            continue
+        if arch == "HRNetPN" and k.startswith("encoder2."):
+            if k.endswith(("running_mean", "running_var")):
+                torch.testing.assert_close(
+                    sd_got[k], ref, rtol=1e-3,
+                    atol=1e-3 * float(ref.abs().max()),
+                    msg=lambda m, k=k: f"tiny step {k}: {m}")
+            else:
+                truth = res["cpu-f64"][1][k].double()
+                for run in dist:
+                    dist[run] += float(((res[run][1][k].double() - truth)
+                                        ** 2).sum())
+            continue
+        torch.testing.assert_close(sd_got[k], ref, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, k=k: f"tiny step {k}: {m}")
+    note = ""
+    if arch == "HRNetPN":
+        card_d, cpu_d = dist["cuda"] ** 0.5, dist["cpu"] ** 0.5
+        if not card_d <= 3 * cpu_d:
+            raise AssertionError(f"tiny step encoder2: card {card_d} vs cpu "
+                                 f"{cpu_d} from the float64 step")
+        note = (f"; encoder2 params {card_d:.4g} (card) and {cpu_d:.4g} "
+                "(cpu) from the float64 step")
+    print(f"tiny f32 {arch} step, card vs cpu: loss {l_got['loss']:.6f} vs "
+          f"{l_ref['loss']:.6f}, params and banks within tolerance{note} "
+          f"[{card}]")
 
 
 def drive_slice(card: str) -> int:
@@ -276,6 +612,137 @@ def drive_slice(card: str) -> int:
     return launches
 
 
+def point_wrappers() -> dict:
+    """K2-K6's wrappers by JSON entry, in check_points' order, with the
+    launches each makes in one HRNetPN train step."""
+    from hcmoco_tpu_torch.ops import ball_query, fps, point_gather, three_nn
+
+    return {"fps": (fps.fps_cuda, 3),
+            "ball_query": (ball_query.ball_query_cuda, 8),
+            "three_nn": (three_nn.three_nn_cuda, 4),
+            "group_rows fwd": (point_gather.group_rows_cuda, 8),
+            "group_rows bwd": (point_gather.group_rows_bwd_cuda, 8),
+            "interpolate_rows fwd": (point_gather.interpolate_rows_cuda, 4),
+            "interpolate_rows bwd": (point_gather.interpolate_rows_bwd_cuda,
+                                     4)}
+
+
+# (class, substrings of the lower-cased kernel name), first match wins
+PN_CLASSES = (
+    ("K2-K6 point kernels", ("fps_kernel", "ball_query_kernel",
+                             "three_nn_kernel", "group_fwd", "group_bwd",
+                             "interp_fwd", "interp_bwd", "cast_bf16")),
+    ("cuDNN batch norm", ("batchnorm", "batch_norm", "welford")),
+    ("bilinear upsample", ("upsample",)),
+    ("cuDNN convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad",
+                           "dgrad", "sm90_", "nhwc")),
+    ("cuBLAS gemm", ("gemm", "cutlass", "matmul")),
+    ("sort, scan, search", ("sort", "scan", "search", "radix", "cub::")),
+    ("index, gather, scatter", ("index", "gather", "scatter")),
+    ("reductions", ("reduce",)),
+    ("copies, casts, fills", ("copy", "memcpy", "memset", "fill")),
+    ("elementwise arithmetic", ("mul", "add", "sub", "rsqrt", "div", "clamp",
+                                "where", "threshold", "relu", "max", "min")),
+)
+
+
+def profile_steps(card: str, step, state, batch, gen, median_s: float,
+                  n: int = 2) -> None:
+    """Device kernel time of `n` more steps under torch.profiler, by kernel
+    class and the top kernels, and its share of the median step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    # kernels only: a user annotation's device row spans counted kernels
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    print(f"profile: device kernel time {total:.3f} ms/step, busy share "
+          f"{total / (median_s * 1e3):.3f} of the median step [{card}]")
+    classes, members = {}, {}
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total):
+        k = e.key.lower()
+        cls = next((c for c, keys in PN_CLASSES
+                    if any(t in k for t in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + e.self_device_time_total / 1e3
+        members.setdefault(cls, []).append(e)
+    for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"  [class] {us / n:9.3f} ms/step  {cls}")
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:20]
+    for e in top + [e for e in members.get("K2-K6 point kernels", [])
+                    + members.get("other", [])[:5] if e not in top]:
+        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
+              f"{e.count // n:6d} calls/step  {e.key[:90]}")
+
+
+def drive_pn(card: str) -> dict:
+    """Stage-1 HRNetPN W18 320^2 bs64 train steps, 4096 points, through the
+    user entry points (ConvBN fuse at its default, off); returns each point
+    kernel's launches during the steps."""
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    cfg = make_cfg(arch="HRNetPN", batch_size=PN_BATCH)
+    os.environ.pop("HCMOCO_CONVBN_FUSE", None)  # drive_slice set it
+    torch.manual_seed(0)
+    model = build_model(cfg).to(memory_format=torch.channels_last)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = create_train_state(cfg, model, gen, n_data=N_DATA,
+                               steps_per_epoch=100)
+    step = make_contrast_train_step(cfg, model, steps_per_epoch=100)
+    batch = to_device(synthetic_contrast_batch(
+        np.random.default_rng(0), PN_BATCH, size=cfg.crop_size,
+        num_joints=16, n_data=N_DATA), dev)
+    if not (0 < int(batch["use_depth"].sum()) < PN_BATCH):
+        raise AssertionError("the batch must hold valid and zero clouds")
+    wrappers = point_wrappers()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in wrappers.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in m.items()
+                       if k.startswith("nce_loss") or k == "loss"})
+    launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
+    for i, l in enumerate(losses):
+        if not all(np.isfinite(v) for v in l.values()):
+            raise AssertionError(f"HRNetPN step {i}: non-finite loss {l}")
+    for name, (_, per_step) in wrappers.items():
+        if launches[name] != per_step * STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{STEPS} steps, expected {per_step} x "
+                                 f"{STEPS}")
+    if not bool(torch.isfinite(state.banks).all()):
+        raise AssertionError("non-finite bank rows")
+    print("HRNetPN losses per step: "
+          + ", ".join(f"{l['loss']:.5f}" for l in losses))
+    print("HRNetPN step times (s): " + ", ".join(f"{t:.4f}" for t in times)
+          + f"; first step includes warm-up [{card}]")
+    steady = statistics.median(times[1:])
+    print(f"HRNetPN W18 320^2 bs{PN_BATCH} 4096-point stage-1 step: median "
+          f"{steady * 1e3:.2f} ms = {PN_BATCH / steady:.2f} samples/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches} in {STEPS} steps [{card}]")
+    profile_steps(card, step, state, batch, gen, steady)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -295,15 +762,20 @@ def main() -> int:
     k1 = check_k1(card)
     small_reference_check(card)
     k1["launches"] = drive_slice(card)
-    k1 = {k: k1[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms")}
+    points = check_points(card)
+    small_reference_check(card, "HRNetPN")
+    for entry, launches in zip(points, drive_pn(card).values()):
+        entry["launches"] = launches
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{k: e[k] for k in keys} for e in [k1] + points]
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                              "hcmoco_tpu"))
     if jax_mods:
         raise AssertionError(f"JAX or the JAX package was imported: "
                              f"{jax_mods[:10]}")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`nvcc` compiles `csrc/*.cu` for `sm_90a` into one shared library with a
-plain C interface under `build/hcmoco_tpu_torch/` at the repository root
-(git-ignored).  The file name carries a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded.  A failed
-build raises: there is no fallback to the plain PyTorch versions.
+`nvcc` compiles each of `csrc/*.cu` for `sm_90a` into an object, all of
+them at once in parallel processes, and links the objects into one shared
+library with a plain C interface under `build/hcmoco_tpu_torch/` at the
+repository root (git-ignored).  The file name carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded.  A failed build raises: there is no fallback to the plain
+PyTorch versions.
 
 Nothing here runs at import time, so the package imports on machines with
 no GPU and no CUDA toolkit.
@@ -22,9 +24,15 @@ from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _PKG_DIR.parent / "build" / "hcmoco_tpu_torch"
-SOURCES = (_PKG_DIR / "csrc" / "matmul_bn.cu",)
+SOURCES = tuple(_PKG_DIR / "csrc" / name for name in (
+    "matmul_bn.cu",      # K1
+    "fps.cu",            # K2
+    "ball_query.cu",     # K3
+    "three_nn.cu",       # K4
+    "point_gather.cu",   # K5, K6
+))
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,15 +66,37 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            stdout, stderr = proc.communicate()
+            _check_proc(cmd, proc.returncode, stdout, stderr)
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_proc(link, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
+
+
+def _check_proc(cmd, rc: int, stdout: str, stderr: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                           f"{stdout}\n{stderr}")
 
 
 def load() -> ctypes.CDLL:
@@ -81,6 +111,23 @@ def load() -> ctypes.CDLL:
             lib.hcmoco_mm_bn_stats.argtypes = [vp, vp, vp, vp, vp,
                                                ci, ci, ci, vp]
             lib.hcmoco_mm_bn_stats.restype = ci
+            lib.hcmoco_fps.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.hcmoco_ball_query.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                              ctypes.c_float, vp]
+            lib.hcmoco_three_nn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+            lib.hcmoco_group_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                             vp]
+            lib.hcmoco_group_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                             ci, vp]
+            lib.hcmoco_interp_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                              ci, vp]
+            lib.hcmoco_interp_bwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                              ci, ci, vp]
+            for fn in (lib.hcmoco_fps, lib.hcmoco_ball_query,
+                       lib.hcmoco_three_nn, lib.hcmoco_group_fwd,
+                       lib.hcmoco_group_bwd, lib.hcmoco_interp_fwd,
+                       lib.hcmoco_interp_bwd):
+                fn.restype = ci
             lib.hcmoco_cuda_error_string.argtypes = [ci]
             lib.hcmoco_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -147,6 +147,15 @@ class TrainConfig:
     aug: str = "C"
     crop_size: int = 320
 
+    # HRNetPN point-cloud branch: the original depth frame size for the
+    # back-projection intrinsics (Kinect, 424x512) and the points sampled
+    # per cloud.  pn_remat (recompute the SA MLPs in the backward) is not
+    # ported: the step raises on it.
+    pn_ori_h: float = 424.0
+    pn_ori_w: float = 512.0
+    pn_num_points: int = 4096
+    pn_remat: bool = False
+
     # precision / step structure
     microbatch: int = 1
     remat: bool = False

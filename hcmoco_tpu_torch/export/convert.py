@@ -1,11 +1,25 @@
 """JAX package trees -> the port's state dict.
 
-`flax_to_port_state_dict` takes an HCMoCoModel's flax `params` and
-`batch_stats` (as numpy arrays) and returns the reference-named torch state
-dict that hcmoco_tpu_torch's HCMoCoModel loads with strict=True.  The
-HRNet encoders reuse hcmoco_tpu.export.transfer's numpy name tables; the
-SemGCN and head maps are the inverses of its `_sgcn_torch_to_flax` and
+`flax_to_port_state_dict` takes an HCMoCoModel's or HCMoCoPNModel's flax
+`params` and `batch_stats` (as numpy arrays) and returns the
+reference-named torch state dict that the port's model loads with
+strict=True.  The HRNet encoders go through the port's copy of the JAX
+package's name tables (export/transfer.py); the SemGCN and head maps are
+the inverses of hcmoco_tpu.export.transfer's `_sgcn_torch_to_flax` and
 `hcmoco_torch_to_flax` head mapping.
+
+PointNet++ (HCMoCoPNModel's encoder2): tests/golden holds no PointNet++
+key list, so the names follow the reference's pointnet2_msg.py
+(SA_modules / FP_modules) and its pytorch_utils SharedMLP (layer{j} of a
+1x1 conv `conv` and a BN wrapper `bn.bn`):
+
+  sa{k}/mlp{i}/dense{j}/kernel (Fin, Fout)
+      -> encoder2.SA_modules.{k}.mlps.{i}.layer{j}.conv.weight (Fout, Fin, 1, 1)
+  sa{k}/mlp{i}/bn{j}/{scale, bias} + batch_stats {mean, var}
+      -> encoder2.SA_modules.{k}.mlps.{i}.layer{j}.bn.bn.{weight, bias,
+         running_mean, running_var, num_batches_tracked}
+  fp{k}/mlp/dense{j}, fp{k}/mlp/bn{j}
+      -> encoder2.FP_modules.{k}.mlp.layer{j}.conv / .bn.bn (as above)
 
 BN running variance: flax tracks the biased batch variance, torch the
 unbiased one.  The port keeps torch semantics, and a flax `var` becomes
@@ -19,7 +33,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from hcmoco_tpu.export.transfer import hrnet_flax_to_torch
+from .transfer import hrnet_flax_to_torch
 
 
 def _bn(out: Dict[str, np.ndarray], prefix: str, p: Dict, s: Dict) -> None:
@@ -75,12 +89,52 @@ def head_flax_to_torch(params: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _shared_mlp(out: Dict[str, np.ndarray], prefix: str, p: Dict,
+                s: Dict) -> None:
+    """A flax SharedMLP (dense{j}, bn{j}) -> layer{j}.conv / layer{j}.bn.bn."""
+    j = 0
+    while f"dense{j}" in p:
+        k = np.asarray(p[f"dense{j}"]["kernel"])  # (Fin, Fout)
+        out[f"{prefix}.layer{j}.conv.weight"] = k.T[:, :, None, None]
+        _bn(out, f"{prefix}.layer{j}.bn.bn", p[f"bn{j}"], s[f"bn{j}"])
+        j += 1
+
+
+def pointnet2_flax_to_torch(params: Dict, stats: Dict,
+                            prefix: str = "") -> Dict[str, np.ndarray]:
+    """A Pointnet2MSG's flax trees -> the port's names (module docstring)."""
+    out: Dict[str, np.ndarray] = {}
+    k = 0
+    while f"sa{k}" in params:
+        i = 0
+        while f"mlp{i}" in params[f"sa{k}"]:
+            _shared_mlp(out, f"{prefix}SA_modules.{k}.mlps.{i}",
+                        params[f"sa{k}"][f"mlp{i}"],
+                        stats[f"sa{k}"][f"mlp{i}"])
+            i += 1
+        k += 1
+    k = 0
+    while f"fp{k}" in params:
+        _shared_mlp(out, f"{prefix}FP_modules.{k}.mlp",
+                    params[f"fp{k}"]["mlp"], stats[f"fp{k}"]["mlp"])
+        k += 1
+    return out
+
+
 def flax_to_port_state_dict(params: Dict[str, Any],
                             batch_stats: Dict[str, Any]
                             ) -> Dict[str, torch.Tensor]:
-    """HCMoCoModel flax trees -> the port's HCMoCoModel state dict."""
+    """HCMoCoModel or HCMoCoPNModel flax trees -> the port model's state
+    dict (the PN model's encoder2 holds sa0/fp0 modules)."""
     sd: Dict[str, np.ndarray] = {}
-    for enc in ("encoder1", "encoder2"):
+    encoders = ["encoder1"]
+    if "sa0" in params["encoder2"]:
+        sd.update(pointnet2_flax_to_torch(params["encoder2"],
+                                          batch_stats["encoder2"],
+                                          "encoder2."))
+    else:
+        encoders.append("encoder2")
+    for enc in encoders:
         for k, v in hrnet_flax_to_torch(params[enc],
                                         batch_stats.get(enc, {})).items():
             sd[f"{enc}.{k}"] = v

@@ -1,6 +1,8 @@
 """Model assembly (counterpart of hcmoco_tpu/models/build.py).
 
-The flagship tri-modal model, the reference's CMC3HRNetSGCNSingleHead
+`build_model` dispatches to HCMoCoModel (arch 'HRNet', below) or
+HCMoCoPNModel (arch 'HRNetPN', models/pointnet2_model.py).  The flagship
+tri-modal model, the reference's CMC3HRNetSGCNSingleHead
 (build_backbone.py:186-303): HRNet(RGB) + HRNet(depth copied to 3
 channels) + SemGCN, each globally pooled and projected to an L2-normalised
 128-d feature.  Keys match tests/golden/hcmoco_w18_torch_keys.txt.
@@ -8,28 +10,18 @@ channels) + SemGCN, each globally pooled and projected to an L2-normalised
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
 from ..core.config import HRNET_CONFIGS, TrainConfig
 from .heads import ProjectionHead
-from .hrnet import HRNet
+from .hrnet import HRNet, pool_maps
+from .pointnet2_model import HCMoCoPNModel
 from .sgcn import SemGCN
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _pool(feats: Sequence[torch.Tensor], method: str) -> torch.Tensor:
-    """Pool each NCHW HRNet map globally in f32 and concat (270-d at W18);
-    build_backbone.py:266-281."""
-    pooled = []
-    for f in feats:
-        f32 = f.float()
-        pooled.append(f32.mean(dim=(2, 3)) if method == "mean"
-                      else f32.amax(dim=(2, 3)))
-    return torch.cat(pooled, dim=-1)
 
 
 class HCMoCoModel(nn.Module):
@@ -68,8 +60,8 @@ class HCMoCoModel(nn.Module):
         fm2 = self.encoder2(rgbd[:, c1:c1 + c2])
         fj = self.encoder3(skeleton)
         out = {
-            "pooled1": _pool(fm1, self.pool_method),
-            "pooled2": _pool(fm2, self.pool_method),
+            "pooled1": pool_maps(fm1, self.pool_method),
+            "pooled2": pool_maps(fm2, self.pool_method),
             "pooled3": fj.float().mean(dim=1),
         }
         out["feat1"] = self.head1(out["pooled1"])
@@ -78,9 +70,15 @@ class HCMoCoModel(nn.Module):
         return out
 
 
-def build_model(cfg: TrainConfig, device=None) -> nn.Module:
+def build_model(cfg: TrainConfig, device="cuda") -> nn.Module:
     """Registry dispatch on modal + arch (build_backbone.py:516-546); the
-    model's parameters are created on `device`."""
+    model's parameters are created on `device`: the card unless the
+    caller asks for another device, as the CPU tests do."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device is available; pass "
+                           "device='cpu' to build on the CPU")
+    dtype = _DTYPES[cfg.compute_dtype]
     if cfg.modal == "RGBD2S" and cfg.arch == "HRNet":
         model = HCMoCoModel(
             width=cfg.width,
@@ -90,12 +88,26 @@ def build_model(cfg: TrainConfig, device=None) -> nn.Module:
             linear_feat_map=cfg.linear_feat_map,
             pool_method=cfg.pool_method,
             skeleton_meta=cfg.skeleton_meta_name,
-            dtype=_DTYPES[cfg.compute_dtype],
+            dtype=dtype,
         )
         return model.to(device)
     if cfg.modal == "RGBD2S" and cfg.arch == "HRNetPN":
-        raise NotImplementedError(
-            "arch HRNetPN is not ported yet: ROADMAP.md Queue 1 item 7")
+        if cfg.pn_remat:
+            raise NotImplementedError(
+                "pn_remat is not ported yet: ROADMAP.md Queue 1 item 15")
+        # stage 1: the linear_feat_map heads belong to the stage-2 forward
+        # (return_fm), which is not ported; the JAX package creates them
+        # only there
+        model = HCMoCoPNModel(
+            width=cfg.width,
+            feat_dim=cfg.feat_dim,
+            head=cfg.head,
+            pool_method=cfg.pool_method,
+            skeleton_meta=cfg.skeleton_meta_name,
+            n_points=cfg.pn_num_points,
+            dtype=dtype,
+        )
+        return model.to(device)
     if cfg.modal in ("CMC", "RGB"):
         raise NotImplementedError(
             f"modal {cfg.modal} is not ported yet: ROADMAP.md Queue 1 item 11")

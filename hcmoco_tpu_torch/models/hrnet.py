@@ -171,6 +171,17 @@ def _make_blocks(block_name: str, inplanes: int, planes: int, n: int,
     return nn.Sequential(*layers)
 
 
+def pool_maps(feats: Sequence[torch.Tensor], method: str) -> torch.Tensor:
+    """Pool each NCHW HRNet map globally in f32 and concat (270-d at W18);
+    build_backbone.py:266-281."""
+    pooled = []
+    for f in feats:
+        f32 = f.float()
+        pooled.append(f32.mean(dim=(2, 3)) if method == "mean"
+                      else f32.amax(dim=(2, 3)))
+    return torch.cat(pooled, dim=-1)
+
+
 def _resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize on NCHW in f32, align_corners=False."""
     if x.shape[2] == h and x.shape[3] == w:

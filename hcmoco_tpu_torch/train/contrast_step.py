@@ -11,6 +11,10 @@ Batch dict (the JAX package's field names; tensors on the model's device):
   use_depth (B,) int | use_rgb (B,) int (optional) |
   counts (B, n_data) f32 (optional: pins the negative draw; how often each
   bank row was drawn as a negative)
+arch 'HRNetPN' also reads (dataset.py:1105-1118):
+  depth_mask (B, H, W) f32 | grid_xy (B, H, W, 2) f32 | depth_mean (B,) f32 |
+  pts_u (B, pn_num_points) f32 in [0, 1) (optional: pins the depth2pts
+  draw; else the step's generator draws it)
 """
 
 from __future__ import annotations
@@ -52,17 +56,20 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
     """Build step(state, batch, generator=None) -> metrics for stage 1.
 
     The step updates `state` in place (params, optimizer, banks, step).
-    `generator` draws the negatives unless the batch carries `counts`.
+    `generator` draws the negatives unless the batch carries `counts`,
+    and for HRNetPN first the depth2pts uniforms unless it carries
+    `pts_u`.
     Metrics: nce_loss_*/nce_acc_* for the six directions, loss and
     learning_rate, as 0-d tensors (learning_rate a float)."""
-    if cfg.modal != "RGBD2S" or cfg.mem != "bank" or cfg.arch != "HRNet":
+    if (cfg.modal != "RGBD2S" or cfg.mem != "bank"
+            or cfg.arch not in ("HRNet", "HRNetPN")):
         raise NotImplementedError(
             f"train step for modal={cfg.modal} mem={cfg.mem} arch={cfg.arch}"
-            " is not ported yet: ROADMAP.md Queue 1 items 7, 8 and 11")
-    if cfg.remat or cfg.microbatch > 1:
+            " is not ported yet: ROADMAP.md Queue 1 items 8 and 11")
+    if cfg.remat or cfg.microbatch > 1 or cfg.pn_remat:
         raise NotImplementedError(
-            "remat and microbatch are not ported yet: ROADMAP.md Queue 1 "
-            "items 9 and 15")
+            "remat, pn_remat and microbatch are not ported yet: ROADMAP.md "
+            "Queue 1 items 9 and 15")
     lr_fn = learning_rate_fn(cfg, steps_per_epoch)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -76,7 +83,17 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
         model.train()
         y = batch["index"].long()
         # NHWC -> NCHW: a view, channels_last in memory
-        out = model(batch["rgbd"].permute(0, 3, 1, 2), batch["skeleton"])
+        rgbd = batch["rgbd"].permute(0, 3, 1, 2)
+        if cfg.arch == "HRNetPN":
+            # the point-cloud branch needs the crop-tracked pixel coords
+            # and the per-sample depth mean (_train_mem_skeleton3d
+            # :557-561)
+            out = model(rgbd, batch["skeleton"], batch["depth_mask"],
+                        batch["grid_xy"], cfg.pn_ori_h, cfg.pn_ori_w,
+                        batch["depth_mean"], generator=generator,
+                        u=batch.get("pts_u"))
+        else:
+            out = model(rgbd, batch["skeleton"])
         feats = torch.stack([out["feat1"], out["feat2"], out["feat3"]])
         per_sample = cmc3_losses_counts(
             feats, state.banks, y, k=cfg.nce_k, temperature=cfg.nce_t,

@@ -41,6 +41,15 @@ def test_train_config_defaults_match_jax():
         assert getattr(port, name) == getattr(jax_cfg, name), name
 
 
+def test_pointnet_fields_match_jax():
+    """The HRNetPN fields the port reads, at the JAX package's defaults."""
+    port, jax_cfg = config.TrainConfig(), jax_config.TrainConfig()
+    want = dict(pn_ori_h=424.0, pn_ori_w=512.0, pn_num_points=4096,
+                pn_remat=False)
+    for name, value in want.items():
+        assert getattr(port, name) == getattr(jax_cfg, name) == value, name
+
+
 @pytest.mark.parametrize("kw", [
     dict(method="CMCRGBD2S", batch_size=32, epochs=100, cosine=True,
          nce_k=16384, modality_missing=True, crop_size=320),

@@ -1,7 +1,7 @@
 """Importing hcmoco_tpu_torch and every one of its modules pulls in neither
-JAX, flax, optax nor triton, and needs no GPU or CUDA toolkit; only the
-converter from the JAX package's trees reads the JAX package at all, and
-chip_smoke.py imports nothing of it."""
+JAX, flax, optax, triton nor anything of the JAX package (hcmoco_tpu), and
+needs no GPU or CUDA toolkit; no module of the port names hcmoco_tpu in
+an import, and chip_smoke.py imports nothing of it."""
 
 import ast
 import os
@@ -12,16 +12,28 @@ import sys
 import hcmoco_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the bridge from the JAX package's numpy trees (tests only)
-BRIDGE = "hcmoco_tpu_torch.export.convert"
+BANNED = ("jax", "jaxlib", "flax", "optax", "triton", "hcmoco_tpu")
 
 
 def _port_modules():
     names = [m.name for m in pkgutil.walk_packages(
         hcmoco_tpu_torch.__path__, "hcmoco_tpu_torch.")]
     assert "hcmoco_tpu_torch.train.contrast_step" in names
-    assert BRIDGE in names
+    assert "hcmoco_tpu_torch.export.convert" in names
     return ["hcmoco_tpu_torch"] + names
+
+
+def _import_roots(path):
+    """The top-level package of every absolute import in a source file,
+    those inside functions included."""
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
 
 
 def _import_in_subprocess(names, banned):
@@ -40,25 +52,23 @@ def _import_in_subprocess(names, banned):
 
 
 def test_port_imports_without_jax_or_triton():
-    _import_in_subprocess(_port_modules(),
-                          ("jax", "jaxlib", "flax", "optax", "triton"))
+    _import_in_subprocess(_port_modules(), BANNED)
 
 
 def test_runtime_modules_import_nothing_of_jax_package():
-    """What a training run imports reads nothing of hcmoco_tpu."""
-    names = [n for n in _port_modules() if n != BRIDGE]
-    _import_in_subprocess(names, ("jax", "jaxlib", "flax", "optax", "triton",
-                                  "hcmoco_tpu"))
+    """No source file of the port names JAX or hcmoco_tpu in an import,
+    not even inside a function that the import test above never runs."""
+    pkg = os.path.join(REPO, "hcmoco_tpu_torch")
+    sources = [os.path.join(d, f) for d, _, files in os.walk(pkg)
+               for f in files if f.endswith(".py")]
+    assert len(sources) >= len(_port_modules())
+    for path in sources:
+        bad = _import_roots(path) & set(BANNED)
+        assert not bad, (path, bad)
 
 
 def test_chip_smoke_imports_nothing_of_jax():
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots.add(node.module.split(".")[0])
+    roots = _import_roots(os.path.join(REPO, "chip_smoke.py"))
     assert "hcmoco_tpu_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "flax", "optax", "hcmoco_tpu"}
 

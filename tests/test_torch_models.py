@@ -315,3 +315,21 @@ class TestHCMoCoModel:
         np.testing.assert_array_equal(
             model.encoder1.conv1.weight.detach().numpy(),
             sd["encoder1.conv1.weight"].numpy())
+
+
+@pytest.mark.parametrize("arch", ["HRNet", "HRNetPN"])
+def test_build_model_defaults_to_the_card(monkeypatch, arch):
+    """With no device given build_model places the model on CUDA, and
+    raises when CUDA is hidden; the CPU is used only when asked for."""
+    from hcmoco_tpu_torch.core.config import TrainConfig, resolve_config
+    from hcmoco_tpu_torch.models.build import build_model
+
+    cfg = resolve_config(TrainConfig(method="Customize", modal="RGBD2S",
+                                     arch=arch, width=4, mem="bank",
+                                     compute_dtype="float32",
+                                     pn_num_points=64))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

@@ -93,7 +93,7 @@ def test_two_steps_match_jax(monkeypatch, fuse):
                               n_data=N_DATA, steps_per_epoch=1)
     jstep = jax_make_step(jcfg, jmodel, steps_per_epoch=1)
 
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(
         flax_to_port_state_dict(jstate.params, jstate.batch_stats),
         strict=True)
@@ -145,7 +145,7 @@ def test_step_samples_negatives_with_generator():
     """Without pinned counts the step draws them from the generator; the
     loss is finite, params move, touched bank rows stay unit-norm."""
     cfg = tiny_cfg()
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     g = torch.Generator().manual_seed(0)
     state = create_train_state(cfg, model, g, n_data=N_DATA,
                                steps_per_epoch=1)
