@@ -3,7 +3,7 @@ kernels, holds each against its plain PyTorch version at the main paths'
 shapes, and drives the two stage-1 train steps the port has:
 
   * HCMoCo (HRNet-W18 x2 + SemGCN, 320^2 crops, bank NCE with K=16384,
-    bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernel K1;
+    bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernels K1 and K1b;
   * HRNetPN (HRNet-W18 + PointNet++ MSG on 4096 depth points + SemGCN,
     320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
     steps under torch.profiler (device ms per kernel class).
@@ -44,6 +44,7 @@ N_DATA = 8192
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 F32_OPS_S = 67e12  # outside the tensor cores
+SPIN_CYCLES_S = 2e9  # torch.cuda._sleep cycles a second, at least
 
 
 def card_line() -> str:
@@ -55,19 +56,27 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` CUDA-event timings of fn(), in ms."""
+    """Device time of one fn(), in ms: the mean over `iters` back-to-back
+    calls between two CUDA events.  The card first spins (torch.cuda._sleep)
+    for twice as long as the host took to enqueue the calls, so the events
+    time the card's work and not the host's launch overhead."""
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SPIN_CYCLES_S))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -88,15 +97,17 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
 def check_k1(card: str) -> dict:
     """K1 against its plain version at the W18 main-path shapes (bs32,
     320^2): y within 1 bf16 ulp, s1/s2 within 1e-5 of f64 sums of the
-    kernel's own y (relative to each channel's sum of magnitudes), dx/dw through the autograd.Function within rel 1e-2 of
-    plain autograd (bf16 operands: the two round dy_total at different
-    points)."""
+    kernel's own y (relative to each channel's sum of magnitudes) and
+    bit-identical over two launches, dx/dw through the autograd.Function
+    within rel 1e-2 of plain autograd (bf16 operands: the two round
+    dy_total at different points)."""
     from hcmoco_tpu_torch.ops import matmul_bn as mb
 
     g = torch.Generator(device="cuda").manual_seed(0)
     shapes = [  # (R, K, C, site)
-        (204800, 64, 256, "layer1 cb3/downsample 80x80"),
-        (204800, 256, 64, "layer1 cb1 80x80"),
+        (204800, 64, 256, "layer1 conv3/downsample 80x80"),
+        (204800, 256, 64, "layer1 conv1 of blocks 2-4 80x80"),
+        (204800, 64, 64, "layer1 conv1 of block 1 80x80"),
         (51200, 36, 18, "fuse0_1 at 40x40"),
         (12800 + 37, 144, 72, "ragged R, fuse2_3-like"),
     ]
@@ -107,8 +118,12 @@ def check_k1(card: str) -> dict:
         w = (torch.randn((c, k), generator=g, device="cuda")
              / k ** 0.5).bfloat16()
         y, s1, s2 = mb.mm_bn_stats_cuda(x, w)
+        _, s1b, s2b = mb.mm_bn_stats_cuda(x, w)
         yp, s1p, s2p = mb.mm_bn_stats_plain(x, w)
         torch.cuda.synchronize()
+        if not (torch.equal(s1, s1b) and torch.equal(s2, s2b)):
+            raise AssertionError(f"K1 sums differ between two launches at "
+                                 f"{site}")
         yf, ypf = y.float(), yp.float()
         err = (yf - ypf).abs()
         bad = err > bf16_ulp(torch.maximum(yf.abs(), ypf.abs()))
@@ -139,19 +154,187 @@ def check_k1(card: str) -> dict:
                 raise AssertionError(f"K1 {name} rel err {rel} at {site}")
         ms = cuda_ms(lambda: mb.mm_bn_stats_cuda(x, w))
         plain_ms = cuda_ms(lambda: mb.mm_bn_stats_plain(x, w))
+        # y only, no sums: one cuBLAS call
+        lib_ms = cuda_ms(lambda: torch.matmul(x, w.t()))
+        # x and w read, y and the two f32 sums written; 2RKC bf16 ops
+        bnd = bound(2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
+                    BF16_OPS_S)
         print(f"K1 R={r} K={k} C={c} ({site}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, y max|err| {float(err.max()):.6g}, "
-              f"s1/s2/dx/dw ok [{card}]")
+              f"{plain_ms:.4f} ms, torch.matmul (y only) {lib_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), y "
+              f"max|err| {float(err.max()):.6g}, s1/s2 deterministic, "
+              f"dx/dw ok [{card}]")
         if main is None:
-            # x and w read, y and the two f32 sums written; 2RKC bf16 ops
-            main = dict(ms=ms, plain_ms=plain_ms, **bound(
-                2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
-                BF16_OPS_S))
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
     return {"name": "mm_bn_stats (fused 1x1 conv + BN stats)",
             "route": "cuda",
             "source": "hcmoco_tpu_torch/csrc/matmul_bn.cu",
             "replaces": "hcmoco_tpu/ops/pallas/matmul_bn.py:34",
-            "max_abs_err": max_err, "library_ms": None, **main}
+            "max_abs_err": max_err, **main}
+
+
+def f32_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One f32 ulp at |v| (24 significant bits)."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 24)
+
+
+def within(name: str, got: torch.Tensor, want: torch.Tensor,
+           tol: torch.Tensor) -> float:
+    err = (got.double() - want.double()).abs()
+    bad = err > tol
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
+                             f"err {float(err.max())}")
+    return float(err.max())
+
+
+def check_k1b(card: str) -> list:
+    """K1b (bn_apply_stats forward and backward, K1's dyt prologue) against
+    the plain versions on the same inputs, at the layer1 shapes and a ragged
+    R with C=18.  Channel 0 of y is constant, so the var >= 0 clamp binds
+    there.  Tolerances: out, dy, dyt within 1 bf16 ulp; mean, var within 1
+    f32 ulp and the running statistics within 2 (the update's add may
+    contract into an FMA in PyTorch's kernel); dbias, dscale within 1e-5 of
+    the f64 sums of their terms' magnitudes; ds1, ds2 within 1 bf16 ulp plus
+    the error that 1e-5 of those magnitudes, in both the kernel's and the
+    plain version's sums, carries into them."""
+    import torch.nn.functional as F
+
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+    errs = [0.0] * 4
+    main = None
+    for r, c, site in ((204800, 256, "layer1 conv3/downsample"),
+                       (204800, 64, "layer1 conv1"),
+                       (12800 + 37, 18, "ragged R, C=18")):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        y = (rnd(r, c) * 1.3 + 0.2).bfloat16()
+        y[:, 0] = 0.5
+        yf = y.float()
+        s1, s2 = yf.sum(0), (yf * yf).sum(0)
+        scale = torch.rand((c,), generator=g, device=dev) + 0.5
+        bias = rnd(c)
+        rm0, rv0 = rnd(c), rnd(c).abs() + 0.5
+
+        def running():
+            return (rm0.clone(), rv0.clone(),
+                    torch.zeros((), dtype=torch.int64, device=dev), 0.01)
+
+        run_k, run_p = running(), running()
+        out, mean, var, rstd = mb.bn_apply_fwd_cuda(y, s1, s2, scale, bias,
+                                                    1e-5, run_k)
+        pout, pmean, pvar, prstd = mb.bn_apply_fwd_plain(y, s1, s2, scale,
+                                                         bias, 1e-5, run_p)
+        if not (float(pvar[0]) == 0.0 == float(var[0])):
+            raise AssertionError(f"K1b fwd at {site}: the clamp did not bind "
+                                 f"on the constant channel")
+        big = torch.maximum(out.float().abs(), pout.float().abs())
+        errs[0] = max(errs[0], within(f"K1b fwd out at {site}", out, pout,
+                                      bf16_ulp(big)))
+        for name, a, b in (("mean", mean, pmean), ("var", var, pvar)):
+            within(f"K1b fwd {name} at {site}", a, b,
+                   f32_ulp(torch.maximum(a.abs(), b.abs())))
+        for name, a, b in (("running_mean", run_k[0], run_p[0]),
+                           ("running_var", run_k[1], run_p[1])):
+            within(f"K1b fwd {name} at {site}", a, b,
+                   2 * f32_ulp(torch.maximum(a.abs(), b.abs())))
+        if not int(run_k[2]) == int(run_p[2]) == 1:
+            raise AssertionError(f"K1b fwd num_batches_tracked at {site}")
+
+        dout = rnd(r, c).bfloat16()
+        dm, dv = rnd(c) * 1e-3, rnd(c) * 1e-3
+        args = (dout, y, s1, pmean, pvar, prstd, scale, dm, dv)
+        got = mb.bn_apply_bwd_stats_cuda(*args)
+        want = mb.bn_apply_bwd_stats_plain(*args)
+        terms = dout.float() * ((yf - pmean) * prstd)
+        mag_b = dout.double().abs().sum(0)
+        mag_s = terms.double().abs().sum(0)
+        for i, (name, ref, mag) in enumerate((
+                ("dscale", terms.double().sum(0), mag_s),
+                ("dbias", dout.double().sum(0), mag_b))):
+            errs[1] = max(errs[1], within(f"K1b bwd {name} at {site}",
+                                          got[i], ref, 1e-5 * mag))
+        rs, sc, rf = prstd.double(), scale.double(), float(r)
+        e_b, e_s = 2e-5 * mag_b, 2e-5 * mag_s
+        prop = (rs * sc / rf * e_b
+                + 0.5 * rs * rs * sc * (2 * s1.double().abs() / rf / rf)
+                * e_s,
+                0.5 * rs * rs * sc / rf * e_s)
+        for i, name in ((2, "ds1"), (3, "ds2")):
+            big = torch.maximum(got[i].abs(), want[i].abs())
+            errs[1] = max(errs[1], within(f"K1b bwd {name} at {site}",
+                                          got[i], want[i],
+                                          bf16_ulp(big) + prop[i - 2]))
+        if float(got[3][0]) != 0.0:
+            raise AssertionError(f"K1b bwd at {site}: ds2 not masked on the "
+                                 "constant channel")
+        dy = mb.bn_apply_bwd_dy_cuda(dout, prstd, scale)
+        pdy = mb.bn_apply_bwd_dy_plain(dout, prstd, scale)
+        errs[2] = max(errs[2], within(
+            f"K1b bwd dy at {site}", dy, pdy,
+            bf16_ulp(torch.maximum(dy.float().abs(), pdy.float().abs()))))
+        dyt = mb.mm_bn_bwd_dyt_cuda(pdy, y, want[2], want[3])
+        pdyt = mb.mm_bn_bwd_dyt_plain(pdy, y, want[2], want[3])
+        errs[3] = max(errs[3], within(
+            f"K1b dyt at {site}", dyt, pdyt,
+            bf16_ulp(torch.maximum(dyt.float().abs(), pdyt.float().abs()))))
+
+        fwd_args = (y, s1, s2, scale, bias, 1e-5)
+        calls = (
+            (lambda: mb.bn_apply_fwd_cuda(*fwd_args, run_k),
+             lambda: mb.bn_apply_fwd_plain(*fwd_args, run_p)),
+            (lambda: mb.bn_apply_bwd_stats_cuda(*args),
+             lambda: mb.bn_apply_bwd_stats_plain(*args)),
+            (lambda: mb.bn_apply_bwd_dy_cuda(dout, prstd, scale),
+             lambda: mb.bn_apply_bwd_dy_plain(dout, prstd, scale)),
+            (lambda: mb.mm_bn_bwd_dyt_cuda(pdy, y, want[2], want[3]),
+             lambda: mb.mm_bn_bwd_dyt_plain(pdy, y, want[2], want[3])))
+        times = [(cuda_ms(k), cuda_ms(p)) for k, p in calls]
+        # one PyTorch call each: train-mode batch_norm on the same (R, C)
+        # channels_last tensor, and its backward
+        shape4 = ((r // 6400, 80, 80, c) if r % 6400 == 0
+                  else (1, 1, r, c))
+        y4 = y.view(shape4).permute(0, 3, 1, 2)
+        d4 = dout.view(shape4).permute(0, 3, 1, 2)
+        rm, rv = run_k[0].clone(), run_k[1].clone()
+        lib_f = cuda_ms(lambda: F.batch_norm(y4, rm, rv, scale, bias,
+                                             True, 0.01, 1e-5))
+        _, smean, sinv = torch.ops.aten.native_batch_norm(
+            y4, scale, bias, rm, rv, True, 0.01, 1e-5)
+        lib_b = cuda_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+            d4, y4, scale, rm, rv, smean, sinv, True, 1e-5,
+            [True, True, True]))
+        print(f"K1b R={r} C={c} ({site}): fwd {times[0][0]:.4f} ms (plain "
+              f"{times[0][1]:.4f}, F.batch_norm {lib_f:.4f}), bwd sums "
+              f"{times[1][0]:.4f} (plain {times[1][1]:.4f}, "
+              f"native_batch_norm_backward {lib_b:.4f}), dy "
+              f"{times[2][0]:.4f} (plain {times[2][1]:.4f}), dyt "
+              f"{times[3][0]:.4f} (plain {times[3][1]:.4f}); within "
+              f"tolerance [{card}]")
+        if main is None:
+            rc = r * c
+            # bf16 (R, C) tensors read and written once; f32 ops per element
+            main = [(times[0], bound(4 * rc + 36 * c, 3 * rc, F32_OPS_S),
+                     lib_f),
+                    (times[1], bound(4 * rc + 52 * c, 6 * rc, F32_OPS_S),
+                     lib_b),
+                    (times[2], bound(4 * rc + 8 * c, rc, F32_OPS_S), None),
+                    (times[3], bound(6 * rc + 8 * c, 4 * rc, F32_OPS_S),
+                     None)]
+    names = (("bn_apply_stats fwd (K1b: one-pass BN apply + running stats)",
+              "hcmoco_tpu/ops/pallas/matmul_bn.py:138"),
+             ("bn_apply_stats bwd sums (K1b: dbias, dscale, ds1, ds2)",
+              "hcmoco_tpu/ops/pallas/matmul_bn.py:138"),
+             ("bn_apply_stats bwd dy (K1b)",
+              "hcmoco_tpu/ops/pallas/matmul_bn.py:138"),
+             ("conv1x1_bn_stats bwd prologue dyt (K1b)",
+              "hcmoco_tpu/ops/pallas/matmul_bn.py:111"))
+    return [kernel_entry(n, "matmul_bn.cu", rep, err, t[0], t[1], bnd, lib)
+            for (n, rep), err, (t, bnd, lib) in zip(names, errs, main)]
 
 
 def point_levels(dev, batch_size: int, size: int, n_points: int):
@@ -536,13 +719,25 @@ def small_reference_check(card: str, arch: str = "HRNet") -> None:
           f"[{card}]")
 
 
-def drive_slice(card: str) -> int:
+def k1_wrappers() -> dict:
+    """K1's and K1b's wrappers, in the order of their JSON entries; each
+    launches once per fused site and step."""
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+
+    return {"mm_bn_stats": mb.mm_bn_stats_cuda,
+            "bn_apply fwd": mb.bn_apply_fwd_cuda,
+            "bn_apply bwd sums": mb.bn_apply_bwd_stats_cuda,
+            "bn_apply bwd dy": mb.bn_apply_bwd_dy_cuda,
+            "mm_bn bwd dyt": mb.mm_bn_bwd_dyt_cuda}
+
+
+def drive_slice(card: str) -> dict:
     """Stage-1 W18 320^2 bs32 train steps through the user entry points,
-    HCMOCO_CONVBN_FUSE=1; returns K1's launches during the steps."""
+    HCMOCO_CONVBN_FUSE=1; returns K1's and K1b's launches during the
+    steps."""
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.models.build import build_model
     from hcmoco_tpu_torch.models.hrnet import fused_sites, set_convbn_fuse
-    from hcmoco_tpu_torch.ops.matmul_bn import mm_bn_stats_cuda
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
 
@@ -583,7 +778,9 @@ def drive_slice(card: str) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mm_bn_stats_cuda.launches = 0
+    wrappers = k1_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
     times, losses = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -592,13 +789,14 @@ def drive_slice(card: str) -> int:
         times.append(time.perf_counter() - t0)
         losses.append({k: float(v) for k, v in m.items()
                        if k.startswith("nce_loss") or k == "loss"})
-    launches = mm_bn_stats_cuda.launches
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     for i, l in enumerate(losses):
         if not all(np.isfinite(v) for v in l.values()):
             raise AssertionError(f"step {i}: non-finite loss {l}")
-    if launches != sites * STEPS:
-        raise AssertionError(f"K1 launched {launches} times in {STEPS} steps,"
-                             f" expected {sites} sites x {STEPS}")
+    for name, n in launches.items():
+        if n != sites * STEPS:
+            raise AssertionError(f"{name} launched {n} times in {STEPS} "
+                                 f"steps, expected {sites} sites x {STEPS}")
     if not bool(torch.isfinite(state.banks).all()):
         raise AssertionError("non-finite bank rows")
     print("losses per step: " + ", ".join(f"{l['loss']:.5f}" for l in losses))
@@ -607,8 +805,8 @@ def drive_slice(card: str) -> int:
     steady = statistics.median(times[1:])
     print(f"W18 320^2 bs{BATCH} fused stage-1 step: median {steady * 1e3:.2f}"
           f" ms = {BATCH / steady:.2f} samples/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches "
-          f"{launches} = {sites} sites x {STEPS} steps [{card}]")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1/K1b launches "
+          f"{launches}, each {sites} sites x {STEPS} steps [{card}]")
     return launches
 
 
@@ -759,16 +957,17 @@ def main() -> int:
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
-    k1 = check_k1(card)
+    k1 = [check_k1(card)] + check_k1b(card)
     small_reference_check(card)
-    k1["launches"] = drive_slice(card)
+    for entry, launches in zip(k1, drive_slice(card).values()):
+        entry["launches"] = launches
     points = check_points(card)
     small_reference_check(card, "HRNetPN")
     for entry, launches in zip(points, drive_pn(card).values()):
         entry["launches"] = launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: e[k] for k in keys} for e in [k1] + points]
+    kernels = [{k: e[k] for k in keys} for e in k1 + points]
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                              "hcmoco_tpu"))

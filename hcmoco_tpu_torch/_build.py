@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _PKG_DIR.parent / "build" / "hcmoco_tpu_torch"
 SOURCES = tuple(_PKG_DIR / "csrc" / name for name in (
-    "matmul_bn.cu",      # K1
+    "matmul_bn.cu",      # K1, K1b
     "fps.cu",            # K2
     "ball_query.cu",     # K3
     "three_nn.cu",       # K4
@@ -106,11 +106,15 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.hcmoco_mm_bn_row_tile.argtypes = []
-            lib.hcmoco_mm_bn_row_tile.restype = ci
-            lib.hcmoco_mm_bn_stats.argtypes = [vp, vp, vp, vp, vp,
-                                               ci, ci, ci, vp]
-            lib.hcmoco_mm_bn_stats.restype = ci
+            f = ctypes.c_float
+            lib.hcmoco_mm_bn_slots.argtypes = [ci] * 4
+            lib.hcmoco_mm_bn_stats.argtypes = [ci] + [vp] * 5 + [ci] * 3 + [vp]
+            lib.hcmoco_mm_bn_dyt.argtypes = [ci] + [vp] * 5 + [ci, ci, vp]
+            lib.hcmoco_bn_fwd.argtypes = ([ci] + [vp] * 12
+                                          + [ci, ci, f, f, f, f, vp])
+            lib.hcmoco_bn_bwd_slots.argtypes = [ci, ci]
+            lib.hcmoco_bn_bwd_stats.argtypes = [ci] + [vp] * 14 + [ci, ci, vp]
+            lib.hcmoco_bn_bwd_dy.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
             lib.hcmoco_fps.argtypes = [vp, vp, ci, ci, ci, vp]
             lib.hcmoco_ball_query.argtypes = [vp, vp, vp, ci, ci, ci, ci,
                                               ctypes.c_float, vp]
@@ -123,8 +127,11 @@ def load() -> ctypes.CDLL:
                                               ci, vp]
             lib.hcmoco_interp_bwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                               ci, ci, vp]
-            for fn in (lib.hcmoco_fps, lib.hcmoco_ball_query,
-                       lib.hcmoco_three_nn, lib.hcmoco_group_fwd,
+            for fn in (lib.hcmoco_mm_bn_slots, lib.hcmoco_mm_bn_stats,
+                       lib.hcmoco_mm_bn_dyt, lib.hcmoco_bn_fwd,
+                       lib.hcmoco_bn_bwd_slots, lib.hcmoco_bn_bwd_stats,
+                       lib.hcmoco_bn_bwd_dy, lib.hcmoco_fps,
+                       lib.hcmoco_ball_query, lib.hcmoco_three_nn, lib.hcmoco_group_fwd,
                        lib.hcmoco_group_bwd, lib.hcmoco_interp_fwd,
                        lib.hcmoco_interp_bwd):
                 fn.restype = ci

@@ -13,8 +13,10 @@ BN statistics are f32.
 HCMOCO_CONVBN_FUSE=1, read when the model is built, routes every 1x1
 stride-1 ConvBN site in training through conv1x1_bn_stats + bn_apply_stats
 (ops/matmul_bn.py), which compute the BN channel sums in the conv's
-epilogue; `set_convbn_fuse` switches a built model.  Both paths update the BN
-running statistics with torch semantics (unbiased running variance).
+epilogue, and normalise with them in one pass each way (on the card, kernels
+K1 and K1b); `set_convbn_fuse` switches a built model.  Both paths update the
+BN running statistics with torch semantics (unbiased running variance); the
+fused path does it inside bn_apply_stats.
 """
 
 from __future__ import annotations
@@ -51,19 +53,6 @@ def _is_fusable(conv: nn.Conv2d) -> bool:
     return conv.kernel_size == (1, 1) and conv.stride == (1, 1)
 
 
-def _update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
-                          var: torch.Tensor, n: int) -> None:
-    """nn.BatchNorm2d's running-stat update from a biased batch var."""
-    if n < 2:
-        raise ValueError("BatchNorm in training needs more than 1 value per "
-                         f"channel, got {n}")
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-        bn.running_var.mul_(1.0 - m).add_(var * (n / (n - 1)), alpha=m)
-        bn.num_batches_tracked.add_(1)
-
-
 def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
             relu: bool, dtype: torch.dtype, fuse: bool = False
             ) -> torch.Tensor:
@@ -74,9 +63,10 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
         b, cin, h, wd = x.shape
         x2d = x.to(dtype).permute(0, 2, 3, 1).reshape(-1, cin)
         y2d, s1, s2 = conv1x1_bn_stats(x2d, w.reshape(w.shape[0], cin))
-        out2d, mean, var = bn_apply_stats(y2d, s1, s2, bn.weight, bn.bias,
-                                          bn.eps)
-        _update_running_stats(bn, mean.detach(), var.detach(), y2d.shape[0])
+        out2d, _, _ = bn_apply_stats(
+            y2d, s1, s2, bn.weight, bn.bias, bn.eps,
+            running=(bn.running_mean, bn.running_var, bn.num_batches_tracked,
+                     bn.momentum))
         y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
     else:
         y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding)

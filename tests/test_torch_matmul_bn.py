@@ -1,10 +1,12 @@
-"""K1's plain PyTorch version and bn_apply_stats held against hcmoco_tpu's
-ops/pallas/matmul_bn.py (Pallas in interpret mode) in f32 on the CPU.
+"""K1's and K1b's plain PyTorch versions and bn_apply_stats held against
+hcmoco_tpu's ops/pallas/matmul_bn.py (Pallas in interpret mode) on the CPU,
+and the kernel wrappers' dispatch and argument checks.
 
 Tolerances: forward rtol/atol 1e-5; grads rtol 5e-4, atol 5e-5 (the
 tolerance of tests/test_models.py::TestConvBNFuse), as only the summation
-order differs.  The CUDA kernel itself is compared with this plain version
-on the card by chip_smoke.py, and by the `cuda`-marked test below.
+order differs; in bf16, one bf16 ulp.  The CUDA kernels themselves are
+compared with these plain versions on the card by chip_smoke.py, by the
+`cuda`-marked test below and by tests/test_torch_matmul_bn_kernels.py.
 """
 
 import jax
@@ -121,3 +123,202 @@ def test_kernel_matches_plain_on_card():
                                    atol=1e-5 * float(yd.sum(0).abs().max()))
         torch.testing.assert_close(s2.double(), (yd * yd).sum(0), rtol=1e-5,
                                    atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# K1b: the split forward and backward of bn_apply_stats and K1's backward
+# prologue, at a ragged R with K = C = 18, channel 0 constant so that the
+# var >= 0 clamp binds
+
+R_RAGGED, C18 = 12800 + 37, 18
+
+
+def _bn_inputs(seed: int):
+    rng = np.random.default_rng(seed)
+    r, c = R_RAGGED, C18
+    y = rng.standard_normal((r, c)).astype(np.float32) * 1.3 + 0.2
+    y[:, 0] = 0.5
+    s1 = y.sum(0, dtype=np.float64).astype(np.float32)
+    s2 = (y.astype(np.float64) ** 2).sum(0).astype(np.float32)
+    s2[0] = np.float32(r * 0.25 * (1.0 - 1e-6))  # raw variance below zero
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    cts = [rng.standard_normal(sh).astype(np.float32)
+           for sh in ((r, c), (c,), (c,))]
+    return y, s1, s2, scale, bias, cts
+
+
+def _close(got, want, dtype):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, dtype=np.float32)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, **FWD)
+    else:  # one bf16 ulp of the larger magnitude
+        big = np.maximum(np.abs(got), np.abs(want))
+        ulp = np.ldexp(1.0, np.frexp(big)[1] - 8)
+        assert np.all(np.abs(got - want) <= ulp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_apply_fwd_plain_matches_jax(dtype):
+    y, s1, s2, scale, bias, _ = _bn_inputs(3)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    yj = jnp.asarray(y).astype(jdt)
+    (jout, jmean, jvar), res = jax_mm._bn_apply_fwd(
+        yj, *(jnp.asarray(a) for a in (s1, s2, scale, bias)), 1e-5)
+    jrstd = res[3]
+
+    yt = _t(yj.astype(jnp.float32)).to(dtype)
+    rm = torch.linspace(-1.0, 1.0, C18)
+    rv = torch.linspace(0.5, 2.0, C18)
+    nbt = torch.zeros((), dtype=torch.int64)
+    out, mean, var, rstd = matmul_bn.bn_apply_fwd(
+        yt, *(_t(a) for a in (s1, s2, scale, bias)), 1e-5,
+        (rm, rv, nbt, 0.01))
+    assert out.dtype == dtype and float(var[0]) == 0.0  # the clamp bound
+    _close(out, np.asarray(jout.astype(jnp.float32)), dtype)
+    for got, want in ((mean, jmean), (var, jvar), (rstd, jrstd)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+    # the running-stat update, torch semantics (unbiased running variance)
+    n = R_RAGGED
+    np.testing.assert_allclose(
+        rm.numpy(), np.linspace(-1.0, 1.0, C18) * 0.99
+        + 0.01 * np.asarray(jmean), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        rv.numpy(), np.linspace(0.5, 2.0, C18) * 0.99
+        + 0.01 * np.asarray(jvar) * n / (n - 1), rtol=1e-6, atol=1e-7)
+    assert int(nbt) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_apply_bwd_plain_matches_jax(dtype):
+    """Pass 1 (dscale, dbias, ds1, ds2) and pass 2 (dy) against
+    _bn_apply_bwd, cotangents of mean and var included."""
+    y, s1, s2, scale, bias, cts = _bn_inputs(4)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    yj = jnp.asarray(y).astype(jdt)
+    _, res = jax_mm._bn_apply_fwd(
+        yj, *(jnp.asarray(a) for a in (s1, s2, scale, bias)), 1e-5)
+    dout = jnp.asarray(cts[0]).astype(jdt)
+    jdy, jds1, jds2, jdscale, jdbias = jax_mm._bn_apply_bwd(
+        1e-5, res, (dout, jnp.asarray(cts[1]), jnp.asarray(cts[2])))
+
+    yt = _t(yj.astype(jnp.float32)).to(dtype)
+    dt = _t(dout.astype(jnp.float32)).to(dtype)
+    _, mean, var, rstd = matmul_bn.bn_apply_fwd(
+        yt, *(_t(a) for a in (s1, s2, scale, bias)), 1e-5)
+    dscale, dbias, ds1, ds2 = matmul_bn.bn_apply_bwd_stats(
+        dt, yt, _t(s1), mean, var, rstd, _t(scale), _t(cts[1]), _t(cts[2]))
+    dy = matmul_bn.bn_apply_bwd_dy(dt, rstd, _t(scale))
+    assert dy.dtype == dtype and float(ds2[0]) == 0.0  # masked by the clamp
+    for got, want in ((dscale, jdscale), (dbias, jdbias), (ds1, jds1),
+                      (ds2, jds2)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
+    _close(dy, np.asarray(jdy.astype(jnp.float32)), dtype)
+
+
+def test_mm_bn_bwd_dyt_plain_matches_jax():
+    """K1's backward prologue, then the two matmuls, against _mm_bn_vjp_bwd
+    on the residuals of conv1x1_bn_stats in interpret mode."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((R_RAGGED, C18)).astype(np.float32)
+    w = rng.standard_normal((C18, C18)).astype(np.float32)  # JAX (K, C)
+    cts = [rng.standard_normal(sh).astype(np.float32)
+           for sh in ((R_RAGGED, C18), (C18,), (C18,))]
+    (jy, _, _), res = jax_mm._mm_bn_vjp_fwd(jnp.asarray(x), jnp.asarray(w),
+                                            512, True)
+    jdx, jdw = jax_mm._mm_bn_vjp_bwd(512, True, res,
+                                     tuple(jnp.asarray(c) for c in cts))
+
+    xt, wt = _t(x), _t(w.T.copy())
+    y, _, _ = matmul_bn.mm_bn_stats(xt, wt)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **FWD)
+    dyt = matmul_bn.mm_bn_bwd_dyt(_t(cts[0]), y, _t(cts[1]), _t(cts[2]))
+    np.testing.assert_allclose(torch.matmul(dyt, wt).numpy(),
+                               np.asarray(jdx), **GRAD)
+    np.testing.assert_allclose(torch.matmul(dyt.t(), xt).numpy().T,
+                               np.asarray(jdw), **GRAD)
+
+
+def _k1b_args(r=40, c=24, dtype=torch.bfloat16):
+    """Valid CPU arguments of every K1/K1b wrapper, by wrapper name."""
+    g = torch.Generator().manual_seed(0)
+
+    def act():
+        return torch.randn((r, c), generator=g).to(dtype)
+
+    def vec():
+        return torch.rand((c,), generator=g) + 0.5
+
+    y, dout = act(), act()
+    return {
+        "mm_bn_stats": (act(), torch.randn((c, c), generator=g).to(dtype)),
+        "bn_apply_fwd": (y, vec(), vec() * r, vec(), vec(), 1e-5),
+        "bn_apply_bwd_stats": (dout, y) + tuple(vec() for _ in range(7)),
+        "bn_apply_bwd_dy": (dout, vec(), vec()),
+        "mm_bn_bwd_dyt": (dout, y, vec(), vec()),
+    }
+
+
+@pytest.mark.parametrize("name", ["mm_bn_stats", "bn_apply_fwd",
+                                  "bn_apply_bwd_stats", "bn_apply_bwd_dy",
+                                  "mm_bn_bwd_dyt"])
+def test_cpu_tensors_take_plain_versions(name):
+    """Every K1/K1b dispatcher runs the plain version on CPU tensors: the
+    same result, and the kernel's launch count stays put."""
+    args = _k1b_args()[name]
+    kernel = getattr(matmul_bn, name + "_cuda")
+    before = kernel.launches
+    got = getattr(matmul_bn, name)(*args)
+    want = getattr(matmul_bn, name + "_plain")(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+    assert kernel.launches == before
+
+
+def _fault(args, fault):
+    """args with its first tensor broken in one way."""
+    t = args[0]
+    if fault == "dtype":
+        bad = t.float()
+    elif fault == "non-contiguous":
+        bad = t.t().contiguous().t()
+    elif fault == "misaligned":  # one element past a 16-byte boundary
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+        bad = flat[1:].view(t.shape)
+        bad.copy_(t)
+    else:
+        bad = t
+    return (bad,) + tuple(args[1:])
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("cpu", "not on a CUDA device"), ("dtype", "must be torch.bfloat16"),
+    ("non-contiguous", "contiguous"), ("misaligned", "16-byte aligned")])
+@pytest.mark.parametrize("name", ["mm_bn_stats", "bn_apply_fwd",
+                                  "bn_apply_bwd_stats", "bn_apply_bwd_dy",
+                                  "mm_bn_bwd_dyt"])
+def test_kernel_wrappers_reject_bad_tensors(name, fault, match):
+    """The wrappers raise on what the kernels do not take; none falls back
+    to the plain version."""
+    kernel = getattr(matmul_bn, name + "_cuda")
+    before = kernel.launches
+    with pytest.raises(ValueError, match=match):
+        kernel(*_fault(_k1b_args()[name], fault))
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("fn", ["bn_apply_stats", "bn_apply_fwd_cuda"])
+def test_running_update_needs_two_rows(fn):
+    """Like nn.BatchNorm2d in training, the running-stat update refuses a
+    single row (its unbiased variance divides by R - 1), on the plain path
+    and in the kernel wrapper."""
+    c = 8
+    y = torch.randn((1, c)).bfloat16()
+    vec = torch.ones(c)
+    running = (torch.zeros(c), torch.ones(c),
+               torch.zeros((), dtype=torch.int64), 0.1)
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
+        getattr(matmul_bn, fn)(y, vec, vec, vec, vec, 1e-5, running)
+    assert int(running[2]) == 0

@@ -1,0 +1,83 @@
+"""K1's and K1b's CUDA kernels against their plain PyTorch versions on the
+card, and the run-to-run determinism of their sums.  Card-only (`cuda`
+marker; they skip without a GPU) and JAX-free, so they run on a machine
+without JAX:
+
+    python -m pytest -m cuda tests/test_torch_matmul_bn_kernels.py
+
+The plain versions are held against the JAX package on the CPU by
+tests/test_torch_matmul_bn.py.
+"""
+
+import pytest
+import torch
+
+from hcmoco_tpu_torch.ops import matmul_bn
+
+R_RAGGED, C18 = 12800 + 37, 18
+
+
+def _ulp_close(got, want, bits=8):
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - bits)
+    return bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,c", [(204800, 256), (204800, 64),
+                                 (R_RAGGED, C18)])
+def test_k1b_kernels_match_plain_on_card(r, c):
+    """Run on the card only: each K1b kernel against its plain version on
+    the same inputs (out, dy, dyt within 1 bf16 ulp, mean/var within 1 f32
+    ulp, dbias/dscale within 1e-5 of the sums of magnitudes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    y = (torch.randn((r, c), generator=g, device="cuda") * 1.3
+         + 0.2).bfloat16()
+    y[:, 0] = 0.5
+    s1, s2 = y.float().sum(0), (y.float() ** 2).sum(0)
+    scale = torch.rand((c,), generator=g, device="cuda") + 0.5
+    bias = torch.randn((c,), generator=g, device="cuda")
+    got = matmul_bn.bn_apply_fwd_cuda(y, s1, s2, scale, bias, 1e-5)
+    want = matmul_bn.bn_apply_fwd_plain(y, s1, s2, scale, bias, 1e-5)
+    assert _ulp_close(got[0], want[0])
+    for a, b in zip(got[1:3], want[1:3]):
+        assert _ulp_close(a, b, bits=24)
+    dout = torch.randn((r, c), generator=g, device="cuda").bfloat16()
+    cts = (torch.randn((c,), generator=g, device="cuda") * 1e-3,
+           torch.randn((c,), generator=g, device="cuda") * 1e-3)
+    args = (dout, y, s1, want[1], want[2], want[3], scale) + cts
+    k = matmul_bn.bn_apply_bwd_stats_cuda(*args)
+    p = matmul_bn.bn_apply_bwd_stats_plain(*args)
+    mag = dout.double().abs().sum(0)
+    assert bool(((k[1].double() - p[1].double()).abs() <= 2e-5 * mag).all())
+    assert float(k[3][0]) == 0.0
+    assert _ulp_close(matmul_bn.bn_apply_bwd_dy_cuda(dout, want[3], scale),
+                      matmul_bn.bn_apply_bwd_dy_plain(dout, want[3], scale))
+    assert _ulp_close(matmul_bn.mm_bn_bwd_dyt_cuda(dout, y, p[2], p[3]),
+                      matmul_bn.mm_bn_bwd_dyt_plain(dout, y, p[2], p[3]))
+
+
+@pytest.mark.cuda
+def test_sums_are_deterministic_on_card():
+    """Run on the card only: K1's s1/s2 and K1b's backward sums are the
+    same bits from launch to launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for r, k, c in ((204800, 64, 256), (51200, 36, 18)):
+        x = torch.randn((r, k), generator=g, device="cuda").bfloat16()
+        w = torch.randn((c, k), generator=g, device="cuda").bfloat16()
+        a, b = (matmul_bn.mm_bn_stats_cuda(x, w) for _ in range(2))
+        assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        y, s1, s2 = a
+        _, mean, var, rstd = matmul_bn.bn_apply_fwd_cuda(
+            y, s1, s2, torch.ones(c, device="cuda"),
+            torch.zeros(c, device="cuda"), 1e-5)
+        dout = torch.randn((r, c), generator=g, device="cuda").bfloat16()
+        zero = torch.zeros(c, device="cuda")
+        args = (dout, y, s1, mean, var, rstd, torch.ones(c, device="cuda"),
+                zero, zero)
+        p, q = (matmul_bn.bn_apply_bwd_stats_cuda(*args) for _ in range(2))
+        assert all(torch.equal(u, v) for u, v in zip(p, q))
