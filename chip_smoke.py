@@ -375,30 +375,45 @@ def kernel_entry(name: str, source: str, replaces: str, err: float,
             "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
 
 
-def scatter_close(name: str, got: torch.Tensor, want: torch.Tensor,
-                  abs_sum: torch.Tensor) -> float:
-    """A scatter-add gradient of the kernel against the plain version's.
-    Both sum in f32 with atomics, in an order that changes from run to run,
-    then round to the table dtype: they may differ by one ulp of that dtype
-    plus 1e-5 of the sum of the magnitudes added into the element."""
-    a, b = got.float(), want.float()
-    err = (a - b).abs()
-    ulp = (bf16_ulp(torch.maximum(a.abs(), b.abs()))
-           if got.dtype == torch.bfloat16 else 0.0)
-    bad = err > ulp + 1e-5 * abs_sum
-    if bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} elements off, max "
-                             f"err {float(err.max())}")
-    return float(err.max())
+def scatter_exact(name: str, fn, want: torch.Tensor) -> float:
+    """A backward kernel's gradient, launched twice: the two launches equal
+    each other bit for bit, and `want`, the plain version computed on the
+    CPU (both add each destination's sources in ascending order in f32,
+    then round once).  Returns the max abs error, 0.0."""
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two launches differ at "
+                             f"{int((a != b).sum())} elements")
+    a = a.cpu()
+    if not torch.equal(a, want):
+        err = float((a.float() - want.float()).abs().max())
+        raise AssertionError(f"{name}: {int((a != want).sum())} elements "
+                             f"differ from the plain version on the CPU, "
+                             f"max err {err}")
+    return 0.0
+
+
+def check_csr(name: str, idx: torch.Tensor, n_dest: int) -> None:
+    """K56a against its plain version on the same card: start and src
+    equal."""
+    from hcmoco_tpu_torch.ops import point_gather as pg
+
+    start, src = pg.dest_csr_cuda(idx, n_dest)
+    pstart, psrc = pg.dest_csr_plain(idx, n_dest)
+    if not (torch.equal(start, pstart) and torch.equal(src, psrc)):
+        raise AssertionError(f"K56a dest_csr at {name}: "
+                             f"{int((src != psrc).sum())} sources misplaced")
 
 
 def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                  size: int = 320, n_points: int = 4096) -> list:
     """K2-K6 against their plain versions at every call of one HRNetPN step
     (the path's shapes, bs64), inputs from a synthetic batch with zero
-    clouds.  Indices and distances equal, gathers exact, scatter-add grads
-    within `scatter_close`; kernel times for every call, the plain
-    versions' (and K5's PyTorch call) at each kernel's largest call."""
+    clouds.  Indices and distances equal, gathers exact, the backwards'
+    destination index (K56a) equal and their gradients bit for bit equal to
+    the plain versions on the CPU and over two launches (`scatter_exact`);
+    kernel times for every call, the plain versions' (and K5's PyTorch
+    call) at each kernel's largest call."""
     from hcmoco_tpu_torch.models.pointnet2_model import (MLPS, NSAMPLE,
                                                          RADIUS)
     from hcmoco_tpu_torch.ops import ball_query as bq
@@ -511,14 +526,16 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
         got = pg.group_rows_cuda(table, gidx)
         if not torch.equal(got, pg.group_rows_plain(table, gidx)):
             raise AssertionError(f"K5 group fwd sa{k}.{i}: not exact")
-        err5b = max(err5b, scatter_close(
-            f"K5 group bwd sa{k}.{i}", pg.group_rows_bwd_cuda(gout, gidx, n),
-            pg.group_rows_bwd_plain(gout, gidx, n),
-            pg.group_rows_bwd_plain(gout.float().abs(), gidx, n)))
+        check_csr(f"K5 sa{k}.{i}", gidx.view(b, m * s), n)
+        err5b = max(err5b, scatter_exact(
+            f"K5 group bwd sa{k}.{i}",
+            lambda: pg.group_rows_bwd_cuda(gout, gidx, n),
+            pg.group_rows_bwd_plain(gout.cpu(), gidx.cpu(), n)))
         ms_f = cuda_ms(lambda: pg.group_rows_cuda(table, gidx))
         ms_b = cuda_ms(lambda: pg.group_rows_bwd_cuda(gout, gidx, n))
         print(f"K5 group sa{k}.{i} ({b},{n},{c})->({m},{s}): fwd {ms_f:.4f} "
-              f"ms exact, bwd {ms_b:.4f} ms within tol [{card}]")
+              f"ms exact, bwd {ms_b:.4f} ms equal to the CPU's, "
+              f"deterministic [{card}]")
         if (k, i) != (0, 1):
             continue
         rows, out_b = b * m * s, b * m * s * c * 2
@@ -534,11 +551,37 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
             bound(b * n * c * 2 + rows * 4 + out_b, 0, F32_OPS_S),
             cuda_ms(lambda: table[bidx, gidx]))
         k5b = kernel_entry(
-            "group_rows bwd (f32 atomic scatter-add)", "point_gather.cu",
+            "group_rows bwd (K56a + K56b, ordered segment sum)",
+            "point_gather.cu",
             "hcmoco_tpu/ops/pallas/window_group.py:125", 0.0, ms_b,
             cuda_ms(lambda: pg.group_rows_bwd_plain(gout, gidx, n)),
             bound(out_b + rows * 4 + b * n * c * 2, rows * c, F32_OPS_S),
             cuda_ms(lambda: acc.index_add_(0, flat, gout.reshape(-1, c))))
+        # K56a and K56b alone at this call
+        idx2 = gidx.view(b, m * s)
+        start, src = pg.dest_csr_cuda(idx2, n)
+        rows3 = gout.view(b, m * s, c)
+        k56a = kernel_entry(
+            "dest_csr (K56a, destination index of K5/K6 bwd)",
+            "point_gather.cu",
+            "hcmoco_tpu/ops/pallas/window_group.py:125, "
+            "window_interp.py:100 (part of both backwards)", 0.0,
+            cuda_ms(lambda: pg.dest_csr_cuda(idx2, n)),
+            cuda_ms(lambda: pg.dest_csr_plain(idx2, n)),
+            bound(rows * 8 + b * (n + 1) * 4, 0, F32_OPS_S))
+        k56b = kernel_entry(
+            "segment_rows_sum (K56b, ordered sum of K5/K6 bwd)",
+            "point_gather.cu",
+            "hcmoco_tpu/ops/pallas/window_group.py:125, "
+            "window_interp.py:100 (part of both backwards)", 0.0,
+            cuda_ms(lambda: pg.segment_rows_sum_cuda(rows3, start, src, n)),
+            cuda_ms(lambda: pg.segment_rows_sum_plain(rows3, start, src, n),
+                    iters=2, warmup=1),
+            bound(out_b + rows * 4 + b * (n + 1) * 4 + b * n * c * 2,
+                  rows * c, F32_OPS_S))
+        print(f"  K56a {k56a['ms']:.4f} ms (plain {k56a['plain_ms']:.4f}), "
+              f"K56b {k56b['ms']:.4f} ms (plain {k56b['plain_ms']:.4f}) "
+              f"[{card}]")
         # the zero clouds' rows all land on their first S table rows
         for label, sel in (("valid", valid), ("zero-cloud", zero)):
             gs, gi = gout[sel].contiguous(), gidx[sel].contiguous()
@@ -558,15 +601,17 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
         if not torch.equal(pg.interpolate_rows_cuda(feat, idx, w),
                            pg.interpolate_rows_plain(feat, idx, w)):
             raise AssertionError(f"K6 interpolate fwd fp{i}: not exact")
-        err6b = max(err6b, scatter_close(
+        check_csr(f"K6 fp{i}", idx.view(b, n * 3), m)
+        err6b = max(err6b, scatter_exact(
             f"K6 interpolate bwd fp{i}",
-            pg.interpolate_rows_bwd_cuda(gout, idx, w, m),
-            pg.interpolate_rows_bwd_plain(gout, idx, w, m),
-            pg.interpolate_rows_bwd_plain(gout.float().abs(), idx, w, m)))
+            lambda: pg.interpolate_rows_bwd_cuda(gout, idx, w, m),
+            pg.interpolate_rows_bwd_plain(gout.cpu(), idx.cpu(), w.cpu(),
+                                          m)))
         ms_f = cuda_ms(lambda: pg.interpolate_rows_cuda(feat, idx, w))
         ms_b = cuda_ms(lambda: pg.interpolate_rows_bwd_cuda(gout, idx, w, m))
         print(f"K6 interpolate fp{i} ({b},{m},{c})->{n}: fwd {ms_f:.4f} ms "
-              f"exact, bwd {ms_b:.4f} ms within tol [{card}]")
+              f"exact, bwd {ms_b:.4f} ms equal to the CPU's, deterministic "
+              f"[{card}]")
         if i != 1:
             continue
         small = b * m * c * 2 + b * n * 24  # feat or grad, idx and weights
@@ -576,7 +621,7 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
             cuda_ms(lambda: pg.interpolate_rows_plain(feat, idx, w)),
             bound(small + b * n * c * 2, 5 * b * n * c, F32_OPS_S))
         k6b = kernel_entry(
-            "interpolate_rows bwd (f32 atomic scatter-add)",
+            "interpolate_rows bwd (K56a + K56b, ordered segment sum)",
             "point_gather.cu", "hcmoco_tpu/ops/pallas/window_interp.py:100",
             0.0, ms_b,
             cuda_ms(lambda: pg.interpolate_rows_bwd_plain(gout, idx, w, m)),
@@ -587,7 +632,7 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
             print(f"  K6 bwd on the {int(sel.sum())} {label} samples alone: "
                   f"{t:.4f} ms, {t / int(sel.sum()):.5f} ms a sample")
     k5b["max_abs_err"], k6b["max_abs_err"] = err5b, err6b
-    return [k2, k3, k4, k5f, k5b, k6f, k6b]
+    return [k2, k3, k4, k5f, k5b, k6f, k6b, k56a, k56b]
 
 
 def make_cfg(**kw):
@@ -811,8 +856,9 @@ def drive_slice(card: str) -> dict:
 
 
 def point_wrappers() -> dict:
-    """K2-K6's wrappers by JSON entry, in check_points' order, with the
-    launches each makes in one HRNetPN train step."""
+    """K2-K6's wrappers and the K56a/K56b ones under K5's and K6's
+    backwards, by JSON entry in check_points' order, with the launches each
+    makes in one HRNetPN train step."""
     from hcmoco_tpu_torch.ops import ball_query, fps, point_gather, three_nn
 
     return {"fps": (fps.fps_cuda, 3),
@@ -822,14 +868,16 @@ def point_wrappers() -> dict:
             "group_rows bwd": (point_gather.group_rows_bwd_cuda, 8),
             "interpolate_rows fwd": (point_gather.interpolate_rows_cuda, 4),
             "interpolate_rows bwd": (point_gather.interpolate_rows_bwd_cuda,
-                                     4)}
+                                     4),
+            "dest_csr": (point_gather.dest_csr_cuda, 12),
+            "segment_rows_sum": (point_gather.segment_rows_sum_cuda, 12)}
 
 
 # (class, substrings of the lower-cased kernel name), first match wins
 PN_CLASSES = (
     ("K2-K6 point kernels", ("fps_kernel", "ball_query_kernel",
-                             "three_nn_kernel", "group_fwd", "group_bwd",
-                             "interp_fwd", "interp_bwd", "cast_bf16")),
+                             "three_nn_kernel", "group_fwd", "interp_fwd",
+                             "csr_", "segsum_")),
     ("cuDNN batch norm", ("batchnorm", "batch_norm", "welford")),
     ("bilinear upsample", ("upsample",)),
     ("cuDNN convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad",

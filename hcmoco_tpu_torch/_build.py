@@ -29,7 +29,7 @@ SOURCES = tuple(_PKG_DIR / "csrc" / name for name in (
     "fps.cu",            # K2
     "ball_query.cu",     # K3
     "three_nn.cu",       # K4
-    "point_gather.cu",   # K5, K6
+    "point_gather.cu",   # K5, K6, K56a, K56b
 ))
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
@@ -121,19 +121,17 @@ def load() -> ctypes.CDLL:
             lib.hcmoco_three_nn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
             lib.hcmoco_group_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                              vp]
-            lib.hcmoco_group_bwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                             ci, vp]
             lib.hcmoco_interp_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                               ci, vp]
-            lib.hcmoco_interp_bwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                              ci, ci, vp]
+            lib.hcmoco_dest_csr.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+            lib.hcmoco_segment_sum.argtypes = [vp] * 6 + [ci] * 5 + [vp]
             for fn in (lib.hcmoco_mm_bn_slots, lib.hcmoco_mm_bn_stats,
                        lib.hcmoco_mm_bn_dyt, lib.hcmoco_bn_fwd,
                        lib.hcmoco_bn_bwd_slots, lib.hcmoco_bn_bwd_stats,
                        lib.hcmoco_bn_bwd_dy, lib.hcmoco_fps,
-                       lib.hcmoco_ball_query, lib.hcmoco_three_nn, lib.hcmoco_group_fwd,
-                       lib.hcmoco_group_bwd, lib.hcmoco_interp_fwd,
-                       lib.hcmoco_interp_bwd):
+                       lib.hcmoco_ball_query, lib.hcmoco_three_nn,
+                       lib.hcmoco_group_fwd, lib.hcmoco_interp_fwd,
+                       lib.hcmoco_dest_csr, lib.hcmoco_segment_sum):
                 fn.restype = ci
             lib.hcmoco_cuda_error_string.argtypes = [ci]
             lib.hcmoco_cuda_error_string.restype = ctypes.c_char_p

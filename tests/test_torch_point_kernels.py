@@ -6,9 +6,9 @@ imports no JAX, so it runs where only PyTorch is installed.
 Inputs: N(0, 0.3^2) clouds of up to 4096 points with an all-zero sample
 (the cloud of an image without depth).  Indices and distances equal (the
 kernels compute d2 without FMA contraction, as the plain versions round
-it); forward gathers exact; the f32 atomic scatter-adds within rtol/atol
-1e-5 in f32 (the atomics add in another order on every run) and, in bf16,
-within one bf16 rounding (rtol 1.6e-2).
+it); forward gathers exact; the backwards (K56a's destination index, then
+K56b's sums in ascending source order) equal the plain versions computed
+on CPU copies, bit for bit, and two launches equal each other.
 """
 
 import pytest
@@ -62,11 +62,18 @@ def test_three_nn_kernel_matches_plain_on_card():
         assert torch.equal(i, pi) and torch.equal(d, pd)
 
 
+def _equal_twice(fn, want):
+    """fn() equals `want` (computed on the CPU) bit for bit, twice."""
+    a, b = fn(), fn()
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_point_gather_kernels_match_plain_on_card(dtype):
-    """Forwards exact; the f32 atomic scatter-adds within f32 summation
-    order (then one rounding to bf16)."""
+    """Forwards exact; backwards equal to the plain versions on the CPU and
+    identical over two launches."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(1)
     b, n, m, s, c = 4, 1024, 256, 32, 64
@@ -77,16 +84,68 @@ def test_point_gather_kernels_match_plain_on_card(dtype):
     gout = torch.randn((b, m, s, c), generator=g, device="cuda").to(dtype)
     assert torch.equal(pg.group_rows_cuda(table, gidx),
                        pg.group_rows_plain(table, gidx))
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(
-        rtol=1.6e-2, atol=1e-5)
-    torch.testing.assert_close(pg.group_rows_bwd_cuda(gout, gidx, n),
-                               pg.group_rows_bwd_plain(gout, gidx, n), **tol)
+    _equal_twice(lambda: pg.group_rows_bwd_cuda(gout, gidx, n),
+                 pg.group_rows_bwd_plain(gout.cpu(), gidx.cpu(), n))
     d, idx = tn.three_nn_cuda(_card_cloud(n=n), _card_cloud(n=m))
     w = point_ops.interpolation_weights(d)
     feat = table[:, :m].contiguous()
     assert torch.equal(pg.interpolate_rows_cuda(feat, idx, w),
                        pg.interpolate_rows_plain(feat, idx, w))
     go = gout[:, :, 0].reshape(b, m, c).repeat(1, n // m, 1).contiguous()
-    torch.testing.assert_close(
-        pg.interpolate_rows_bwd_cuda(go, idx, w, m),
-        pg.interpolate_rows_bwd_plain(go, idx, w, m), **tol)
+    _equal_twice(lambda: pg.interpolate_rows_bwd_cuda(go, idx, w, m),
+                 pg.interpolate_rows_bwd_plain(go.cpu(), idx.cpu(), w.cpu(),
+                                               m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "empty_buckets", "zero_cloud",
+                                  "ragged_tile"])
+def test_dest_csr_kernel_matches_plain_on_card(case):
+    """K56a against `dest_csr_plain`: start and src equal."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, r, n = {"random": (4, 32768, 1024), "empty_buckets": (3, 5000, 4096),
+               "zero_cloud": (2, 131072, 4096),
+               "ragged_tile": (3, 3 * 4096 + 37, 1024)}[case]
+    hi = n // 3 if case == "empty_buckets" else n
+    idx = torch.randint(0, hi, (b, r), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if case == "zero_cloud":  # K5 at sa0: every center's slots 0..31
+        idx[-1] = torch.arange(r, device="cuda", dtype=torch.int32) % 32
+    start, src = pg.dest_csr_cuda(idx, n)
+    pstart, psrc = pg.dest_csr_plain(idx.cpu(), n)
+    assert torch.equal(start.cpu(), pstart)
+    assert torch.equal(src.cpu(), psrc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 18, 512])
+def test_backward_kernels_match_plain_on_card(dtype, c):
+    """K5's and K6's backwards (K56a + K56b) with a zero-cloud sample and
+    empty buckets, at C = 32 (K5 at sa0: R = 131072 sources a sample), 18
+    (the one-element path) and 512 (K6 at fp1's shapes): equal to the plain
+    versions on the CPU and over two launches."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, n, m, s = 2, 4096, 4096, 32
+    if c == 512:
+        m, s = 1024, 4  # the fp1 shapes; R = 3 * 4096 for K6 below
+    gidx = torch.randint(0, n - 64, (b, m, s), generator=g, device="cuda",
+                         dtype=torch.int32)
+    gidx[-1] = torch.arange(s, device="cuda", dtype=torch.int32)
+    gout = torch.randn((b, m, s, c), generator=g, device="cuda")
+    gout = (gout * 10.0 ** (6 * torch.rand(gout.shape, generator=g,
+                                           device="cuda") - 3)).to(dtype)
+    _equal_twice(lambda: pg.group_rows_bwd_cuda(gout, gidx, n),
+                 pg.group_rows_bwd_plain(gout.cpu(), gidx.cpu(), n))
+    k = 1024
+    idx = torch.randint(0, k - 16, (b, n, 3), generator=g, device="cuda",
+                        dtype=torch.int32)
+    idx[-1] = torch.arange(3, device="cuda", dtype=torch.int32)
+    w = torch.rand((b, n, 3), generator=g, device="cuda") + 1e-3
+    w = w / w.sum(-1, keepdim=True)
+    go = gout.reshape(b, -1, c)[:, :n].contiguous()
+    _equal_twice(lambda: pg.interpolate_rows_bwd_cuda(go, idx, w, k),
+                 pg.interpolate_rows_bwd_plain(go.cpu(), idx.cpu(), w.cpu(),
+                                               k))
