@@ -405,6 +405,60 @@ def check_csr(name: str, idx: torch.Tensor, n_dest: int) -> None:
                              f"{int((src != psrc).sum())} sources misplaced")
 
 
+def k3_scan(xyz: torch.Tensor, centers: torch.Tensor, r: float, s: int,
+            chunk: int = 256) -> dict:
+    """What a first-hit ball query of radius r and S slots must test on
+    these points, and what K3's tile skip leaves of it.  Per center, `pos`
+    is the index of its S-th hit plus one (N if it has fewer hits): the
+    points a blind scan tests.  K3 tests the boxes of the 32-tile groups
+    up to the group of the S-th hit (all of them without S hits) and the
+    points of the tiles among them whose bound (`tile_bounds`) is below
+    r^2.  Raises if a hit lies in a tile that the bound skips."""
+    from hcmoco_tpu_torch.ops.ball_query import TILE, tile_bounds
+    from hcmoco_tpu_torch.ops._points import sq_dists
+
+    b, n, _ = xyz.shape
+    m = centers.shape[1]
+    t = -(-n // TILE)
+    r2 = torch.tensor(r * r, dtype=torch.float32, device=xyz.device)
+    tile = torch.arange(t, device=xyz.device)
+    pos, reach, tiles, boxes = [], 0, 0, 0
+    for c0 in range(0, m, chunk):
+        cen = centers[:, c0:c0 + chunk]
+        hit = sq_dists(cen, xyz) < r2  # (B, C, N)
+        cs = hit.cumsum(-1, dtype=torch.int32)
+        p = torch.where(cs[..., -1] >= s, (cs >= s).int().argmax(-1) + 1, n)
+        ok = tile_bounds(xyz, cen) < r2  # (B, C, T)
+        pad = torch.zeros(hit.shape[:2] + (t * TILE - n,), dtype=torch.bool,
+                          device=xyz.device)
+        held = torch.cat([hit, pad], -1).view(*ok.shape, TILE).any(-1)
+        if bool((held & ~ok).any()):
+            raise AssertionError(f"K3 r={r}: a tile with hits was skipped")
+        last = (p - 1) // TILE
+        tiles += int((ok & (tile <= last[..., None])).sum())
+        boxes += int(torch.clamp((last // 32 + 1) * 32, max=t).sum())
+        reach += int(ok.sum())
+        pos.append(p.reshape(-1))
+    pos = torch.cat(pos).double()
+    q = torch.quantile(pos, torch.tensor([0.25, 0.5, 0.75], device=pos.device,
+                                         dtype=torch.float64)).tolist()
+    return {"q1": q[0], "median": q[1], "q3": q[2],
+            "all_n": float((pos >= n).double().mean()),
+            "blind_tests": int(pos.sum()), "pairs": b * m * n,
+            "reach": reach / (b * m * t), "kernel_tests": TILE * tiles,
+            "box_tests": boxes}
+
+
+def print_k3_scan(label: str, st: dict, card: str) -> None:
+    print(f"  K3 {label} scan: S-th hit at index+1 quartiles {st['q1']:.0f} /"
+          f" {st['median']:.0f} / {st['q3']:.0f}, {st['all_n']:.4f} of "
+          f"centers scan all N; {st['reach']:.4f} of tiles reachable; "
+          f"blind scan {st['blind_tests']} point tests "
+          f"({st['blind_tests'] / st['pairs']:.4f} of pairs), K3 "
+          f"{st['kernel_tests']} point tests + {st['box_tests']} box tests "
+          f"[{card}]")
+
+
 def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                  size: int = 320, n_points: int = 4096) -> list:
     """K2-K6 against their plain versions at every call of one HRNetPN step
@@ -420,7 +474,6 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
     from hcmoco_tpu_torch.ops import fps as fp
     from hcmoco_tpu_torch.ops import point_gather as pg
     from hcmoco_tpu_torch.ops import three_nn as tn
-    from hcmoco_tpu_torch.ops._points import sq_dists
     from hcmoco_tpu_torch.ops.point_ops import interpolation_weights
 
     levels, valid = point_levels(dev, batch_size, size, n_points)
@@ -438,7 +491,7 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                                  f"{int((got != want).sum())} indices off")
         ms = cuda_ms(lambda: fp.fps_cuda(xyz, m))
         print(f"K2 fps ({b},{xyz.shape[1]},3)->{m}: kernel {ms:.4f} ms, "
-              f"indices equal [{card}]")
+              f"{ms * 1e3 / (m - 1):.4f} us a round, indices equal [{card}]")
         if k == 1:
             n = xyz.shape[1]
             # 10 f32 ops a point a round: 3 sub, 3 mul, 2 add, min, compare
@@ -448,6 +501,18 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                 cuda_ms(lambda: fp.fps_plain(xyz, m)),
                 bound(b * n * 12 + b * m * 4, 10 * b * n * (m - 1),
                       F32_OPS_S))
+
+    # K2 past 16384 points, where a shared-memory design ran out: the kernel
+    # streams the points from device memory
+    gb = torch.Generator(device=dev).manual_seed(5)
+    big = torch.randn((4, 20000, 3), generator=gb, device=dev) * 0.3
+    big[-1] = 0.0
+    if not torch.equal(fp.fps_cuda(big, 512), fp.fps_plain(big, 512)):
+        raise AssertionError("K2 fps (4,20000,3)->512: indices off")
+    print(f"K2 fps (4,20000,3)->512: kernel "
+          f"{cuda_ms(lambda: fp.fps_cuda(big, 512), iters=5):.4f} ms, "
+          f"indices equal [{card}]")
+    del big
 
     # K3: every SA level and scale; the largest call is sa0 scale 1
     gidxs = []
@@ -468,24 +533,16 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
             ms = cuda_ms(lambda: bq.ball_query_cuda(xyz, centers, r, s))
             print(f"K3 ball query sa{k}.{i} N={n} M={m} S={s} r={r}: kernel "
                   f"{ms:.4f} ms, indices equal [{card}]")
+            if k == 0:
+                print_k3_scan(f"sa0.{i}", k3_scan(xyz, centers, r, s), card)
             if (k, i) == (0, 1):
-                # the points a first-hit scan must test: up to the S-th hit
-                r2 = torch.tensor(r * r, dtype=torch.float32, device=dev)
-                tested = 0
-                for c0 in range(0, m, 256):
-                    cs = (sq_dists(centers[:, c0:c0 + 256], xyz) < r2).cumsum(
-                        -1, dtype=torch.int32)
-                    pos = (cs >= s).int().argmax(-1) + 1
-                    tested += int(torch.where(cs[..., -1] >= s, pos, n).sum())
-                # 9 f32 ops a tested point: 3 sub, 3 mul, 2 add, compare
+                # K3 skips tests, so its bound is the bytes: points and
+                # centers read once, idx written once
                 k3 = kernel_entry(
                     "ball_query (first-hit fill)", "ball_query.cu",
                     "hcmoco_tpu/ops/pallas/ball_query.py:24", 0.0, ms,
                     cuda_ms(lambda: bq.ball_query_plain(xyz, centers, r, s)),
-                    bound(b * (n + m) * 12 + b * m * s * 4, 9 * tested,
-                          F32_OPS_S))
-                print(f"  {tested} point tests needed, "
-                      f"{tested / (b * m * n):.4f} of all pairs")
+                    bound(b * (n + m) * 12 + b * m * s * 4, 0, F32_OPS_S))
 
     # K4: every FP level; the largest call is fp0, 4096 x 4096
     nns = []
@@ -855,6 +912,27 @@ def drive_slice(card: str) -> dict:
     return launches
 
 
+def check_build_refusal(card: str) -> None:
+    """build_model refuses, on the card, a cloud larger than K56a's
+    destination limit, and names the limit."""
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.ops.point_gather import MAX_DEST
+
+    cfg = make_cfg(arch="HRNetPN", batch_size=PN_BATCH,
+                   pn_num_points=MAX_DEST + 1)
+    try:
+        build_model(cfg, device="cuda")
+    except ValueError as e:
+        if "K56a" not in str(e) or str(MAX_DEST) not in str(e):
+            raise AssertionError(f"build_model's refusal does not name "
+                                 f"K56a's limit: {e}") from e
+        print(f"build_model refuses pn_num_points={MAX_DEST + 1} on the "
+              f"card: {e} [{card}]")
+        return
+    raise AssertionError(f"build_model took pn_num_points={MAX_DEST + 1} "
+                         "on the card")
+
+
 def point_wrappers() -> dict:
     """K2-K6's wrappers and the K56a/K56b ones under K5's and K6's
     backwards, by JSON entry in check_points' order, with the launches each
@@ -1011,6 +1089,7 @@ def main() -> int:
         entry["launches"] = launches
     points = check_points(card)
     small_reference_check(card, "HRNetPN")
+    check_build_refusal(card)
     for entry, launches in zip(points, drive_pn(card).values()):
         entry["launches"] = launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -115,7 +115,9 @@ def load() -> ctypes.CDLL:
             lib.hcmoco_bn_bwd_slots.argtypes = [ci, ci]
             lib.hcmoco_bn_bwd_stats.argtypes = [ci] + [vp] * 14 + [ci, ci, vp]
             lib.hcmoco_bn_bwd_dy.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
-            lib.hcmoco_fps.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.hcmoco_fps_scratch.argtypes = [ci]
+            lib.hcmoco_fps_scratch.restype = ctypes.c_longlong
+            lib.hcmoco_fps.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             lib.hcmoco_ball_query.argtypes = [vp, vp, vp, ci, ci, ci, ci,
                                               ctypes.c_float, vp]
             lib.hcmoco_three_nn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]

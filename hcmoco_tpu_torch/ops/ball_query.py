@@ -6,7 +6,8 @@ formulation in hcmoco_tpu.ops.point_ops.ball_query.  For each center, the
 points with d2 < radius^2 in index order fill the nsample slots; the first
 hit fills every slot that no later hit reaches; a center with no hit gets
 index 0.  The TPU's index window is a speed device with an exact fallback
-and is not ported.
+and is not ported; the kernel skips 32-point tiles by an exact bound
+instead (`tile_bounds` is that bound in PyTorch ops).
 
 radius^2 is taken in double precision and rounded to f32 once, as JAX
 rounds the Python float it compares an f32 array with.
@@ -42,6 +43,29 @@ def ball_query_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
         first = torch.where(first < n, first, 0)
         outs.append(torch.where(hits < n, hits, first))
     return torch.cat(outs, dim=1).to(torch.int32)
+
+
+TILE = 32  # points a tile of the kernel's skip test
+
+
+def tile_bounds(xyz: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """The kernel's tile-skip bound, (B, N, 3), (B, M, 3) -> (B, M, T) f32
+    with T = ceil(N / 32): for tile t's box [lo, hi] (min and max of its
+    points' coordinates) and a center c, per axis g = max(lo - c, c - hi,
+    0), and ((g_x*g_x + g_y*g_y) + g_z*g_z), every op rounded in f32 in
+    the kernel's order.  It is at most the rounded d2 of any point of the
+    tile, so a tile whose bound is >= radius^2 holds no hit."""
+    b, n, _ = xyz.shape
+    t = -(-n // TILE)
+    x = xyz.float()
+    pad = t * TILE - n
+    inf = torch.full((b, pad, 3), float("inf"), device=x.device)
+    lo = torch.cat([x, inf], 1).view(b, t, TILE, 3).amin(2)
+    hi = torch.cat([x, -inf], 1).view(b, t, TILE, 3).amax(2)
+    c = centers.float()[:, :, None, :]  # (B, M, 1, 3)
+    g = torch.clamp_min(torch.maximum(lo[:, None] - c, c - hi[:, None]), 0.0)
+    return (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
+        + g[..., 2] * g[..., 2]
 
 
 def ball_query_cuda(xyz: torch.Tensor, centers: torch.Tensor, radius: float,

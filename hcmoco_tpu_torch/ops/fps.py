@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from . import _points
 
 
@@ -34,18 +35,21 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """Launch K2 on xyz's device and current stream.
+    """Launch K2 on xyz's device and current stream.  Any N: past 8192
+    points (16 a thread at 512 threads) the kernel streams the points from
+    device memory and keeps the min-distances in a scratch allocated here.
 
     Counts its launches in `fps_cuda.launches`."""
     _points.check_cuda("fps_cuda", [("xyz", xyz, (torch.float32,))])
     b, n, three = xyz.shape
-    if three != 3 or npoint < 1:
+    if three != 3 or npoint < 1 or n < 1:
         raise ValueError(f"fps_cuda: xyz {tuple(xyz.shape)}, npoint {npoint}")
-    if n > 16384:
-        raise ValueError(f"fps_cuda: N={n} exceeds the 16384 points a block "
-                         "holds in shared memory")
+    per_sample = _build.load().hcmoco_fps_scratch(n)
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    _points.launch("fps", xyz.device, xyz.data_ptr(), idx.data_ptr(), b, n,
+    scratch = (torch.empty((b, per_sample), dtype=torch.float32,
+                           device=xyz.device) if per_sample else None)
+    _points.launch("fps", xyz.device, xyz.data_ptr(), idx.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(), b, n,
                    npoint)
     fps_cuda.launches += 1
     return idx

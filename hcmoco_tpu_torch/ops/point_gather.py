@@ -42,7 +42,7 @@ from . import _points
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CSR_TILE = 8192  # sources a K56a block ranks (csrc/point_gather.cu kTile)
-_MAX_DEST = 8192  # its 16-bit histograms live in shared memory (kMaxDest)
+MAX_DEST = 8192  # its 16-bit histograms live in shared memory (kMaxDest)
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -114,9 +114,9 @@ def dest_csr_cuda(idx: torch.Tensor, n_dest: int):
     as `dest_csr_plain` does, bit for bit; counts in
     `dest_csr_cuda.launches`."""
     _points.check_cuda("dest_csr_cuda", [("idx", idx, (torch.int32,))])
-    if idx.dim() != 2 or not 0 < n_dest <= _MAX_DEST:
+    if idx.dim() != 2 or not 0 < n_dest <= MAX_DEST:
         raise ValueError(f"dest_csr_cuda: idx {tuple(idx.shape)} must be "
-                         f"(B, R) and n_dest {n_dest} in [1, {_MAX_DEST}]")
+                         f"(B, R) and n_dest {n_dest} in [1, {MAX_DEST}]")
     b, r = idx.shape
     start = torch.empty((b, n_dest + 1), dtype=torch.int32, device=idx.device)
     src = torch.empty((b, r), dtype=torch.int32, device=idx.device)

@@ -4,11 +4,15 @@ card (`cuda`-marked: they skip without a CUDA device; run on the card with
 imports no JAX, so it runs where only PyTorch is installed.
 
 Inputs: N(0, 0.3^2) clouds of up to 4096 points with an all-zero sample
-(the cloud of an image without depth).  Indices and distances equal (the
-kernels compute d2 without FMA contraction, as the plain versions round
-it); forward gathers exact; the backwards (K56a's destination index, then
-K56b's sums in ascending source order) equal the plain versions computed
-on CPU copies, bit for bit, and two launches equal each other.
+(the cloud of an image without depth); for K3's tile skip also clouds in
+raster order, points on the sphere and on the faces of a tile's box; for
+K2 clouds of 4097 to 8192 points (512 threads), past 16384 points
+(streamed) and clouds of exact ties.  Indices and
+distances equal (the kernels compute d2 without FMA contraction, as the
+plain versions round it); forward gathers exact; the backwards (K56a's
+destination index, then K56b's sums in ascending source order) equal the
+plain versions computed on CPU copies, bit for bit, and two launches equal
+each other.
 """
 
 import pytest
@@ -49,6 +53,126 @@ def test_ball_query_kernel_matches_plain_on_card():
         c = x[:, :m].contiguous()
         assert torch.equal(bq.ball_query_cuda(x, c, r, s),
                            bq.ball_query_plain(x, c, r, s))
+
+
+def _raster_cloud(b=4, n=4096, seed=0):
+    """Points of a depth image in raster order (sorted by y, then x), as
+    depth2pts gives them, with an all-zero last sample."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xy = torch.rand((b, n, 2), generator=g, device="cuda") - 0.5
+    key = torch.floor(xy[..., 1] * 320) * 4 + xy[..., 0]
+    xy = torch.gather(xy, 1, key.argsort(-1)[..., None].expand(-1, -1, 2))
+    z = 0.1 * torch.sin(6 * xy[..., :1]) + 0.05 * torch.randn(
+        (b, n, 1), generator=g, device="cuda")
+    x = torch.cat([xy, z], -1).contiguous()
+    x[-1] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s", [(0.025, 16), (0.125, 32), (0.25, 16),
+                                 (0.5, 32)])
+def test_ball_query_kernel_raster_cloud_on_card(r, s):
+    """The path's radii on a raster-ordered cloud, where the tile skip
+    fires, with centers sorted as the SA levels sort them."""
+    _need_card()
+    x = _raster_cloud()
+    for m in (4096, 1024, 256):
+        c = x[:, torch.linspace(0, 4095, m, device="cuda").long()]
+        c = c.contiguous()
+        skipped = float((bq.tile_bounds(x[:-1], c[:-1]) >= r * r).float()
+                        .mean())
+        assert skipped > 0.2  # the skip is what this case exercises
+        assert torch.equal(bq.ball_query_cuda(x, c, r, s),
+                           bq.ball_query_plain(x, c, r, s))
+
+
+def _edge_cloud(r, n=4096):
+    """A center c and tiles of points at |p - c| = r and r(1 +- 1 ulp) along
+    each axis, each tile on one face of its box (the face at that offset),
+    the rest of the cloud far away; one sample."""
+    c = torch.tensor([0.25, -0.125, 0.5])
+    r32 = torch.tensor(r, dtype=torch.float32)
+    offs = [torch.nextafter(r32, torch.tensor(0.0)), r32,
+            torch.nextafter(r32, torch.tensor(1.0))]
+    pts = torch.full((n, 3), 10.0)
+    g = torch.Generator().manual_seed(4)
+    t = 1
+    for o in offs:
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                tile = c.repeat(32, 1)
+                # spread over the face, one point exactly on the axis
+                tile[1:, (axis + 1) % 3] += (torch.rand(31, generator=g)
+                                             - 0.5) * 0.5 * r
+                tile[:, axis] = c[axis] + sign * o
+                pts[32 * t:32 * t + 32] = tile
+                t += 2
+    return pts[None].cuda(), c.reshape(1, 1, 3).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0.025, 0.125, 0.3])
+def test_ball_query_kernel_sphere_and_box_faces_on_card(r):
+    """Points on the sphere and on their tile's box face: the kernel's
+    in/out and skip decisions agree with the plain version's d2 < r2."""
+    _need_card()
+    x, c = _edge_cloud(r)
+    for s in (8, 32, 64):
+        assert torch.equal(bq.ball_query_cuda(x, c, r, s),
+                           bq.ball_query_plain(x, c, r, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4005, 9000])
+def test_ball_query_kernel_last_tile_hit_on_card(n):
+    """A center whose S-th hit is the cloud's last point (a ragged last
+    tile at N = 4005, a second shared-memory chunk at N = 9000), and one
+    with fewer than S hits."""
+    _need_card()
+    s = 16
+    x = torch.full((2, n, 3), 5.0, device="cuda")
+    hits = torch.linspace(0, n - 1, s, device="cuda").long()
+    x[0, hits] = 0.01 * torch.arange(s, device="cuda",
+                                     dtype=torch.float32)[:, None]
+    x[1, hits[:-3]] = 0.0
+    c = torch.zeros((2, 1, 3), device="cuda")
+    got = bq.ball_query_cuda(x, c, 0.5, s)
+    assert torch.equal(got, bq.ball_query_plain(x, c, 0.5, s))
+    assert int(got[0, 0, -1]) == n - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(4097, 1024), (8192, 2048), (20000, 512),
+                                 (70000, 128)])
+def test_fps_kernel_large_n_on_card(n, m):
+    """Past 4096 points: 512 threads with 16 points a thread up to 8192,
+    then the points streamed from device memory (past the 16384 points of
+    the shared-memory design)."""
+    _need_card()
+    x = _card_cloud(b=2, n=n)
+    assert torch.equal(fp.fps_cuda(x, m), fp.fps_plain(x, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud,n", [("grid", 4096), ("duplicates", 4096),
+                                     ("duplicates", 8192),
+                                     ("duplicates", 16384)])
+def test_fps_kernel_exact_ties_on_card(cloud, n):
+    """Many points at equal min-distance: the lowest index must win every
+    round, as in the plain version's argmax (8192 points: 512 threads;
+    16384: streamed, where lanes do not own ordered indices)."""
+    _need_card()
+    if cloud == "grid":
+        ax = torch.arange(16, device="cuda", dtype=torch.float32) * 0.125
+        x = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1)
+        x = x.reshape(1, 4096, 3).repeat(2, 1, 1)
+    else:
+        base = _card_cloud(b=2, n=n // 8)
+        x = base.repeat(1, 8, 1)  # every point 8 times
+    x = x.contiguous()
+    for m in (1024, 256):
+        assert torch.equal(fp.fps_cuda(x, m), fp.fps_plain(x, m))
 
 
 @pytest.mark.cuda
