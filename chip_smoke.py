@@ -44,6 +44,11 @@ N_DATA = 8192
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 F32_OPS_S = 67e12  # outside the tensor cores
+# f32 arithmetic that may not be contracted into FMAs (K2's and K4's
+# distances, which must round as the plain versions do): one op a lane a
+# cycle, 132 SMs x 128 f32 lanes x 1.98 GHz boost clock; the 67e12 above
+# counts an FMA as two
+F32_NOFMA_OPS_S = 132 * 128 * 1.98e9
 SPIN_CYCLES_S = 2e9  # torch.cuda._sleep cycles a second, at least
 
 
@@ -337,25 +342,35 @@ def check_k1b(card: str) -> list:
             for (n, rep), err, (t, bnd, lib) in zip(names, errs, main)]
 
 
-def point_levels(dev, batch_size: int, size: int, n_points: int):
-    """The point sets of the HRNetPN path for one synthetic batch, through
-    the plain versions: depth2pts's cloud and the sorted FPS centers of the
-    four SA levels (l_xyz[0..4] of Pointnet2MSG), and the clouds' validity.
-    About half the samples have no depth, so their clouds are all zeros."""
+def depth_clouds(dev, batch_size: int, size: int, n_points: int):
+    """depth2pts on one synthetic batch: the sampled cloud (B, n_points, 3)
+    in raster order, all_pts (B, size^2, 3), the pixels that pts2depth
+    interpolates onto, and the clouds' validity.  About half the samples
+    have no depth, so their clouds are all zeros."""
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.models.pointnet2_model import depth2pts
-    from hcmoco_tpu_torch.ops.fps import fps_plain
-    from hcmoco_tpu_torch.ops.point_ops import gather_points
 
     b = synthetic_contrast_batch(np.random.default_rng(0), batch_size,
                                  size=size, n_data=N_DATA)
     t = {k: torch.from_numpy(b[k]).to(dev)
          for k in ("rgbd", "depth_mask", "grid_xy", "depth_mean")}
-    cloud, _, _, valid = depth2pts(
+    cloud, all_pts, _, valid = depth2pts(
         t["rgbd"][..., 3], t["depth_mask"], t["grid_xy"], 424.0, 512.0,
         t["depth_mean"], n_points, generator=torch.Generator(dev).manual_seed(0))
     if bool(valid.all()) or not bool(valid.any()):
         raise AssertionError("the batch must hold valid and zero clouds")
+    return cloud, all_pts, valid
+
+
+def point_levels(dev, batch_size: int, size: int, n_points: int):
+    """The point sets of the HRNetPN path for one synthetic batch, through
+    the plain versions: depth2pts's cloud and the sorted FPS centers of the
+    four SA levels (l_xyz[0..4] of Pointnet2MSG), and the clouds'
+    validity."""
+    from hcmoco_tpu_torch.ops.fps import fps_plain
+    from hcmoco_tpu_torch.ops.point_ops import gather_points
+
+    cloud, _, valid = depth_clouds(dev, batch_size, size, n_points)
     levels = [cloud]
     for k in range(4):
         xyz = levels[-1]
@@ -459,6 +474,86 @@ def print_k3_scan(label: str, st: dict, card: str) -> None:
           f"[{card}]")
 
 
+def k4_scan(unknown: torch.Tensor, known: torch.Tensor, dist: torch.Tensor,
+            idx: torch.Tensor, valid: torch.Tensor) -> dict:
+    """What K4's tile walk visits on these points, given the plain
+    version's answer (dist, idx).  A warp of 32 unknowns visits the tiles
+    whose (bound, first index) is at most its final (B3, I3): B3 its
+    lanes' largest third distance, I3 their largest third index at B3
+    (csrc/three_nn.cu).  Shares of (warp, tile) pairs visited, over all
+    samples and over the valid and the zero clouds apart.  Raises if a
+    tile that the walk skips holds one of the plain version's three
+    neighbours."""
+    from hcmoco_tpu_torch.ops._points import TILE
+    from hcmoco_tpu_torch.ops.three_nn import F32_MAX, tile_bounds
+
+    b, n, _ = unknown.shape
+    bounds = tile_bounds(unknown, known)  # (B, W, T)
+    w, t = bounds.shape[1:]
+    pad = w * TILE - n
+    d3 = torch.cat([dist[..., 2], dist.new_zeros((b, pad))], 1).view(b, w,
+                                                                     TILE)
+    i3 = torch.cat([idx[..., 2], idx.new_full((b, pad), -1)], 1).view(b, w,
+                                                                     TILE)
+    b3 = d3.amax(-1, keepdim=True)
+    top = torch.where(d3 == b3, i3, -1).amax(-1, keepdim=True)
+    first = TILE * torch.arange(t, device=bounds.device)
+    skip = (bounds > b3) | ((bounds == b3) & (first > top))
+    warp = (torch.arange(n, device=idx.device) // TILE)[None, :, None]
+    held = skip[torch.arange(b, device=idx.device)[:, None, None], warp,
+                idx.long() // TILE]
+    if bool((held & (dist < F32_MAX)).any()):
+        raise AssertionError("K4: a skipped tile holds a neighbour")
+    seen = (~skip).float()
+    return {"all": float(seen.mean()), "valid": float(seen[valid].mean()),
+            "zero": float(seen[~valid].mean()),
+            "tests": int(seen.sum()) * TILE * TILE, "pairs": b * n *
+            known.shape[1]}
+
+
+def print_k4_scan(label: str, st: dict, card: str) -> None:
+    print(f"  K4 {label} scan: {st['all']:.4f} of (warp, tile) pairs visited"
+          f" (valid clouds {st['valid']:.4f}, zero clouds {st['zero']:.4f});"
+          f" {st['tests']} point tests, a blind scan {st['pairs']}; no "
+          f"neighbour in a skipped tile [{card}]")
+
+
+def check_three_nn(name: str, unknown: torch.Tensor, known: torch.Tensor,
+                   zero: torch.Tensor):
+    """K4 against its plain version: distances and indices equal, two
+    launches equal, the zero clouds' neighbours 0, 1, 2.  Returns the
+    plain version's (dist, idx)."""
+    from hcmoco_tpu_torch.ops import three_nn as tn
+
+    dist, idx = tn.three_nn_cuda(unknown, known)
+    dist2, idx2 = tn.three_nn_cuda(unknown, known)
+    pdist, pidx = tn.three_nn_plain(unknown, known)
+    if not (torch.equal(dist, dist2) and torch.equal(idx, idx2)):
+        raise AssertionError(f"K4 three-NN {name}: two launches differ")
+    if (not torch.equal(idx, pidx) or not torch.equal(dist, pdist)
+            or not bool((idx[zero] == torch.arange(
+                3, device=idx.device, dtype=torch.int32)).all())):
+        raise AssertionError(f"K4 three-NN {name}: "
+                             f"{int((idx != pidx).sum())} indices off")
+    return pdist, pidx
+
+
+def check_pts2depth(card: str, batch_size: int = 8) -> None:
+    """K4 at pts2depth's call (every pixel of the 320^2 crop against the
+    4096 sampled points; hcmoco_tpu/models/pointnet2_model.py:414), bs8
+    with zero clouds: equal to the plain version, and its scan."""
+    from hcmoco_tpu_torch.ops import three_nn as tn
+
+    cloud, all_pts, valid = depth_clouds("cuda", batch_size, 320, 4096)
+    dist, idx = check_three_nn("pts2depth", all_pts, cloud, ~valid)
+    ms = cuda_ms(lambda: tn.three_nn_cuda(all_pts, cloud), iters=5)
+    print(f"K4 three-NN pts2depth ({batch_size},{all_pts.shape[1]}<-"
+          f"{cloud.shape[1]}): kernel {ms:.4f} ms, indices and distances "
+          f"equal, two launches equal [{card}]")
+    print_k4_scan("pts2depth", k4_scan(all_pts, cloud, dist, idx, valid),
+                  card)
+
+
 def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                  size: int = 320, n_points: int = 4096) -> list:
     """K2-K6 against their plain versions at every call of one HRNetPN step
@@ -500,7 +595,7 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                 "hcmoco_tpu/ops/pallas/fps.py:26", 0.0, ms,
                 cuda_ms(lambda: fp.fps_plain(xyz, m)),
                 bound(b * n * 12 + b * m * 4, 10 * b * n * (m - 1),
-                      F32_OPS_S))
+                      F32_NOFMA_OPS_S))
 
     # K2 past 16384 points, where a shared-memory design ran out: the kernel
     # streams the points from device memory
@@ -549,28 +644,29 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
     for i in range(4):
         unknown, known = levels[i], levels[i + 1]
         n, m = unknown.shape[1], known.shape[1]
-        dist, idx = tn.three_nn_cuda(unknown, known)
-        pdist, pidx = tn.three_nn_plain(unknown, known)
+        dist, idx = check_three_nn(f"fp{i}", unknown, known, zero)
         w = interpolation_weights(dist)
-        if (not torch.equal(idx, pidx) or not torch.equal(dist, pdist)
-                or not bool((idx[zero] == torch.arange(
-                    3, device=dev, dtype=torch.int32)).all())
-                or not torch.allclose(w[zero], torch.full_like(w[zero],
-                                                               1 / 3))):
-            raise AssertionError(f"K4 three-NN fp{i}: "
-                                 f"{int((idx != pidx).sum())} indices off")
+        if not torch.allclose(w[zero], torch.full_like(w[zero], 1 / 3)):
+            raise AssertionError(f"K4 three-NN fp{i}: zero-cloud weights")
         nns.append((idx, w))
         ms = cuda_ms(lambda: tn.three_nn_cuda(unknown, known))
         print(f"K4 three-NN fp{i} N={n} M={m}: kernel {ms:.4f} ms, indices "
-              f"and distances equal [{card}]")
+              f"and distances equal, two launches equal [{card}]")
+        print_k4_scan(f"fp{i}", k4_scan(unknown, known, dist, idx, valid),
+                      card)
         if i == 0:
-            # 9 f32 ops a pair: 3 sub, 3 mul, 2 add, compare
+            # K4 skips tests, so its bound is the bytes: points read once,
+            # dist and idx written once.  A blind scan's 9 f32 ops a pair
+            # (3 sub, 3 mul, 2 add, compare), uncontracted, for reference
+            blind = 9 * b * n * m / F32_NOFMA_OPS_S * 1e3
+            print(f"  K4 fp0: a blind scan needs {blind:.4f} ms at "
+                  f"{F32_NOFMA_OPS_S:.4g} f32 ops/s [{card}]")
             k4 = kernel_entry(
                 "three_nn", "three_nn.cu",
                 "hcmoco_tpu/ops/pallas/three_nn.py:25", 0.0, ms,
                 cuda_ms(lambda: tn.three_nn_plain(unknown, known)),
-                bound(b * (n + m) * 12 + b * n * 24, 9 * b * n * m,
-                      F32_OPS_S))
+                bound(b * (n + m) * 12 + b * n * 24, 0, F32_OPS_S))
+    check_pts2depth(card)
 
     # K5: the grouping of every SA scale, forward and backward; the
     # largest call is sa0 scale 1, (64, 4096, 32, 32) bf16 out

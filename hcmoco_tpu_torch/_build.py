@@ -3,10 +3,10 @@
 `nvcc` compiles each of `csrc/*.cu` for `sm_90a` into an object, all of
 them at once in parallel processes, and links the objects into one shared
 library with a plain C interface under `build/hcmoco_tpu_torch/` at the
-repository root (git-ignored).  The file name carries a hash of the
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded.  A failed build raises: there is no fallback to the plain
-PyTorch versions.
+repository root (git-ignored).  The file name carries a hash of every
+source and header under `csrc/` and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  A failed build
+raises: there is no fallback to the plain PyTorch versions.
 
 Nothing here runs at import time, so the package imports on machines with
 no GPU and no CUDA toolkit.
@@ -54,7 +54,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    csrc = _PKG_DIR / "csrc"
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libhcmoco_kernels_{h.hexdigest()[:16]}.so"

@@ -29,21 +29,15 @@
 //     first hit in shared memory between chunks.  Warps take centers from
 //     a shared counter, so a warp on a long scan does not hold up the
 //     others.
-//   * A warp skips whole tiles by an exact bound.  For a tile's box
-//     [lo, hi] and the center c, per axis g = max(lo - c, c - hi, 0) with
-//     the subtractions rounded to nearest (__fsub_rn), and
-//         bound = ((g_x*g_x + g_y*g_y) + g_z*g_z)
-//     with __fmul_rn/__fadd_rn in d2's order.  For a point p of the box,
-//     |p - c| >= the axis's gap, and rounding to nearest is monotone and
-//     odd (fl(-a) = -fl(a)), so |fl(c - p)| >= g on every axis; products
-//     and sums of non-negative numbers rounded to nearest are monotone
-//     too, so bound <= the rounded d2 of every point in the box.  A tile
-//     with bound >= r2 therefore holds no hit and is skipped.  (A NaN in a
-//     gap drops out of fmaxf and can only lower the bound.)  The tiles
-//     that remain are still visited in index order, so the hits, their
-//     order and the first hit are those of the blind scan: the output is
-//     bit-identical with no violation check or exact re-run, which the
-//     TPU's index windows needed.
+//   * A warp skips whole tiles by an exact bound (point_bounds.cuh, with
+//     the center as a box of one point): per axis g = max(lo - c, c - hi,
+//     0), bound = ((g_x*g_x + g_y*g_y) + g_z*g_z), every op rounded in
+//     d2's order, is never above the rounded d2 of a point in the tile's
+//     box.  A tile with bound >= r2 therefore holds no hit and is skipped.
+//     The tiles that remain are still visited in index order, so the hits,
+//     their order and the first hit are those of the blind scan: the
+//     output is bit-identical with no violation check or exact re-run,
+//     which the TPU's index windows needed.
 //   * Many boxes at once: lane t tests the box of tile g0 + t, so one
 //     ballot covers 32 tiles (1024 points); the warp then walks the
 //     candidate tiles of that mask in order, two tiles at a time, so that
@@ -60,24 +54,18 @@
 
 #include <cstddef>
 
+#include "point_bounds.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using hcmoco::gap;
+using hcmoco::sq3;
+constexpr unsigned kFull = hcmoco::kFullMask;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 8192;       // points staged at once
 constexpr int kMaxCenters = 256;   // centers a block
 constexpr int kTargetBlocks = 528;  // 4 an SM on 132 SMs
-
-__device__ __forceinline__ float sq3(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// The gap from c to [lo, hi] on one axis, rounded as the points' deltas.
-__device__ __forceinline__ float gap(float lo, float hi, float c) {
-  return fmaxf(fmaxf(__fsub_rn(lo, c), __fsub_rn(c, hi)), 0.0f);
-}
 
 // 4 blocks an SM: 52 KB of shared memory each at N = 4096
 __global__ void __launch_bounds__(kThreads, 4)
@@ -125,15 +113,8 @@ ball_query_kernel(const float* __restrict__ xyz,
     for (int t = warp; t < tiles; t += kWarps) {
       // a lane past the ragged end takes the tile's first point
       const int k = t * 32 + (t * 32 + lane < n ? lane : 0);
-      float v[6] = {sx[k], sx[k], sy[k], sy[k], sz[k], sz[k]};
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int a = 0; a < 6; a += 2) {
-          v[a] = fminf(v[a], __shfl_xor_sync(kFull, v[a], off));
-          v[a + 1] = fmaxf(v[a + 1], __shfl_xor_sync(kFull, v[a + 1], off));
-        }
-      }
+      float v[6];
+      hcmoco::warp_box(sx[k], sy[k], sz[k], v);
       if (lane == 0) {
 #pragma unroll
         for (int a = 0; a < 6; ++a) box[a * tiles_cap + t] = v[a];
@@ -169,11 +150,11 @@ ball_query_kernel(const float* __restrict__ xyz,
         const int t = g0 + lane;
         bool reach = false;
         if (t < tiles) {
-          const float gx = gap(box[t], box[tiles_cap + t], cx);
+          const float gx = gap(box[t], box[tiles_cap + t], cx, cx);
           const float gy = gap(box[2 * tiles_cap + t], box[3 * tiles_cap + t],
-                               cy);
+                               cy, cy);
           const float gz = gap(box[4 * tiles_cap + t], box[5 * tiles_cap + t],
-                               cz);
+                               cz, cz);
           reach = sq3(gx, gy, gz) < r2;
         }
         // the candidate tiles of this group, two at a time

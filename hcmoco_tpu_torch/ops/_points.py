@@ -1,6 +1,8 @@
 """What the point-op kernel modules share: the squared distance of the
-JAX package's `_sq_dists_exact`, in the order the kernels round it, and the
-argument checks and launch of their wrappers."""
+JAX package's `_sq_dists_exact`, in the order the kernels round it; the
+32-point tile boxes and the box-to-box bound by which K3 and K4 skip tiles
+(csrc/point_bounds.cuh); and the argument checks and launch of their
+wrappers."""
 
 from __future__ import annotations
 
@@ -22,6 +24,33 @@ def sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dy = a[..., :, None, 1] - b[..., None, :, 1]
     dz = a[..., :, None, 2] - b[..., None, :, 2]
     return (dx * dx + dy * dy) + dz * dz
+
+
+TILE = 32  # points a tile of K3's and K4's skip tests
+
+
+def tile_boxes(x: torch.Tensor):
+    """(B, N, 3) -> lo, hi (B, ceil(N / 32), 3) f32: the min and max of
+    the coordinates of each 32 consecutive points (the last tile's over the
+    points it has)."""
+    b, n, _ = x.shape
+    t = -(-n // TILE)
+    x = x.float()
+    pad = x.new_full((b, t * TILE - n, 3), float("inf"))
+    lo = torch.cat([x, pad], 1).view(b, t, TILE, 3).amin(2)
+    hi = torch.cat([x, -pad], 1).view(b, t, TILE, 3).amax(2)
+    return lo, hi
+
+
+def box_bounds(lo_a: torch.Tensor, hi_a: torch.Tensor, lo_b: torch.Tensor,
+               hi_b: torch.Tensor) -> torch.Tensor:
+    """Boxes (..., 3), broadcast -> (...) f32: per axis g = max(lo_a - hi_b,
+    lo_b - hi_a, 0), then ((g_x*g_x + g_y*g_y) + g_z*g_z), every op rounded
+    in f32 in the kernels' order.  Never above the rounded d2 of a point of
+    one box and a point of the other (csrc/point_bounds.cuh says why)."""
+    g = torch.clamp_min(torch.maximum(lo_a - hi_b, lo_b - hi_a), 0.0)
+    return (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
+        + g[..., 2] * g[..., 2]
 
 
 def check_cuda(name: str, tensors: Sequence[tuple]) -> None:

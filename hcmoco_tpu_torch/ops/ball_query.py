@@ -45,7 +45,7 @@ def ball_query_plain(xyz: torch.Tensor, centers: torch.Tensor, radius: float,
     return torch.cat(outs, dim=1).to(torch.int32)
 
 
-TILE = 32  # points a tile of the kernel's skip test
+TILE = _points.TILE
 
 
 def tile_bounds(xyz: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -55,17 +55,9 @@ def tile_bounds(xyz: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     0), and ((g_x*g_x + g_y*g_y) + g_z*g_z), every op rounded in f32 in
     the kernel's order.  It is at most the rounded d2 of any point of the
     tile, so a tile whose bound is >= radius^2 holds no hit."""
-    b, n, _ = xyz.shape
-    t = -(-n // TILE)
-    x = xyz.float()
-    pad = t * TILE - n
-    inf = torch.full((b, pad, 3), float("inf"), device=x.device)
-    lo = torch.cat([x, inf], 1).view(b, t, TILE, 3).amin(2)
-    hi = torch.cat([x, -inf], 1).view(b, t, TILE, 3).amax(2)
+    lo, hi = _points.tile_boxes(xyz)
     c = centers.float()[:, :, None, :]  # (B, M, 1, 3)
-    g = torch.clamp_min(torch.maximum(lo[:, None] - c, c - hi[:, None]), 0.0)
-    return (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
-        + g[..., 2] * g[..., 2]
+    return _points.box_bounds(lo[:, None], hi[:, None], c, c)
 
 
 def ball_query_cuda(xyz: torch.Tensor, centers: torch.Tensor, radius: float,

@@ -7,8 +7,14 @@ ascending order, the earlier index first among equal distances.  With
 fewer than three known points the missing neighbours have distance
 float32 max and index 0, as the JAX package pads them.
 
+The kernel (csrc/three_nn.cu) does not test every pair: a warp of 32
+consecutive unknowns visits the 32-point known tiles best first by an
+exact box-to-box bound (`tile_bounds` is that bound in PyTorch ops) and
+stops at the first tile that provably holds no new neighbour, so its
+output is the plain version's bit for bit.
+
 Dispatch: a CPU tensor takes the plain PyTorch version; a CUDA tensor
-launches the hand-written Hopper kernel (csrc/three_nn.cu) or raises.
+launches the hand-written Hopper kernel or raises.
 """
 
 from __future__ import annotations
@@ -44,6 +50,20 @@ def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor,
     idx = torch.cat(idxs, dim=1)
     idx = torch.where(idx >= m, 0, idx)
     return torch.cat(dists, dim=1), idx.to(torch.int32)
+
+
+def tile_bounds(unknown: torch.Tensor, known: torch.Tensor) -> torch.Tensor:
+    """The kernel's tile-skip bound, (B, N, 3), (B, M, 3) -> (B, W, T) f32
+    with W = ceil(N / 32) warps of unknowns and T = ceil(M / 32) known
+    tiles: for warp w's box (min and max of its unknowns' coordinates) and
+    tile t's, per axis g = max(lo_t - hi_w, lo_w - hi_t, 0), and
+    ((g_x*g_x + g_y*g_y) + g_z*g_z), every op rounded in f32 in the
+    kernel's order.  It is at most the rounded d2 of any unknown of the
+    warp to any point of the tile."""
+    ulo, uhi = _points.tile_boxes(unknown)
+    klo, khi = _points.tile_boxes(known)
+    return _points.box_bounds(klo[:, None], khi[:, None], ulo[:, :, None],
+                              uhi[:, :, None])
 
 
 def three_nn_cuda(unknown: torch.Tensor, known: torch.Tensor

@@ -7,7 +7,9 @@ Inputs: N(0, 0.3^2) clouds of up to 4096 points with an all-zero sample
 (the cloud of an image without depth); for K3's tile skip also clouds in
 raster order, points on the sphere and on the faces of a tile's box; for
 K2 clouds of 4097 to 8192 points (512 threads), past 16384 points
-(streamed) and clouds of exact ties.  Indices and
+(streamed) and clouds of exact ties; for K4's tile walk depth2pts clouds
+at the FP calls and pts2depth's shape, shuffled, and known sets of 1 to
+20000 points.  Indices and
 distances equal (the kernels compute d2 without FMA contraction, as the
 plain versions round it); forward gathers exact; the backwards (K56a's
 destination index, then K56b's sums in ascending source order) equal the
@@ -15,6 +17,7 @@ plain versions computed on CPU copies, bit for bit, and two launches equal
 each other.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,15 +178,76 @@ def test_fps_kernel_exact_ties_on_card(cloud, n):
         assert torch.equal(fp.fps_cuda(x, m), fp.fps_plain(x, m))
 
 
+def _depth_clouds():
+    """depth2pts's 4096-point cloud (raster order, drawn with repeats) and
+    its all_pts of a synthetic bs4 320^2 batch whose samples 1 and 3 have
+    no depth (zero clouds)."""
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.pointnet2_model import depth2pts
+
+    batch = synthetic_contrast_batch(np.random.default_rng(3), 4, size=320)
+    t = {k: torch.from_numpy(batch[k]).cuda()
+         for k in ("rgbd", "depth_mask", "grid_xy", "depth_mean")}
+    cloud, all_pts, _, valid = depth2pts(
+        t["rgbd"][..., 3], t["depth_mask"], t["grid_xy"], 424.0, 512.0,
+        t["depth_mean"], 4096,
+        generator=torch.Generator("cuda").manual_seed(0))
+    assert valid.tolist() == [True, False, True, False]
+    return cloud, all_pts
+
+
+def _fp_calls(cloud):
+    """The (unknown, known) of the four FP levels of a PointNet++ MSG over
+    `cloud`: SA0 keeps it, SA1-3 take sorted FPS centers."""
+    levels = [cloud, cloud]
+    for m in (1024, 256, 64):
+        idx = torch.sort(fp.fps_plain(levels[-1], m), dim=-1).values
+        levels.append(point_ops.gather_points(levels[-1], idx))
+    return [(levels[i], levels[i + 1]) for i in range(4)]
+
+
+def _three_nn_calls(case):
+    if case == "random":
+        x = _card_cloud()
+        return [(x, x[:, :m].contiguous()) for m in (4096, 1024, 64, 2)]
+    if case == "fp_calls":
+        return _fp_calls(_depth_clouds()[0])
+    if case == "shuffled":
+        g = torch.Generator(device="cuda").manual_seed(6)
+        calls = []
+        for u, k in _fp_calls(_depth_clouds()[0]):
+            pu = torch.randperm(u.shape[1], generator=g, device="cuda")
+            pk = torch.randperm(k.shape[1], generator=g, device="cuda")
+            calls.append((u[:, pu].contiguous(), k[:, pk].contiguous()))
+        return calls
+    if case == "pts2depth":
+        cloud, all_pts = _depth_clouds()
+        return [(all_pts, cloud)]
+    # M known points of a raster cloud against 4096 + 5 unknowns
+    m = int(case.split("=")[1])
+    known = _raster_cloud(n=m, seed=7)
+    return [(_raster_cloud(n=4101, seed=8), known)]
+
+
 @pytest.mark.cuda
-def test_three_nn_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", ["random", "fp_calls", "shuffled",
+                                  "pts2depth", "M=1", "M=2", "M=3", "M=33",
+                                  "M=8192", "M=20000"])
+def test_three_nn_kernel_matches_plain_on_card(case):
+    """K4 equal to the plain version, distances and indices, and over two
+    launches: the FP calls of depth2pts clouds (raster order, repeats and
+    zero clouds), the same in shuffled order (no raster coherence, so the
+    least-bound tiles come first only by chance), few known points, known
+    sets streamed in chunks (8192, 20000), N not a multiple of 32, and
+    pts2depth's (4, 102400 <- 4096)."""
     _need_card()
-    x = _card_cloud()
-    for m in (4096, 1024, 64, 2):
-        k = x[:, :m].contiguous()
-        d, i = tn.three_nn_cuda(x, k)
-        pd, pi = tn.three_nn_plain(x, k)
-        assert torch.equal(i, pi) and torch.equal(d, pd)
+    for u, k in _three_nn_calls(case):
+        d, i = tn.three_nn_cuda(u, k)
+        d2, i2 = tn.three_nn_cuda(u, k)
+        pd, pi = tn.three_nn_plain(u, k)
+        assert torch.equal(d, d2) and torch.equal(i, i2)
+        assert torch.equal(i, pi) and torch.equal(d, pd), (
+            case, tuple(u.shape), tuple(k.shape), int((i != pi).sum()))
 
 
 def _equal_twice(fn, want):

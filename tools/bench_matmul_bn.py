@@ -13,9 +13,15 @@ step (R = 204800 rows):
   - each K1b kernel's device ms, if ops.matmul_bn has it;
   - the fused site (conv1x1_bn_stats + bn_apply_stats, then backward of
     both) device ms, and its host ms a call at R = 6400 (bs1), where the
-    card waits on the host.
+    card waits on the host;
+then K1 at every (R, K, C) of the step's fused sites, found by one
+training forward of both HRNets at bs1 (R scaled to bs32): each shape's
+sites a step, K1 ms against its bound and torch.matmul's ms (y only), and
+K1's ms a step over the layer1 shapes' fast path and the others' generic
+path apart.
 """
 
+import collections
 import os
 import sys
 import time
@@ -25,6 +31,56 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 SHAPES = ((204800, 64, 256), (204800, 256, 64), (204800, 64, 64))
+
+
+def fused_site_shapes(smoke) -> collections.Counter:
+    """(R, K, C) -> sites a step of the W18 bs32 320^2 fused stage-1 step,
+    from one training forward of both HRNets at bs1, R scaled to bs32."""
+    from hcmoco_tpu_torch.models import hrnet
+    from hcmoco_tpu_torch.models.build import build_model
+
+    seen = collections.Counter()
+    real = hrnet.conv1x1_bn_stats
+
+    def spy(x2d, w):
+        seen[(x2d.shape[0] * smoke.BATCH, x2d.shape[1], w.shape[0])] += 1
+        return real(x2d, w)
+
+    model = hrnet.set_convbn_fuse(build_model(smoke.make_cfg(),
+                                              device="cuda"), True)
+    hrnet.conv1x1_bn_stats = spy
+    try:
+        with torch.no_grad():
+            for enc in (model.encoder1, model.encoder2):
+                enc(torch.randn((1, 3, 320, 320), device="cuda"))
+    finally:
+        hrnet.conv1x1_bn_stats = real
+    return seen
+
+
+def k1_by_path(smoke, mb, card: str) -> None:
+    """K1 at every fused site's shape, fast and generic paths apart."""
+    fast = {(k, c) for _, k, c in SHAPES}  # matmul_bn.cu's fast path
+    g = torch.Generator("cuda").manual_seed(1)
+    per_step = {"fast": 0.0, "generic": 0.0}
+    shapes = fused_site_shapes(smoke)
+    for (r, k, c), sites in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
+        x = torch.randn((r, k), generator=g, device="cuda").bfloat16()
+        w = (torch.randn((c, k), generator=g, device="cuda") / k ** 0.5
+             ).bfloat16()
+        ms = smoke.cuda_ms(lambda: mb.mm_bn_stats_cuda(x, w))
+        lib = smoke.cuda_ms(lambda: torch.matmul(x, w.t()))
+        bnd = smoke.bound(2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
+                          smoke.BF16_OPS_S)
+        path = "fast" if (k, c) in fast else "generic"
+        per_step[path] += sites * ms
+        print(f"K1 {path} R={r} K={k} C={c}, {sites} sites a step: "
+              f"{ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), torch.matmul (y only) {lib:.4f} ms "
+              f"[{card}]")
+    print(f"K1 a fused step: fast path {per_step['fast']:.4f} ms, generic "
+          f"path {per_step['generic']:.4f} ms, {sum(shapes.values())} "
+          f"sites [{card}]")
 
 
 def main() -> int:
@@ -82,6 +138,7 @@ def main() -> int:
         line += (f", host {(time.perf_counter() - t0) / 50 * 1e3:.4f} ms a "
                  f"call at R=6400 [{card}]")
         print(line)
+    k1_by_path(smoke, mb, card)
     return 0
 
 
