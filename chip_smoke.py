@@ -3,7 +3,9 @@ kernels, holds each against its plain PyTorch version at the main paths'
 shapes, and drives the two stage-1 train steps the port has:
 
   * HCMoCo (HRNet-W18 x2 + SemGCN, 320^2 crops, bank NCE with K=16384,
-    bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernels K1 and K1b;
+    bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernels K1 (its fast path
+    at the layer1 sites, its generic path at the 62 fuse-layer sites) and
+    K1b;
   * HRNetPN (HRNet-W18 + PointNet++ MSG on 4096 depth points + SemGCN,
     320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
     steps under torch.profiler (device ms per kernel class).
@@ -99,43 +101,82 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
     return {"bound_ms": t_ops, "bound_by": "operations"}
 
 
-def check_k1(card: str) -> dict:
+# K1's fast-path shapes and its generic path's (R, K, C, site, sites a
+# fused W18 bs32 step); R = 32 x H x W of the site's input
+K1_FAST = ((204800, 64, 256, "layer1 conv3/downsample 80x80", 10),
+           (204800, 256, 64, "layer1 conv1 of blocks 2-4 80x80", 6),
+           (204800, 64, 64, "layer1 conv1 of block 1 80x80", 2))
+K1_GENERIC = ((51200, 36, 18, "fuse 36->18 at 40x40", 16),
+              (12800, 72, 18, "fuse 72->18 at 20x20", 14),
+              (12800, 72, 36, "fuse 72->36 at 20x20", 14),
+              (3200, 144, 18, "fuse 144->18 at 10x10", 6),
+              (3200, 144, 36, "fuse 144->36 at 10x10", 6),
+              (3200, 144, 72, "fuse 144->72 at 10x10", 6),
+              (12800 + 37, 144, 72, "ragged R", 0),
+              (40, 72, 36, "R below one 64-row tile", 0),
+              (3200, 384, 48, "W48 fuse 384->48 at 10x10", 0))
+
+
+def k1_kernel_count(calls) -> int:
+    """Device kernels that torch.profiler records over `calls`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def check_k1(card: str) -> list:
     """K1 against its plain version at the W18 main-path shapes (bs32,
-    320^2): y within 1 bf16 ulp, s1/s2 within 1e-5 of f64 sums of the
-    kernel's own y (relative to each channel's sum of magnitudes) and
-    bit-identical over two launches, dx/dw through the autograd.Function
-    within rel 1e-2 of plain autograd (bf16 operands: the two round
-    dy_total at different points)."""
+    320^2), fast path and generic path, plus a ragged R, an R below one
+    row tile and a W48 fuse shape: y within 1 bf16 ulp, s1/s2 within 1e-5
+    of f64 sums of the kernel's own y (relative to each channel's sum of
+    magnitudes) and bit-identical over repeated launches (three, at
+    alternating shapes, on the generic path, whose one launch resets a
+    device counter), dx/dw through the autograd.Function within rel 1e-2 of
+    plain autograd (bf16 operands: the two round dy_total at different
+    points).  On the generic path also: an Inf in one row of x leaves the
+    other rows of y finite (its packed tiles read past a row's end in the
+    last k16 step), and torch.profiler counts one device kernel a call.
+    Returns the JSON entries of both paths (at their first shapes)."""
     from hcmoco_tpu_torch.ops import matmul_bn as mb
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [  # (R, K, C, site)
-        (204800, 64, 256, "layer1 conv3/downsample 80x80"),
-        (204800, 256, 64, "layer1 conv1 of blocks 2-4 80x80"),
-        (204800, 64, 64, "layer1 conv1 of block 1 80x80"),
-        (51200, 36, 18, "fuse0_1 at 40x40"),
-        (12800 + 37, 144, 72, "ragged R, fuse2_3-like"),
-    ]
-    max_err = 0.0
-    main = None
-    for r, k, c, site in shapes:
+    floor = cuda_ms(lambda: torch.cuda._sleep(0))
+    print(f"launch floor (an empty back-to-back kernel): {floor:.4f} ms "
+          f"[{card}]")
+    errs, entries, inputs = {}, {}, []
+    step_ms = {"fast": 0.0, "generic": 0.0}
+    prev = None
+    for r, k, c, site, sites in K1_FAST + K1_GENERIC:
+        path = "fast" if (k, c) in mb.FAST_SHAPES else "generic"
         x = torch.randn((r, k), generator=g, device="cuda").bfloat16()
         w = (torch.randn((c, k), generator=g, device="cuda")
              / k ** 0.5).bfloat16()
         y, s1, s2 = mb.mm_bn_stats_cuda(x, w)
-        _, s1b, s2b = mb.mm_bn_stats_cuda(x, w)
-        yp, s1p, s2p = mb.mm_bn_stats_plain(x, w)
+        runs = [(y, s1, s2), mb.mm_bn_stats_cuda(x, w)]
+        if path == "generic":  # alternate with the previous shape
+            mb.mm_bn_stats_cuda(*prev)
+            runs.append(mb.mm_bn_stats_cuda(x, w))
+            mb.mm_bn_stats_cuda(*prev)
+            runs.append(mb.mm_bn_stats_cuda(x, w))
+        yp, _, _ = mb.mm_bn_stats_plain(x, w)
         torch.cuda.synchronize()
-        if not (torch.equal(s1, s1b) and torch.equal(s2, s2b)):
-            raise AssertionError(f"K1 sums differ between two launches at "
-                                 f"{site}")
+        for y2, a1, a2 in runs[1:]:
+            if not (torch.equal(s1, a1) and torch.equal(s2, a2)
+                    and torch.equal(y, y2)):
+                raise AssertionError(f"K1 differs between launches at {site}")
         yf, ypf = y.float(), yp.float()
         err = (yf - ypf).abs()
         bad = err > bf16_ulp(torch.maximum(yf.abs(), ypf.abs()))
         if bool(bad.any()):
             raise AssertionError(f"K1 y off by more than 1 bf16 ulp at {site}"
                                  f": {int(bad.sum())} elements")
-        max_err = max(max_err, float(err.max()))
+        errs[path] = max(errs.get(path, 0.0), float(err.max()))
         yd = y.double()
         for name, got, want, scale in (
                 ("s1", s1, yd.sum(0), yd.abs().sum(0)),
@@ -157,6 +198,23 @@ def check_k1(card: str) -> dict:
             rel = float((a.float() - b.float()).norm() / b.float().norm())
             if not rel < 1e-2:
                 raise AssertionError(f"K1 {name} rel err {rel} at {site}")
+        note = ""
+        if path == "generic":
+            # an Inf in a row whose predecessor shares its row tile
+            rows = sorted({min(17, r - 1), r // 2 + 3} & set(range(r)))
+            xi = x.clone()
+            xi[rows] = float("inf")
+            yi = mb.mm_bn_stats_cuda(xi, w)[0]
+            keep = torch.ones(r, dtype=torch.bool, device="cuda")
+            keep[rows] = False
+            if not bool(torch.isfinite(yi[keep].float()).all()):
+                raise AssertionError(f"K1 at {site}: an Inf in x rows {rows} "
+                                     "leaked into other rows of y")
+            if bool(torch.isfinite(yi[rows].float()).all()):
+                raise AssertionError(f"K1 at {site}: the Inf rows {rows} "
+                                     "came out finite")
+            inputs.append((x, w))
+            note = ", Inf rows stay in their rows, 3 launches identical"
         ms = cuda_ms(lambda: mb.mm_bn_stats_cuda(x, w))
         plain_ms = cuda_ms(lambda: mb.mm_bn_stats_plain(x, w))
         # y only, no sums: one cuBLAS call
@@ -164,18 +222,36 @@ def check_k1(card: str) -> dict:
         # x and w read, y and the two f32 sums written; 2RKC bf16 ops
         bnd = bound(2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
                     BF16_OPS_S)
-        print(f"K1 R={r} K={k} C={c} ({site}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.matmul (y only) {lib_ms:.4f} ms, "
-              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), y "
-              f"max|err| {float(err.max()):.6g}, s1/s2 deterministic, "
-              f"dx/dw ok [{card}]")
-        if main is None:
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
-    return {"name": "mm_bn_stats (fused 1x1 conv + BN stats)",
-            "route": "cuda",
-            "source": "hcmoco_tpu_torch/csrc/matmul_bn.cu",
-            "replaces": "hcmoco_tpu/ops/pallas/matmul_bn.py:34",
-            "max_abs_err": max_err, **main}
+        step_ms[path] += sites * ms
+        print(f"K1 {path} R={r} K={k} C={c} ({site}, {sites} sites a step): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+              f"(y only) {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), y max|err| {float(err.max()):.6g}, "
+              f"s1/s2 deterministic, dx/dw ok{note} [{card}]")
+        if path not in entries:
+            entries[path] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 **bnd)
+        prev = (x, w)
+    n = k1_kernel_count([lambda x=x, w=w: mb.mm_bn_stats_cuda(x, w)
+                         for x, w in inputs])
+    if n != len(inputs):
+        raise AssertionError(f"K1 generic: {n} device kernels for "
+                             f"{len(inputs)} calls")
+    print(f"K1 generic: torch.profiler counts {n} device kernels for "
+          f"{len(inputs)} calls [{card}]")
+    print(f"K1 by call times, a fused W18 bs32 step: fast path "
+          f"{step_ms['fast']:.4f} ms (18 sites), generic path "
+          f"{step_ms['generic']:.4f} ms (62 sites) [{card}]")
+    return [{"name": "mm_bn_stats (fused 1x1 conv + BN stats)",
+             "route": "cuda",
+             "source": "hcmoco_tpu_torch/csrc/matmul_bn.cu",
+             "replaces": "hcmoco_tpu/ops/pallas/matmul_bn.py:34",
+             "max_abs_err": errs["fast"], **entries["fast"]},
+            {"name": "mm_bn_stats generic (fuse-layer shapes)",
+             "route": "cuda",
+             "source": "hcmoco_tpu_torch/csrc/matmul_bn.cu",
+             "replaces": "hcmoco_tpu/ops/pallas/matmul_bn.py:34",
+             "max_abs_err": errs["generic"], **entries["generic"]}]
 
 
 def f32_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -929,11 +1005,23 @@ def k1_wrappers() -> dict:
             "mm_bn bwd dyt": mb.mm_bn_bwd_dyt_cuda}
 
 
+def generic_sites(encoder) -> int:
+    """Fused ConvBN sites of an HRNet whose (K, C) takes K1's generic
+    path."""
+    from hcmoco_tpu_torch.models.hrnet import _is_fusable
+    from hcmoco_tpu_torch.ops.matmul_bn import FAST_SHAPES
+
+    return sum(1 for m in encoder.modules()
+               if isinstance(m, torch.nn.Conv2d) and _is_fusable(m)
+               and (m.in_channels, m.out_channels) not in FAST_SHAPES)
+
+
 def drive_slice(card: str) -> dict:
     """Stage-1 W18 320^2 bs32 train steps through the user entry points,
-    HCMOCO_CONVBN_FUSE=1; returns K1's and K1b's launches during the
-    steps."""
+    HCMOCO_CONVBN_FUSE=1; returns K1's (all and generic-path) and K1b's
+    launches during the steps, in the order of their JSON entries."""
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
     from hcmoco_tpu_torch.models.build import build_model
     from hcmoco_tpu_torch.models.hrnet import fused_sites, set_convbn_fuse
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
@@ -952,6 +1040,7 @@ def drive_slice(card: str) -> dict:
         np.random.default_rng(0), BATCH, size=cfg.crop_size, num_joints=16,
         n_data=N_DATA), dev)
     sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+    generic = generic_sites(model.encoder1) + generic_sites(model.encoder2)
 
     # the fused and the unfused step from one copied state
     twin = copy.deepcopy(state)
@@ -979,6 +1068,7 @@ def drive_slice(card: str) -> dict:
     wrappers = k1_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    mb.mm_bn_stats_cuda.generic_launches = 0
     times, losses = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -995,6 +1085,13 @@ def drive_slice(card: str) -> dict:
         if n != sites * STEPS:
             raise AssertionError(f"{name} launched {n} times in {STEPS} "
                                  f"steps, expected {sites} sites x {STEPS}")
+    n_gen = mb.mm_bn_stats_cuda.generic_launches
+    if n_gen != generic * STEPS:
+        raise AssertionError(f"K1's generic path launched {n_gen} times in "
+                             f"{STEPS} steps, expected {generic} sites x "
+                             f"{STEPS}")
+    launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                "mm_bn_stats generic": n_gen, **launches}
     if not bool(torch.isfinite(state.banks).all()):
         raise AssertionError("non-finite bank rows")
     print("losses per step: " + ", ".join(f"{l['loss']:.5f}" for l in losses))
@@ -1004,7 +1101,8 @@ def drive_slice(card: str) -> dict:
     print(f"W18 320^2 bs{BATCH} fused stage-1 step: median {steady * 1e3:.2f}"
           f" ms = {BATCH / steady:.2f} samples/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1/K1b launches "
-          f"{launches}, each {sites} sites x {STEPS} steps [{card}]")
+          f"{launches}, each {sites} sites x {STEPS} steps ({generic} sites "
+          f"on K1's generic path) [{card}]")
     return launches
 
 
@@ -1179,7 +1277,7 @@ def main() -> int:
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
-    k1 = [check_k1(card)] + check_k1b(card)
+    k1 = check_k1(card) + check_k1b(card)
     small_reference_check(card)
     for entry, launches in zip(k1, drive_slice(card).values()):
         entry["launches"] = launches

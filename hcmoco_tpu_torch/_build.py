@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             f = ctypes.c_float
             lib.hcmoco_mm_bn_slots.argtypes = [ci] * 4
-            lib.hcmoco_mm_bn_stats.argtypes = [ci] + [vp] * 5 + [ci] * 3 + [vp]
+            lib.hcmoco_mm_bn_stats.argtypes = [ci] + [vp] * 6 + [ci] * 3 + [vp]
             lib.hcmoco_mm_bn_dyt.argtypes = [ci] + [vp] * 5 + [ci, ci, vp]
             lib.hcmoco_bn_fwd.argtypes = ([ci] + [vp] * 12
                                           + [ci, ci, f, f, f, f, vp])

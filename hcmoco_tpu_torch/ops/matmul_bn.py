@@ -89,8 +89,24 @@ def mm_bn_stats_plain(x2d: torch.Tensor, w: torch.Tensor):
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
+# (K, C) of K1's fast path (csrc/matmul_bn.cu, K1_FAST_SHAPES): the layer1
+# sites.  Every other shape takes the generic path, one launch a call.
+FAST_SHAPES = ((64, 256), (256, 64), (64, 64))
+
+# device index -> K1's generic-path counter: one unsigned int, zeroed once
+# here; each launch's last CTA sets it back to zero
+_counters: dict = {}
+
+
+def _k1_counter(dev: int) -> torch.Tensor:
+    if dev not in _counters:
+        _counters[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _counters[dev]
+
+
 def mm_bn_stats_cuda(x2d: torch.Tensor, w: torch.Tensor):
-    """Launch K1 on x2d's device and current stream."""
+    """Launch K1 on x2d's device and current stream.  `.launches` counts
+    every launch, `.generic_launches` those of the generic path."""
     fn = "mm_bn_stats_cuda"
     r, k = _rows_cols(fn, "x2d", x2d)
     if w.dim() != 2 or w.shape[1] != k:
@@ -100,19 +116,25 @@ def mm_bn_stats_cuda(x2d: torch.Tensor, w: torch.Tensor):
     dev = _check_cuda(fn, [("x2d", x2d, BF16, (r, k)),
                            ("w", w, BF16, (c, k))])
     lib = _build.load()
+    slots = lib.hcmoco_mm_bn_slots(dev, r, k, c)
+    if slots <= 0:
+        raise ValueError(f"{fn}: no launch for K={k}, C={c}: w and a "
+                         "16-row tile of x exceed a block's shared memory")
     y = torch.empty((r, c), dtype=BF16, device=dev)
     s = torch.empty((2, c), dtype=F32, device=dev)
-    partials = torch.empty((lib.hcmoco_mm_bn_slots(dev, r, k, c), 2, c),
-                           dtype=torch.float64, device=dev)
+    partials = torch.empty((slots, 2, c), dtype=torch.float64, device=dev)
     rc = lib.hcmoco_mm_bn_stats(
         dev, x2d.data_ptr(), w.data_ptr(), y.data_ptr(), partials.data_ptr(),
-        s.data_ptr(), r, k, c, _stream(dev))
+        s.data_ptr(), _k1_counter(dev).data_ptr(), r, k, c, _stream(dev))
     _build.check(lib, rc, fn)
     mm_bn_stats_cuda.launches += 1
+    if (k, c) not in FAST_SHAPES:
+        mm_bn_stats_cuda.generic_launches += 1
     return y, s[0], s[1]
 
 
 mm_bn_stats_cuda.launches = 0
+mm_bn_stats_cuda.generic_launches = 0
 
 
 def mm_bn_stats(x2d: torch.Tensor, w: torch.Tensor):

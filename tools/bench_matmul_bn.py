@@ -18,7 +18,8 @@ then K1 at every (R, K, C) of the step's fused sites, found by one
 training forward of both HRNets at bs1 (R scaled to bs32): each shape's
 sites a step, K1 ms against its bound and torch.matmul's ms (y only), and
 K1's ms a step over the layer1 shapes' fast path and the others' generic
-path apart.
+path apart, each shape's plain-version ms, and the launch floor (an empty
+kernel's back-to-back time).
 """
 
 import collections
@@ -69,18 +70,21 @@ def k1_by_path(smoke, mb, card: str) -> None:
         w = (torch.randn((c, k), generator=g, device="cuda") / k ** 0.5
              ).bfloat16()
         ms = smoke.cuda_ms(lambda: mb.mm_bn_stats_cuda(x, w))
+        plain = smoke.cuda_ms(lambda: mb.mm_bn_stats_plain(x, w))
         lib = smoke.cuda_ms(lambda: torch.matmul(x, w.t()))
         bnd = smoke.bound(2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
                           smoke.BF16_OPS_S)
         path = "fast" if (k, c) in fast else "generic"
         per_step[path] += sites * ms
         print(f"K1 {path} R={r} K={k} C={c}, {sites} sites a step: "
-              f"{ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']}), torch.matmul (y only) {lib:.4f} ms "
-              f"[{card}]")
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), torch.matmul "
+              f"(y only) {lib:.4f} ms [{card}]")
+    floor = smoke.cuda_ms(lambda: torch.cuda._sleep(0))
     print(f"K1 a fused step: fast path {per_step['fast']:.4f} ms, generic "
           f"path {per_step['generic']:.4f} ms, {sum(shapes.values())} "
-          f"sites [{card}]")
+          f"sites; launch floor (an empty back-to-back kernel) {floor:.4f} "
+          f"ms [{card}]")
 
 
 def main() -> int:
