@@ -28,6 +28,7 @@ before it prints its last line.
 """
 
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -614,20 +615,136 @@ def check_three_nn(name: str, unknown: torch.Tensor, known: torch.Tensor,
     return pdist, pidx
 
 
-def check_pts2depth(card: str, batch_size: int = 8) -> None:
-    """K4 at pts2depth's call (every pixel of the 320^2 crop against the
-    4096 sampled points; hcmoco_tpu/models/pointnet2_model.py:414), bs8
-    with zero clouds: equal to the plain version, and its scan."""
+def check_pts2depth(card: str, batch_size: int = 8,
+                    main_batch: int = PN_BATCH) -> None:
+    """K4, K6 and K6's backward (K56a + K56b) at pts2depth's call (every
+    pixel of the 320^2 crop against the 4096 sampled points, f32 features
+    of width 128; hcmoco_tpu/models/pointnet2_model.py:414), the stage-2
+    HRNetPN path.  At bs8 with zero clouds: K4 equal to its plain version
+    (and its scan), K6's forward equal to its plain version, K56a's index
+    equal, K6's backward bit for bit equal to the plain version on the CPU
+    and over two launches.  At the main path's bs64, whose f32 maps pass
+    2^31 bytes: K4, K6 fwd and K56a equal again, K6 bwd's rows of the
+    last valid and the last zero cloud equal to the CPU's, and the times
+    of K4, K6 fwd, K6 bwd, K56a and K56b beside the plain
+    versions' and their bounds; K6 bwd and K56b also on the valid and the
+    zero-cloud samples apart (a zero cloud sends all of its 307200 sources
+    to rows 0, 1 and 2: three buckets of 102400, K56b's long path)."""
+    from hcmoco_tpu_torch.ops import point_gather as pg
     from hcmoco_tpu_torch.ops import three_nn as tn
+    from hcmoco_tpu_torch.ops.point_ops import interpolation_weights
 
+    c = 128
+    g = torch.Generator(device="cuda").manual_seed(9)
     cloud, all_pts, valid = depth_clouds("cuda", batch_size, 320, 4096)
+    b, n, m = batch_size, all_pts.shape[1], cloud.shape[1]
     dist, idx = check_three_nn("pts2depth", all_pts, cloud, ~valid)
-    ms = cuda_ms(lambda: tn.three_nn_cuda(all_pts, cloud), iters=5)
-    print(f"K4 three-NN pts2depth ({batch_size},{all_pts.shape[1]}<-"
-          f"{cloud.shape[1]}): kernel {ms:.4f} ms, indices and distances "
-          f"equal, two launches equal [{card}]")
     print_k4_scan("pts2depth", k4_scan(all_pts, cloud, dist, idx, valid),
                   card)
+    w = interpolation_weights(dist)
+    feat = torch.randn((b, m, c), generator=g, device="cuda")
+    gout = torch.randn((b, n, c), generator=g, device="cuda")
+    out = pg.interpolate_rows_cuda(feat, idx, w)
+    if not torch.equal(out, pg.interpolate_rows_plain(feat, idx, w)):
+        raise AssertionError("K6 interpolate fwd at pts2depth: not exact")
+    zero_rows = out[~valid]
+    if not torch.allclose(zero_rows, feat[~valid][:, :3].mean(1, keepdim=True)
+                          .expand_as(zero_rows), rtol=1e-5, atol=1e-6):
+        raise AssertionError("K6 at pts2depth: a zero cloud's pixels are "
+                             "not the mean of its points 0-2")
+    del out, zero_rows
+    check_csr("K6 pts2depth", idx.view(b, n * 3), m)
+    scatter_exact("K6 interpolate bwd pts2depth",
+                  lambda: pg.interpolate_rows_bwd_cuda(gout, idx, w, m),
+                  pg.interpolate_rows_bwd_plain(gout.cpu(), idx.cpu(),
+                                                w.cpu(), m))
+    print(f"K4, K6 fwd and K6 bwd at pts2depth ({b},{n}<-{m}, f32, C {c}):"
+          f" equal to the plain versions, K6 bwd to the CPU's bit for bit "
+          f"and over two launches; {int((~valid).sum())} zero clouds "
+          f"[{card}]")
+    del feat, gout, dist, idx, w
+
+    # the main path's batch: times
+    b = main_batch
+    cloud, all_pts, valid = depth_clouds("cuda", b, 320, 4096)
+    dist, idx = check_three_nn("pts2depth bs64", all_pts, cloud, ~valid)
+    w = interpolation_weights(dist)
+    feat = torch.randn((b, m, c), generator=g, device="cuda")
+    gout = torch.randn((b, n, c), generator=g, device="cuda")
+    # past 2^31 bytes: K6 fwd equal to the plain version on the card, K56a's
+    # index equal, K6 bwd's rows of the last valid and the last zero cloud
+    # (offsets above 2^31 bytes in gout and the grad) equal to the CPU's
+    if not torch.equal(pg.interpolate_rows_cuda(feat, idx, w),
+                       pg.interpolate_rows_plain(feat, idx, w)):
+        raise AssertionError("K6 interpolate fwd at pts2depth bs64: not "
+                             "exact")
+    check_csr("K6 pts2depth bs64", idx.view(b, n * 3), m)
+    grad = pg.interpolate_rows_bwd_cuda(gout, idx, w, m)
+    for sel in (valid, ~valid):
+        k = int(torch.nonzero(sel)[-1])
+        want = pg.interpolate_rows_bwd_plain(gout[k:k + 1].cpu(),
+                                             idx[k:k + 1].cpu(),
+                                             w[k:k + 1].cpu(), m)
+        if not torch.equal(grad[k:k + 1].cpu(), want):
+            raise AssertionError(f"K6 interpolate bwd at pts2depth bs64, "
+                                 f"sample {k}: differs from the CPU's")
+        print(f"K6 fwd and bwd at pts2depth bs64: sample {k} "
+              f"({'valid' if bool(valid[k]) else 'zero'} cloud, gout from "
+              f"byte {k * n * c * 4}) equal to the plain versions [{card}]")
+    del grad
+    small = b * n * 24  # idx and weights, or dist and idx
+    rows, big = b * n * 3, b * n * c * 4
+    k4 = (cuda_ms(lambda: tn.three_nn_cuda(all_pts, cloud), iters=5),
+          cuda_ms(lambda: tn.three_nn_plain(all_pts, cloud), iters=1,
+                  warmup=1),
+          bound(b * (n + m) * 12 + small, 0, F32_OPS_S))
+    fwd = (cuda_ms(lambda: pg.interpolate_rows_cuda(feat, idx, w), iters=5),
+           cuda_ms(lambda: pg.interpolate_rows_plain(feat, idx, w), iters=2,
+                   warmup=1),
+           bound(b * m * c * 4 + small + big, 5 * b * n * c, F32_OPS_S))
+    bwd = (cuda_ms(lambda: pg.interpolate_rows_bwd_cuda(gout, idx, w, m),
+                   iters=5),
+           cuda_ms(lambda: pg.interpolate_rows_bwd_plain(gout, idx, w, m),
+                   iters=2, warmup=1),
+           bound(big + small + b * m * c * 4, 6 * b * n * c, F32_OPS_S))
+    idx2 = idx.view(b, n * 3)
+    start, src = pg.dest_csr_cuda(idx2, m)
+    # K56b's buckets: more than 192 sources take its long path, one warp a
+    # 32-channel slice summing them in order
+    size = (start[:, 1:] - start[:, :-1]).long()
+    for label, sel in (("valid", valid), ("zero-cloud", ~valid)):
+        sz = size[sel]
+        long = sz > 192
+        print(f"  K56b buckets at pts2depth, {label} samples: "
+              f"{float(long.sum(1).float().mean()):.1f} long buckets a "
+              f"sample, largest {int(sz.max())} sources, "
+              f"{float((sz * long).sum() / sz.sum()):.4f} of the sources "
+              f"on the long path [{card}]")
+    csr = (cuda_ms(lambda: pg.dest_csr_cuda(idx2, m), iters=5),
+           cuda_ms(lambda: pg.dest_csr_plain(idx2, m), iters=2, warmup=1),
+           bound(rows * 8 + b * (m + 1) * 4, 0, F32_OPS_S))
+    seg = (cuda_ms(lambda: pg.segment_rows_sum_cuda(gout, start, src, m, w),
+                   iters=5), None,
+           bound(big + rows * 8 + b * (m + 1) * 4 + b * m * c * 4,
+                 2 * rows * c, F32_OPS_S))
+    for name, (ms, plain, bnd) in (("K4 three-NN", k4), ("K6 fwd", fwd),
+                                   ("K6 bwd", bwd), ("  K56a", csr),
+                                   ("  K56b", seg)):
+        plain_s = "not timed" if plain is None else f"{plain:.4f} ms"
+        print(f"{name} at pts2depth ({b},{n}<-{m}, f32, C {c}): kernel "
+              f"{ms:.4f} ms, plain {plain_s}, bound {bnd['bound_ms']:.4f} "
+              f"ms ({bnd['bound_by']}) [{card}]")
+    for label, sel in (("valid", valid), ("zero-cloud", ~valid)):
+        gs, ii, ww = (x[sel].contiguous() for x in (gout, idx, w))
+        t = cuda_ms(lambda: pg.interpolate_rows_bwd_cuda(gs, ii, ww, m),
+                    iters=5)
+        st, sr = pg.dest_csr_cuda(ii.view(-1, n * 3), m)
+        t_seg = cuda_ms(lambda: pg.segment_rows_sum_cuda(gs, st, sr, m, ww),
+                        iters=5)
+        k = int(sel.sum())
+        print(f"  K6 bwd at pts2depth on the {k} {label} samples alone: "
+              f"{t:.4f} ms ({t / k:.5f} ms a sample), K56b {t_seg:.4f} ms "
+              f"({t_seg / k:.5f} ms a sample) [{card}]")
 
 
 def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
@@ -742,7 +859,6 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
                 "hcmoco_tpu/ops/pallas/three_nn.py:25", 0.0, ms,
                 cuda_ms(lambda: tn.three_nn_plain(unknown, known)),
                 bound(b * (n + m) * 12 + b * n * 24, 0, F32_OPS_S))
-    check_pts2depth(card)
 
     # K5: the grouping of every SA scale, forward and backward; the
     # largest call is sa0 scale 1, (64, 4096, 32, 32) bf16 out
@@ -876,12 +992,37 @@ def make_cfg(**kw):
 
 
 BATCH_KEYS = ("rgbd", "index", "skeleton", "use_depth", "use_rgb",
-              "depth_mask", "grid_xy", "depth_mean", "pts_u")
+              "depth_mask", "grid_xy", "depth_mean", "pts_u", "joints2d",
+              "joints_vis", "pix_idx")
+STAGE2_RECIPES = {"HRNet": "second_stage/ntumpiirgbd2s_hrnet_w18",
+                  "HRNetPN": "second_stage/ntumpiirgbd2s_hrnetpn_w18"}
 
 
 def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(batch[k]).to(device) for k in BATCH_KEYS
             if k in batch}
+
+
+def timed_steps(step, state, batch, gen, n: int, label: str,
+                card: str) -> tuple:
+    """n train steps, each timed on the host clock up to a synchronize;
+    returns (median of steps 2..n in s, the metrics of each step as
+    floats).  Raises on a non-finite metric or bank row."""
+    times, metrics = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for i, mm in enumerate(metrics):
+        if not all(np.isfinite(v) for v in mm.values()):
+            raise AssertionError(f"{label} step {i}: non-finite metric {mm}")
+    if not bool(torch.isfinite(state.banks).all()):
+        raise AssertionError(f"{label}: non-finite bank rows")
+    print(f"{label} step times (s): " + ", ".join(f"{t:.4f}" for t in times)
+          + f"; first step includes warm-up [{card}]")
+    return statistics.median(times[1:]), metrics
 
 
 def small_reference_check(card: str, arch: str = "HRNet") -> None:
@@ -1069,18 +1210,9 @@ def drive_slice(card: str) -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     mb.mm_bn_stats_cuda.generic_launches = 0
-    times, losses = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        m = step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append({k: float(v) for k, v in m.items()
-                       if k.startswith("nce_loss") or k == "loss"})
+    steady, metrics = timed_steps(step, state, batch, gen, STEPS,
+                                  "stage-1 HRNet", card)
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    for i, l in enumerate(losses):
-        if not all(np.isfinite(v) for v in l.values()):
-            raise AssertionError(f"step {i}: non-finite loss {l}")
     for name, n in launches.items():
         if n != sites * STEPS:
             raise AssertionError(f"{name} launched {n} times in {STEPS} "
@@ -1092,12 +1224,8 @@ def drive_slice(card: str) -> dict:
                              f"{STEPS}")
     launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
                 "mm_bn_stats generic": n_gen, **launches}
-    if not bool(torch.isfinite(state.banks).all()):
-        raise AssertionError("non-finite bank rows")
-    print("losses per step: " + ", ".join(f"{l['loss']:.5f}" for l in losses))
-    print("step times (s): " + ", ".join(f"{t:.4f}" for t in times)
-          + f"; first step includes warm-up [{card}]")
-    steady = statistics.median(times[1:])
+    print("losses per step: " + ", ".join(f"{m['loss']:.5f}"
+                                          for m in metrics))
     print(f"W18 320^2 bs{BATCH} fused stage-1 step: median {steady * 1e3:.2f}"
           f" ms = {BATCH / steady:.2f} samples/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1/K1b launches "
@@ -1151,7 +1279,7 @@ PN_CLASSES = (
                              "three_nn_kernel", "group_fwd", "interp_fwd",
                              "csr_", "segsum_")),
     ("cuDNN batch norm", ("batchnorm", "batch_norm", "welford")),
-    ("bilinear upsample", ("upsample",)),
+    ("upsample (bilinear, nearest)", ("upsample",)),
     ("cuDNN convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad",
                            "dgrad", "sm90_", "nhwc")),
     ("cuBLAS gemm", ("gemm", "cutlass", "matmul")),
@@ -1229,30 +1357,16 @@ def drive_pn(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in wrappers.values():
         fn.launches = 0
-    times, losses = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        m = step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append({k: float(v) for k, v in m.items()
-                       if k.startswith("nce_loss") or k == "loss"})
+    steady, metrics = timed_steps(step, state, batch, gen, STEPS,
+                                  "stage-1 HRNetPN", card)
     launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
-    for i, l in enumerate(losses):
-        if not all(np.isfinite(v) for v in l.values()):
-            raise AssertionError(f"HRNetPN step {i}: non-finite loss {l}")
     for name, (_, per_step) in wrappers.items():
         if launches[name] != per_step * STEPS:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{STEPS} steps, expected {per_step} x "
                                  f"{STEPS}")
-    if not bool(torch.isfinite(state.banks).all()):
-        raise AssertionError("non-finite bank rows")
     print("HRNetPN losses per step: "
-          + ", ".join(f"{l['loss']:.5f}" for l in losses))
-    print("HRNetPN step times (s): " + ", ".join(f"{t:.4f}" for t in times)
-          + f"; first step includes warm-up [{card}]")
-    steady = statistics.median(times[1:])
+          + ", ".join(f"{m['loss']:.5f}" for m in metrics))
     print(f"HRNetPN W18 320^2 bs{PN_BATCH} 4096-point stage-1 step: median "
           f"{steady * 1e3:.2f} ms = {PN_BATCH / steady:.2f} samples/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
@@ -1261,9 +1375,215 @@ def drive_pn(card: str) -> dict:
     return launches
 
 
+def pinned_pixels(depth_mask: np.ndarray, n: int,
+                  rng: np.random.Generator) -> np.ndarray:
+    """(B, n) soft-Pri3D pixel draws of a stride-4 map: uniform over the
+    valid pixels of the half-pixel-centre /4 mask, or over all pixels of
+    an image with none."""
+    small = depth_mask[:, 2::4, 2::4].reshape(depth_mask.shape[0], -1)
+    out = np.zeros((depth_mask.shape[0], n), np.int64)
+    for b, row in enumerate(small):
+        cand = np.nonzero(row)[0]
+        out[b] = rng.choice(cand if cand.size else np.arange(row.size), n)
+    return out
+
+
+def small_stage2_check(card: str, arch: str) -> None:
+    """One tiny f32 stage-2 step (width 4, 32^2, 16 soft-Pri3D pixels an
+    image pinned; HRNetPN: 64 points, zero clouds in the batch) on the
+    card against the same step on the CPU (held against the JAX package by
+    tests/test_torch_stage2_step.py).  HRNet: losses, banks and params
+    within rel 1e-4 (losses) and rtol 1e-4, atol 1e-5, accuracies within
+    0.05.  HRNetPN: the 64-point encoder is f32-ill-conditioned and its
+    per-pixel features feed the dense losses, so the CPU step runs its
+    point branch (encoder2, encoder2_linear) in float64: the losses and
+    banks the depth map does not feed within rel 1e-4, those it feeds
+    within rtol 1e-2, atol 1e-3 (tests/test_torch_stage2_step.py F32_TOL),
+    parameters outside the point branch within rtol 1e-3, atol 5e-4, the
+    point branch's finite and moved."""
+    from hcmoco_tpu_torch.contrast.memory import sample_negative_counts
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.hrnet import set_convbn_fuse
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    cfg = make_cfg(method="CMCJointsPri3DRGBD2S", arch=arch, width=4,
+                   crop_size=32, batch_size=6, nce_k=15,
+                   compute_dtype="float32", pn_num_points=64,
+                   linear_feat_map=True, pri3d_num_samples_per_image=16)
+    rng = np.random.default_rng(4)
+    batch = synthetic_contrast_batch(rng, 6, size=32, n_data=64)
+    if arch == "HRNet":  # see small_reference_check
+        batch["rgbd"] = (rng.standard_normal((6, 32, 32, 6)) * 0.5).astype(
+            np.float32)
+    else:
+        batch["pts_u"] = rng.random((6, 64), dtype=np.float32)
+        if not 0 < int(batch["use_depth"].sum()) < 6:
+            raise AssertionError("the batch must hold valid and zero clouds")
+    batch["pix_idx"] = pinned_pixels(batch["depth_mask"], 16, rng)
+    counts = sample_negative_counts(torch.Generator().manual_seed(2), 6, 64,
+                                    15)
+    torch.manual_seed(0)
+    model = set_convbn_fuse(build_model(cfg, device="cpu"), False)
+    banks = None
+    res = []
+    for run in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(run)
+        if not res and arch == "HRNetPN":  # the CPU reference
+            for mod in (m.encoder2, m.encoder2_linear):
+                mod.double()
+                for sub in mod.modules():
+                    if hasattr(sub, "compute_dtype"):
+                        sub.compute_dtype = torch.float64
+        st = create_train_state(cfg, m, torch.Generator(run).manual_seed(3),
+                                n_data=64, steps_per_epoch=10)
+        if banks is None:
+            banks = st.banks.clone()
+        st.banks = banks.to(run, copy=True)
+        b = to_device(batch, run)
+        b["counts"] = counts.to(run)
+        step = make_contrast_train_step(cfg, m, steps_per_epoch=10)
+        metrics = {k: float(v) for k, v in step(st, b).items()
+                   if k != "learning_rate"}
+        res.append((metrics, {k: v.cpu() for k, v in m.state_dict().items()},
+                    st.banks.cpu()))
+    (ref, sd_ref, b_ref), (got, sd_got, b_got) = res
+    rgb_only = ("nce_loss_12", "nce_loss_13", "nce_loss_31",
+                "loss_rgb2joint", "acc_rgb2joint")
+    f32_tol = dict(rtol=1e-2, atol=1e-3)
+    for k, want in ref.items():
+        if k.startswith("acc") or k.startswith("nce_acc"):
+            tol = dict(rtol=0.0, atol=0.05)
+        elif arch == "HRNetPN" and k not in rgb_only:
+            tol = f32_tol
+        else:
+            tol = dict(rtol=1e-4, atol=0.0)
+        if not np.isfinite(got[k]) or not (
+                abs(got[k] - want) <= tol["atol"] + tol["rtol"] * abs(want)):
+            raise AssertionError(f"tiny stage-2 step {k}: card {got[k]} vs "
+                                 f"cpu {want}")
+    for i in range(b_ref.shape[0]):
+        torch.testing.assert_close(
+            b_got[i], b_ref[i],
+            **(f32_tol if arch == "HRNetPN" and i == 1 else
+               dict(rtol=1e-4, atol=1e-5)),
+            msg=lambda msg, i=i: f"tiny stage-2 step bank {i + 1}: {msg}")
+    start = model.state_dict()
+    for k, want in sd_ref.items():
+        if not want.is_floating_point():
+            continue
+        if arch == "HRNetPN" and k.startswith("encoder2"):
+            # the point branch: encoder2 and encoder2_linear
+            if not bool(torch.isfinite(sd_got[k]).all()):
+                raise AssertionError(f"tiny stage-2 step {k}: non-finite")
+            if "running" not in k and torch.equal(sd_got[k], start[k]):
+                raise AssertionError(f"tiny stage-2 step {k}: did not move")
+            continue
+        tol = (dict(rtol=1e-3, atol=5e-4) if arch == "HRNetPN" else
+               dict(rtol=1e-4, atol=1e-5))
+        torch.testing.assert_close(sd_got[k], want.to(sd_got[k].dtype),
+                                   **tol,
+                                   msg=lambda msg, k=k: f"tiny stage-2 step "
+                                   f"{k}: {msg}")
+    print(f"tiny f32 {arch} stage-2 step, card vs cpu"
+          f"{' (point branch in float64)' if arch == 'HRNetPN' else ''}: "
+          + ", ".join(f"{k} {got[k]:.6f}/{ref[k]:.6f}" for k in
+                      ("loss", "loss_rgb2depth", "loss_d2joint", "loss_scl"))
+          + f", params and banks within tolerance [{card}]")
+
+
+def drive_stage2(card: str, arch: str) -> dict:
+    """Stage-2 train steps (mem='bank+jointspri3d') of the reference's
+    second-stage recipe for `arch` through the user entry points: HRNet-W18
+    at bs32 with HCMOCO_CONVBN_FUSE=1 (K1, K1b), or HRNetPN at bs64 with
+    4096 points (K2-K6, K56a/K56b, and pts2depth's K4, K6 and K6 bwd).
+    320^2, K=16384, 400 soft-Pri3D pixels an image drawn by the step, T =
+    0.07.  Prints every stage-2 metric a step, the median step, samples/s,
+    peak memory and a profile; returns each kernel wrapper's launches in
+    the steps, in the order of its JSON entries, after checking them
+    against the expected count a step."""
+    from hcmoco_tpu_torch.core.config import RECIPES
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+    from hcmoco_tpu_torch.train.contrast_step import (STAGE2_METRICS,
+                                                      make_contrast_train_step)
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    bsz = BATCH if arch == "HRNet" else PN_BATCH
+    cfg = dataclasses.replace(RECIPES[STAGE2_RECIPES[arch]], batch_size=bsz)
+    if arch == "HRNet":
+        os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+    else:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    torch.manual_seed(0)
+    model = build_model(cfg).to(memory_format=torch.channels_last)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = create_train_state(cfg, model, gen, n_data=N_DATA,
+                               steps_per_epoch=100)
+    step = make_contrast_train_step(cfg, model, steps_per_epoch=100)
+    batch = to_device(synthetic_contrast_batch(
+        np.random.default_rng(0), bsz, size=cfg.crop_size, num_joints=16,
+        n_data=N_DATA), dev)
+    if not 0 < int(batch["use_depth"].sum()) < bsz:
+        raise AssertionError("the batch must hold samples with and without "
+                             "depth")
+    if arch == "HRNet":
+        sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+        generic = generic_sites(model.encoder1) + generic_sites(
+            model.encoder2)
+        wrappers = {name: (fn, sites) for name, fn in k1_wrappers().items()}
+        mb.mm_bn_stats_cuda.generic_launches = 0
+    else:
+        # stage 1's launches a step, and pts2depth's K4, K6 fwd and K6 bwd
+        # (one K56a and one K56b) once more
+        extra = {"three_nn": 1, "interpolate_rows fwd": 1,
+                 "interpolate_rows bwd": 1, "dest_csr": 1,
+                 "segment_rows_sum": 1}
+        wrappers = {name: (fn, n + extra.get(name, 0))
+                    for name, (fn, n) in point_wrappers().items()}
+    label = f"stage-2 {arch}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in wrappers.values():
+        fn.launches = 0
+    steady, metrics = timed_steps(step, state, batch, gen, STEPS, label,
+                                  card)
+    launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, (_, per_step) in wrappers.items():
+        if launches[name] != per_step * STEPS:
+            raise AssertionError(f"{label}: {name} launched {launches[name]}"
+                                 f" times in {STEPS} steps, expected "
+                                 f"{per_step} x {STEPS}")
+    if arch == "HRNet":
+        n_gen = mb.mm_bn_stats_cuda.generic_launches
+        if n_gen != generic * STEPS:
+            raise AssertionError(f"{label}: K1's generic path launched "
+                                 f"{n_gen} times, expected {generic} x "
+                                 f"{STEPS}")
+        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                    "mm_bn_stats generic": n_gen, **launches}
+    for i, m in enumerate(metrics):
+        print(f"{label} step {i}: " + ", ".join(
+            f"{k} {m[k]:.5f}" for k in ("loss",) + STAGE2_METRICS))
+    print(f"{label} W{cfg.width} {cfg.crop_size}^2 bs{bsz} K={cfg.nce_k} "
+          f"{cfg.pri3d_num_samples_per_image} pixels/image step: median "
+          f"{steady * 1e3:.2f} ms = {bsz / steady:.2f} samples/s; peak memory"
+          f" {peak:.2f} GiB; launches {launches} in {STEPS} steps [{card}]")
+    profile_steps(card, step, state, batch, gen, steady)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1279,13 +1599,19 @@ def main() -> int:
 
     k1 = check_k1(card) + check_k1b(card)
     small_reference_check(card)
-    for entry, launches in zip(k1, drive_slice(card).values()):
-        entry["launches"] = launches
+    small_stage2_check(card, "HRNet")
+    # each main path is driven with the counts set to 0 just before it;
+    # an entry's launches are the sum over the paths that run it
+    k1_runs = [drive_slice(card), drive_stage2(card, "HRNet")]
     points = check_points(card)
+    check_pts2depth(card)
     small_reference_check(card, "HRNetPN")
+    small_stage2_check(card, "HRNetPN")
     check_build_refusal(card)
-    for entry, launches in zip(points, drive_pn(card).values()):
-        entry["launches"] = launches
+    pn_runs = [drive_pn(card), drive_stage2(card, "HRNetPN")]
+    for entries, runs in ((k1, k1_runs), (points, pn_runs)):
+        for entry, name in zip(entries, runs[0]):
+            entry["launches"] = sum(r[name] for r in runs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: e[k] for k in keys} for e in k1 + points]
@@ -1295,6 +1621,7 @@ def main() -> int:
     if jax_mods:
         raise AssertionError(f"JAX or the JAX package was imported: "
                              f"{jax_mods[:10]}")
+    print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

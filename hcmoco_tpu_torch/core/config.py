@@ -4,7 +4,8 @@ The same HRNet stage specs, method presets and `resolve_config` as the JAX
 package, with the TrainConfig fields the ported slice reads.  The TPU-only
 fields (mesh, channel padding, paired encoders, Pallas switches) are left
 out; tests/test_torch_config.py holds every field here to the JAX
-package's defaults and resolved values.
+package's defaults and resolved values, and RECIPES to its first- and
+second-stage recipes.
 """
 
 from __future__ import annotations
@@ -126,6 +127,12 @@ class TrainConfig:
     nce_m: float = 0.5
     nce_t: float = 0.07
     modality_missing: bool = False
+    # stage 2 (mem='bank+jointspri3d'): the dense and joint losses'
+    # temperature, the pixels soft-Pri3D draws per image, and the SCL
+    # groups (0: one group a process, which is one group here)
+    temperature: float = 0.07
+    pri3d_num_samples_per_image: int = 400
+    scl_groups: int = 0
     # the counts NCE builds (bsz, n_data) intermediates; above this
     # dataset size the row-gather NCE is needed (not ported yet)
     counts_max_n_data: int = 131072
@@ -187,3 +194,41 @@ def resolve_config(cfg: TrainConfig) -> TrainConfig:
     # warmup_to is recomputed from the same formula in train/schedules.py
     return replace(cfg, warm=True,
                    warm_epochs=10 if cfg.epochs > 500 else 5)
+
+
+def _first_stage(**kw) -> TrainConfig:
+    """The reference's FirstStage recipe (HRNet-W18, 320^2, K=16384)."""
+    base = TrainConfig(method="CMCRGBD2S", arch="HRNet", width=18,
+                       batch_size=224, epochs=100, learning_rate=0.03,
+                       cosine=True, nce_k=16384, modality_missing=True,
+                       crop_size=320)
+    return resolve_config(replace(base, **kw))
+
+
+def _second_stage(**kw) -> TrainConfig:
+    """The reference's SecondStage recipe: stage 1's plus the dense and
+    joint losses over the linear_feat_map heads."""
+    base = TrainConfig(method="CMCJointsPri3DRGBD2S", arch="HRNet", width=18,
+                       batch_size=224, epochs=100, learning_rate=0.03,
+                       cosine=True, nce_k=16384, modality_missing=True,
+                       linear_feat_map=True, pri3d_num_samples_per_image=400,
+                       temperature=0.07, crop_size=320)
+    return resolve_config(replace(base, **kw))
+
+
+# the JAX package's FirstStage/ and SecondStage/ recipes; their dataset
+# and flip fields belong to the data pipeline, which is not ported
+RECIPES = {
+    "first_stage/ntumpiirgbd2s_hrnet_w18": _first_stage(),
+    "first_stage/ntumpiirgbd2s_hrnet_w32": _first_stage(width=32),
+    "first_stage/ntumpiirgbd2s_hrnet_w48": _first_stage(width=48),
+    "first_stage/ntucocorgbd2s_hrnet_w18": _first_stage(
+        skeleton_meta_name="coco_reduce"),
+    "first_stage/ntumpiirgbd2s_hrnetpn_w18": _first_stage(arch="HRNetPN"),
+    "second_stage/ntumpiirgbd2s_hrnet_w18": _second_stage(),
+    "second_stage/ntumpiirgbd2s_hrnet_w32": _second_stage(width=32),
+    "second_stage/ntumpiirgbd2s_hrnet_w48": _second_stage(width=48),
+    "second_stage/ntucocorgbd2s_hrnet_w18": _second_stage(
+        skeleton_meta_name="coco_reduce"),
+    "second_stage/ntumpiirgbd2s_hrnetpn_w18": _second_stage(arch="HRNetPN"),
+}

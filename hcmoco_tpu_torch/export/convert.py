@@ -21,6 +21,11 @@ key list, so the names follow the reference's pointnet2_msg.py
   fp{k}/mlp/dense{j}, fp{k}/mlp/bn{j}
       -> encoder2.FP_modules.{k}.mlp.layer{j}.conv / .bn.bn (as above)
 
+The stage-2 heads: HCMoCoModel's encoder{1,2}_linear and HCMoCoPNModel's
+encoder1_linear are 1x1 convs with bias (kernel (1, 1, Fin, Fout) ->
+weight (Fout, Fin, 1, 1)); HCMoCoPNModel's encoder2_linear is a SharedMLP
+(dense0/bn0 -> encoder2_linear.layer0.conv / .bn.bn, as above).
+
 BN running variance: flax tracks the biased batch variance, torch the
 unbiased one.  The port keeps torch semantics, and a flax `var` becomes
 `running_var` unchanged.
@@ -143,7 +148,11 @@ def flax_to_port_state_dict(params: Dict[str, Any],
     for h in ("head1", "head2", "head3"):
         sd.update(head_flax_to_torch(params[h], h))
     for lin in ("encoder1_linear", "encoder2_linear"):
-        if lin in params:
+        if lin not in params:
+            continue
+        if "dense0" in params[lin]:  # HCMoCoPNModel's point head, a SharedMLP
+            _shared_mlp(sd, lin, params[lin], batch_stats[lin])
+        else:  # a 1x1 conv with bias
             sd[f"{lin}.weight"] = np.transpose(
                 np.asarray(params[lin]["kernel"]), (3, 2, 0, 1))
             sd[f"{lin}.bias"] = np.asarray(params[lin]["bias"])

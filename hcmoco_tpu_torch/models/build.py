@@ -17,8 +17,8 @@ from torch import nn
 
 from ..core.config import HRNET_CONFIGS, TrainConfig
 from ..ops.point_gather import MAX_DEST
-from .heads import ProjectionHead
-from .hrnet import HRNet, pool_maps
+from .heads import ProjectionHead, linear_1x1
+from .hrnet import HRNet, merge_all_res, pool_maps
 from .pointnet2_model import HCMoCoPNModel
 from .sgcn import SemGCN
 
@@ -29,9 +29,12 @@ class HCMoCoModel(nn.Module):
     """rgbd (B, 6, H, W) + skeleton (B, J, 2) -> dict of pooled1..3 and
     feat1..3.
 
-    With linear_feat_map the stage-2 1x1 heads encoder{1,2}_linear exist
-    (so reference stage-2 checkpoints load), but the stage-2 forward that
-    uses them is not ported yet (ROADMAP.md Queue 1 item 8)."""
+    return_fm (stage 2) adds the encoders' maps: fm1 and fm2 (HRNet's four
+    NCHW maps each) and fm3 (SemGCN's (B, J, 128) joint features).  With
+    linear_feat_map also merge1/merge2 (`merge_all_res`, 270 channels at
+    W18, stride 4) and linear_merge1/linear_merge2, their 1x1 heads
+    encoder{1,2}_linear run in the compute dtype, as (B, 128, H/4, W/4)
+    f32."""
 
     def __init__(self, width: int = 18, feat_dim: int = 128,
                  head: str = "linear",
@@ -43,6 +46,8 @@ class HCMoCoModel(nn.Module):
         hr_cfg = HRNET_CONFIGS[width]
         self.in_channel_list = tuple(in_channel_list)
         self.pool_method = pool_method
+        self.linear_feat_map = linear_feat_map
+        self.dtype = dtype
         self.encoder1 = HRNet(hr_cfg, in_channel_list[0], dtype)
         self.encoder2 = HRNet(hr_cfg, in_channel_list[1], dtype)
         self.encoder3 = SemGCN(sgcn_dim, 4, skeleton_meta)
@@ -54,8 +59,8 @@ class HCMoCoModel(nn.Module):
             self.encoder1_linear = nn.Conv2d(total, sgcn_dim, 1)
             self.encoder2_linear = nn.Conv2d(total, sgcn_dim, 1)
 
-    def forward(self, rgbd: torch.Tensor,
-                skeleton: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, rgbd: torch.Tensor, skeleton: torch.Tensor,
+                return_fm: bool = False) -> Dict[str, torch.Tensor]:
         c1, c2 = self.in_channel_list
         fm1 = self.encoder1(rgbd[:, :c1])
         fm2 = self.encoder2(rgbd[:, c1:c1 + c2])
@@ -68,6 +73,15 @@ class HCMoCoModel(nn.Module):
         out["feat1"] = self.head1(out["pooled1"])
         out["feat2"] = self.head2(out["pooled2"])
         out["feat3"] = self.head3(out["pooled3"])
+        if return_fm:
+            out.update(fm1=fm1, fm2=fm2, fm3=fj)
+            if self.linear_feat_map:
+                out["merge1"] = merge_all_res(fm1)
+                out["merge2"] = merge_all_res(fm2)
+                out["linear_merge1"] = linear_1x1(
+                    self.encoder1_linear, out["merge1"], self.dtype)
+                out["linear_merge2"] = linear_1x1(
+                    self.encoder2_linear, out["merge2"], self.dtype)
         return out
 
 
@@ -114,13 +128,11 @@ def build_model(cfg: TrainConfig, device="cuda") -> nn.Module:
         if cfg.pn_remat:
             raise NotImplementedError(
                 "pn_remat is not ported yet: ROADMAP.md Queue 1 item 15")
-        # stage 1: the linear_feat_map heads belong to the stage-2 forward
-        # (return_fm), which is not ported; the JAX package creates them
-        # only there
         model = HCMoCoPNModel(
             width=cfg.width,
             feat_dim=cfg.feat_dim,
             head=cfg.head,
+            linear_feat_map=cfg.linear_feat_map,
             pool_method=cfg.pool_method,
             skeleton_meta=cfg.skeleton_meta_name,
             n_points=cfg.pn_num_points,

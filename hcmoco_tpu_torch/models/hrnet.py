@@ -181,6 +181,24 @@ def _resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def nearest_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest resize of an NCHW map with half-pixel centres
+    ('nearest-exact'): 16 -> 4 samples rows 2, 6, 10, 14, as
+    jax.image.resize(method='nearest') does.  The original torch reference
+    used mode 'nearest', which samples 0, 4, 8, 12 (ROADMAP.md Queue 3,
+    F2)."""
+    return F.interpolate(x, size=(h, w), mode="nearest-exact")
+
+
+def merge_all_res(feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Maps 1-3 resized to map 0's size (bilinear, align_corners=False, in
+    f32) and concatenated on channels with map 0: 270 channels at W18
+    (build_backbone.py:247-254)."""
+    h, w = feats[0].shape[2], feats[0].shape[3]
+    return torch.cat([feats[0]] + [_resize_bilinear(f, h, w)
+                                   for f in feats[1:]], dim=1)
+
+
 class HRModule(nn.Module):
     """One HighResolutionModule: per-branch residual blocks + full fusion.
 

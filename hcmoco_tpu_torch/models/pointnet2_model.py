@@ -11,7 +11,8 @@ Behavioural spec:
     (use_xyz=True).
   * `HCMoCoPNModel` (build_backbone.py:305-514, arch 'HRNetPN'): HRNet on
     RGB, PointNet++ on a cloud back-projected from depth (`depth2pts`),
-    SemGCN on 2D joints.
+    SemGCN on 2D joints; in stage 2 the point features carried back onto
+    the pixels (`pts2depth`).
 
 Layout: points (B, N, 3), features channels-last (B, N, C).  Each shared
 MLP layer is a 1x1 conv kept as the reference's Conv2d weight
@@ -40,8 +41,8 @@ from ..core.config import HRNET_CONFIGS
 from ..ops.point_ops import (ball_query, furthest_point_sample, gather_points,
                              group_points, interpolation_weights,
                              three_interpolate, three_nn)
-from .heads import ProjectionHead
-from .hrnet import HRNet, pool_maps
+from .heads import ProjectionHead, linear_1x1
+from .hrnet import HRNet, merge_all_res, nearest_resize, pool_maps
 from .sgcn import SemGCN
 
 # architecture constants (pointnet2_msg.py:10-17)
@@ -252,24 +253,45 @@ def depth2pts(depth: torch.Tensor, depth_mask: torch.Tensor,
     return sampled, pts, sample_ind.to(torch.int32), valid
 
 
+def pts2depth(sampled: torch.Tensor, all_pts: torch.Tensor,
+              feats: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Per-point features back onto the (h, w) pixel grid by three-NN
+    inverse-distance interpolation (build_backbone.py:448-455): every
+    pixel's point (all_pts (B, h*w, 3)) takes its three nearest sampled
+    points (B, n, 3), K4, and their features (B, n, C) weighted, K6.
+    Returns (B, h, w, C) in feats' dtype."""
+    dist2, idx = three_nn(all_pts, sampled)
+    weight = interpolation_weights(dist2)
+    interp = three_interpolate(feats.contiguous(), idx, weight)
+    return interp.reshape(interp.shape[0], h, w, interp.shape[-1])
+
+
 class HCMoCoPNModel(nn.Module):
     """HRNet(RGB) + PointNet++(depth cloud) + SemGCN (arch 'HRNetPN'):
     rgbd (B, >=4, H, W) with RGB in channels 0-2 and the mean-subtracted
     depth in channel 3, skeleton (B, J, 2), and the depth2pts inputs ->
     dict of pooled1..3 and feat1..3.
 
-    Stage 1 only: `return_fm=True` (the stage-2 feature maps and their
-    1x1 heads) is not ported (ROADMAP.md Queue 1 item 8)."""
+    return_fm (stage 2) adds fm1 (HRNet's four NCHW maps), fm2 (the
+    (B, n_points, 128) point features) and fm3 (SemGCN's joint features).
+    With linear_feat_map also merge1 (`merge_all_res`) and linear_merge1
+    (its 1x1 head, (B, 128, H/4, W/4) f32) as HCMoCoModel's, merge2 = fm2,
+    and linear_merge2: encoder2_linear (Conv1d + BN + ReLU on the points,
+    build_backbone.py:368) in the compute dtype, cast to f32, carried onto
+    every pixel by `pts2depth` and resized to linear_merge1's size by
+    nearest-exact (ROADMAP.md Queue 3, F2), as (B, 128, H/4, W/4)."""
 
     def __init__(self, width: int = 18, feat_dim: int = 128,
-                 head: str = "linear", pool_method: str = "mean",
-                 skeleton_meta: str = "mpii", sgcn_dim: int = 128,
-                 pn_dim: int = 128, n_points: int = 4096,
+                 head: str = "linear", linear_feat_map: bool = False,
+                 pool_method: str = "mean", skeleton_meta: str = "mpii",
+                 sgcn_dim: int = 128, pn_dim: int = 128, n_points: int = 4096,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         hr_cfg = HRNET_CONFIGS[width]
         self.pool_method = pool_method
         self.n_points = n_points
+        self.linear_feat_map = linear_feat_map
+        self.dtype = dtype
         npoints = tuple(max(n_points // (4 ** k), 1) for k in range(4))
         self.encoder1 = HRNet(hr_cfg, 3, dtype)
         # the MLPs run in the compute dtype; FPS, ball query and three-NN
@@ -279,6 +301,10 @@ class HCMoCoPNModel(nn.Module):
         self.head1 = ProjectionHead(hr_cfg.total_channels, feat_dim, head)
         self.head2 = ProjectionHead(pn_dim, feat_dim, head)
         self.head3 = ProjectionHead(sgcn_dim, feat_dim, head)
+        if linear_feat_map:
+            self.encoder1_linear = nn.Conv2d(hr_cfg.total_channels, sgcn_dim,
+                                             1)
+            self.encoder2_linear = SharedMLP((pn_dim, sgcn_dim), dtype)
 
     def forward(self, rgbd: torch.Tensor, skeleton: torch.Tensor,
                 depth_mask: torch.Tensor, grid_xy: torch.Tensor,
@@ -286,14 +312,10 @@ class HCMoCoPNModel(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 u: Optional[torch.Tensor] = None,
                 return_fm: bool = False) -> Dict[str, torch.Tensor]:
-        if return_fm:
-            raise NotImplementedError(
-                "HCMoCoPNModel return_fm=True is stage 2, not ported yet: "
-                "ROADMAP.md Queue 1 item 8")
         fm1 = self.encoder1(rgbd[:, :3])
-        sampled, _, _, _ = depth2pts(rgbd[:, 3], depth_mask, grid_xy, ori_h,
-                                     ori_w, mean, self.n_points, generator,
-                                     u)
+        sampled, all_pts, _, _ = depth2pts(rgbd[:, 3], depth_mask, grid_xy,
+                                           ori_h, ori_w, mean, self.n_points,
+                                           generator, u)
         fm2 = self.encoder2(sampled)  # (B, n_points, 128)
         fj = self.encoder3(skeleton)
         out = {
@@ -304,4 +326,16 @@ class HCMoCoPNModel(nn.Module):
         out["feat1"] = self.head1(out["pooled1"])
         out["feat2"] = self.head2(out["pooled2"])
         out["feat3"] = self.head3(out["pooled3"])
+        if return_fm:
+            out.update(fm1=fm1, fm2=fm2, fm3=fj)
+            if self.linear_feat_map:
+                out["merge1"] = merge_all_res(fm1)
+                lm1 = linear_1x1(self.encoder1_linear, out["merge1"],
+                                 self.dtype)
+                lm2 = self.encoder2_linear(fm2).float()
+                h, w = rgbd.shape[2], rgbd.shape[3]
+                lm2 = pts2depth(sampled, all_pts, lm2, h, w)
+                # (B, h, w, C) -> NCHW view, resized to lm1's size
+                lm2 = nearest_resize(lm2.permute(0, 3, 1, 2), *lm1.shape[2:])
+                out.update(merge2=fm2, linear_merge1=lm1, linear_merge2=lm2)
         return out

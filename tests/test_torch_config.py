@@ -70,6 +70,21 @@ def test_resolve_config_matches_jax(kw):
     assert port.num_joints == want.num_joints
 
 
+STAGE_RECIPES = sorted(k for k in jax_config.RECIPES
+                       if k.startswith(("first_stage/", "second_stage/")))
+
+
+def test_recipes_are_the_jax_stage_recipes():
+    assert sorted(config.RECIPES) == STAGE_RECIPES
+
+
+@pytest.mark.parametrize("name", STAGE_RECIPES)
+def test_recipe_matches_jax(name):
+    port, want = config.RECIPES[name], jax_config.RECIPES[name]
+    for field in PORT_FIELDS:
+        assert getattr(port, field) == getattr(want, field), (name, field)
+
+
 @pytest.mark.parametrize("bsz,size,joints", [(3, 32, 16), (5, 48, 13)])
 def test_synthetic_batch_matches_jax(bsz, size, joints):
     got = synthetic_contrast_batch(np.random.default_rng(7), bsz, size=size,

@@ -429,8 +429,11 @@ def test_hcmoco_pn_model_forward_matches_jax(monkeypatch):
         close(got[k].detach(), want[k], rel=1e-4, what=k)
     for k in ("pooled2", "feat2"):
         close(got[k].detach(), want[k], rel=2e-3, what=k)
-    with pytest.raises(NotImplementedError, match="stage 2"):
-        model(*args, u=u, return_fm=True)
+    # return_fm adds the encoders' maps; without linear_feat_map no heads
+    fm = model(*args, u=u, return_fm=True)
+    assert set(fm) - set(got) == {"fm1", "fm2", "fm3"}
+    close(fm["fm2"].detach().mean(dim=1), want["pooled2"], rel=2e-3,
+          what="fm2")
 
 
 def test_build_model_hrnetpn_knobs():
