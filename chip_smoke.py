@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version at the main paths'
-shapes, and drives the two stage-1 train steps the port has:
+shapes, and drives the train steps the port has through its entry points:
 
   * HCMoCo (HRNet-W18 x2 + SemGCN, 320^2 crops, bank NCE with K=16384,
     bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernels K1 (its fast path
@@ -8,7 +8,13 @@ shapes, and drives the two stage-1 train steps the port has:
     K1b;
   * HRNetPN (HRNet-W18 + PointNet++ MSG on 4096 depth points + SemGCN,
     320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
-    steps under torch.profiler (device ms per kernel class).
+    steps under torch.profiler (device ms per kernel class);
+  * stage 2 of both, and then the pre-training CLI (cli/main_contrast.py)
+    in process from a tree of Kinect-size frames written from a seed:
+    stage-1 HRNet bs32 fused for an epoch, its resume, stage 2 grafted
+    with --pretrain, and HRNetPN bs64 from a pack through the native
+    resample; each run's iteration times, host input rate, device busy
+    share and peak memory.  The CLI runs' launches add to the kernels'.
 
     python3 chip_smoke.py
 
@@ -1309,6 +1315,8 @@ def profile_steps(card: str, step, state, batch, gen, median_s: float,
             if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError(f"{label}: the profiler saw no device time")
     total = sum(e.self_device_time_total for e in rows) / 1e3 / n
     print(f"profile: device kernel time {total:.3f} ms/step, busy share "
           f"{total / (median_s * 1e3):.3f} of the median step [{card}]")
@@ -1580,6 +1588,253 @@ def drive_stage2(card: str, arch: str) -> dict:
     return launches
 
 
+CLI_FRAMES = 512   # NTU frames of the CLI phase's tree
+CLI_MPII = 64      # MPII images of it
+KINECT_HW = (424, 512)
+
+
+def cli_input_rate(argv: list, batches: int = 10) -> float:
+    """Samples/s that the CLI's DataSource alone delivers over `batches`
+    batches after its first, with the card idle."""
+    from hcmoco_tpu_torch.cli.main_contrast import (build_argparser,
+                                                    config_from_args)
+    from hcmoco_tpu_torch.data.pipeline import build_contrast_source
+
+    cfg = config_from_args(build_argparser().parse_args(argv))
+    source, _, _ = build_contrast_source(cfg)
+    t0 = time.perf_counter()
+    it = iter(source)
+    try:
+        next(it)
+        t1 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        t2 = time.perf_counter()
+        print(f"DataSource alone, bs{cfg.batch_size}: first batch "
+              f"{t1 - t0:.2f} s, then {batches} in {t2 - t1:.2f} s")
+        return batches * cfg.batch_size / (t2 - t1)
+    finally:
+        it.close()
+
+
+def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
+            wrappers: dict, on_ready=None, input_rate: float = None):
+    """main(argv), which runs `n` steps, on the card with every count of
+    `wrappers` ({name: (fn, launches a step, or None: checked by the
+    caller)}) and K1's generic-path count set to 0 just before it;
+    torch.profiler records the run's last two steps.  Prints the iteration's median and quartiles
+    over the steps before the profiler's (the first step, a warm-up,
+    left out), samples/s, the host input rate, the device busy share and
+    the peak memory; returns (result, launches by name), after checking
+    the launches against the expected count a step and that the epoch's
+    loss is finite and its checkpoint written."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from hcmoco_tpu_torch.cli.main_contrast import main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in wrappers.values():
+        fn.launches = 0
+    mm_bn_stats_cuda = k1_wrappers()["mm_bn_stats"]
+    mm_bn_stats_cuda.generic_launches = 0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=n - 3, warmup=1, active=2,
+                                   repeat=1)) as prof:
+        r = main(argv, on_ready=on_ready, on_step=lambda _: prof.step())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
+    if "mm_bn_stats" in launches:
+        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                    "mm_bn_stats generic": mm_bn_stats_cuda.generic_launches,
+                    **launches}
+    steps = len(r.step_s)
+    if steps != n:
+        raise AssertionError(f"{label}: ran {steps} steps, expected {n}")
+    for name, (_, per_step) in wrappers.items():
+        if per_step is not None and launches[name] != per_step * steps:
+            raise AssertionError(f"{label}: {name} launched {launches[name]}"
+                                 f" times in {steps} steps, expected "
+                                 f"{per_step} x {steps}")
+    with open(os.path.join(r.ckpt_dir, "metrics.tsv")) as f:
+        head, *epochs = [line.split("\t") for line in f.read().splitlines()]
+    loss = float(epochs[-1][head.index("loss")])
+    ckpt = os.path.join(r.ckpt_dir, f"epoch_{r.last_epoch}.pt")
+    if not (np.isfinite(loss) and os.path.exists(ckpt)):
+        raise AssertionError(f"{label}: epoch {r.last_epoch} loss {loss}, "
+                             f"checkpoint {ckpt} exists: "
+                             f"{os.path.exists(ckpt)}")
+    if not bool(torch.isfinite(r.state.banks).all()):
+        raise AssertionError(f"{label}: non-finite bank rows")
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    copies = [e for e in rows if e.key.startswith(("Memcpy", "Memset"))]
+    kernel_ms = sum(e.self_device_time_total for e in rows
+                    if e not in copies) / 1e3 / 2
+    h2d_ms = sum(e.self_device_time_total for e in copies
+                 if "HtoD" in e.key) / 1e3 / 2
+    it_s = [a + b + c for a, b, c in zip(r.wait_s, r.upload_s, r.step_s)]
+    free = slice(1, n - 3)  # after the warm-up, before the profiler's steps
+    q1, med, q3 = statistics.quantiles(it_s[free], n=4)
+    step_med = statistics.median(r.step_s[free])
+    print(f"{label}: {steps} steps, epochs {r.start_epoch}-{r.last_epoch}, "
+          f"loss {loss:.5f} (epoch mean), checkpoint {ckpt}")
+    print(f"{label}: iteration median {med * 1e3:.2f} ms (quartiles "
+          f"{q1 * 1e3:.2f}, {q3 * 1e3:.2f}; steps 2-{n - 3}) = "
+          f"{bsz / med:.2f} samples/s; medians of its parts: data wait "
+          f"{statistics.median(r.wait_s[free]) * 1e3:.2f} ms, pin + upload "
+          f"enqueue {statistics.median(r.upload_s[free]) * 1e3:.2f} ms, step "
+          f"{step_med * 1e3:.2f} ms; host input rate {input_rate:.2f} "
+          f"samples/s (DataSource alone, 10 batches) against the step's "
+          f"{bsz / step_med:.2f}; device kernel time {kernel_ms:.3f} "
+          f"ms/step, busy share {kernel_ms / (med * 1e3):.3f}; H2D copies "
+          f"{h2d_ms:.3f} ms/step; peak memory {peak:.2f} GiB [{card}]")
+    print(f"{label}: launches {launches} in {steps} steps; wall time: main "
+          f"{t1 - t0:.1f} s, profile read {time.perf_counter() - t1:.1f} s "
+          f"[{card}]")
+    return r, launches
+
+
+def drive_cli(card: str) -> tuple:
+    """The pre-training CLI (cli/main_contrast.py) in process on the card,
+    from frames on disk: an NTU tree of CLI_FRAMES Kinect-size frames and
+    an MPII tree of CLI_MPII images, written from a seed into a temporary
+    directory under build/ and deleted at the end.  Stage 1 HRNet-W18 bs32
+    fused for an epoch, its resume for a second (the restored step, banks
+    and a weight equal to what was saved), stage 2 grafted from it with
+    --pretrain, and HRNetPN bs64 from a pack of the NTU tree through the
+    native resample.  Returns the K1/K1b launches of the three HRNet runs
+    and the point kernels' of the HRNetPN run."""
+    import shutil
+    import tempfile
+
+    from hcmoco_tpu_torch.data.fixtures import (make_mpii_fixture,
+                                                make_ntu_fixture)
+    from hcmoco_tpu_torch.data.packed import pack_ntu
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+    from hcmoco_tpu_torch.native import library_route, resample_lib
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_cli_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        ntu, ntu_list = make_ntu_fixture(os.path.join(tmp, "ntu"),
+                                         n_frames=CLI_FRAMES, seed=0,
+                                         h=KINECT_HW[0], w=KINECT_HW[1])
+        mpii = make_mpii_fixture(os.path.join(tmp, "mpii"),
+                                 n_images=CLI_MPII, seed=1, h=KINECT_HW[0],
+                                 w=KINECT_HW[1])
+        t1 = time.perf_counter()
+        if resample_lib() is None:
+            raise AssertionError("the native resample library did not build")
+        t2 = time.perf_counter()
+        pack = os.path.join(tmp, "pack")
+        meta = pack_ntu(ntu, ntu_list, pack)
+        print(f"CLI tree: {CLI_FRAMES} NTU frames and {CLI_MPII} MPII images "
+              f"at {KINECT_HW[0]}x{KINECT_HW[1]} written in {t1 - t0:.2f} s; "
+              f"native resample built and loaded in {t2 - t1:.2f} s; packed "
+              f"{meta['n']} frames in {time.perf_counter() - t2:.2f} s")
+        files = ["--data_folder", ntu, "--train_file_list", ntu_list,
+                 "--mpii_root", mpii, "--model_path",
+                 os.path.join(tmp, "save"), "--seed", "0", "--print_freq",
+                 "6"]
+        steps1 = (CLI_FRAMES + CLI_MPII) // BATCH
+
+        os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+        k1 = {name: (fn, None) for name, fn in k1_wrappers().items()}
+
+        def check_k1(launches: dict, r, n: int, label: str) -> None:
+            """K1 and K1b once a fused site and step, K1's generic path
+            once a generic site and step."""
+            model = r.state.model
+            sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+            gen = (generic_sites(model.encoder1)
+                   + generic_sites(model.encoder2))
+            want = {name: (gen if name.endswith("generic") else sites) * n
+                    for name in launches}
+            if launches != want:
+                raise AssertionError(f"{label}: launches {launches}, "
+                                     f"expected {want}")
+
+        restored = {}
+        s1 = ["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18",
+              "--batch_size", str(BATCH)] + files
+        rate = cli_input_rate(s1)
+        r1, l1 = cli_run(card, "CLI stage-1 HRNet", s1 + [
+            "--epochs", "1", "--max_steps", str(steps1)], BATCH, steps1, k1,
+            input_rate=rate)
+        check_k1(l1, r1, steps1, "CLI stage-1 HRNet")
+        stage1_dir = r1.ckpt_dir
+        saved = (r1.state.step, r1.state.banks.detach().cpu().clone(),
+                 r1.state.model.encoder1.conv1.weight.detach().cpu().clone())
+
+        def check_restored(state):
+            got = (state.step, state.banks.detach().cpu(),
+                   state.model.encoder1.conv1.weight.detach().cpu())
+            if not (got[0] == saved[0] and torch.equal(got[1], saved[1])
+                    and torch.equal(got[2], saved[2])):
+                raise AssertionError("resume: the restored step, banks or "
+                                     "encoder1.conv1.weight differ from "
+                                     "what was saved")
+            restored["step"] = got[0]
+
+        r2, l2 = cli_run(card, "CLI stage-1 HRNet resumed", s1 + [
+            "--epochs", "2", "--resume", "auto", "--max_steps",
+            str(2 * steps1)], BATCH, steps1, k1, on_ready=check_restored,
+            input_rate=rate)
+        if r2.start_epoch != 2 or restored.get("step") != steps1:
+            raise AssertionError(f"resume started at epoch {r2.start_epoch}"
+                                 f", step {restored.get('step')}")
+        print(f"CLI resume: epoch 2 restored step {steps1}, the banks and "
+              f"encoder1.conv1.weight bit for bit [{card}]")
+        check_k1(l2, r2, steps1, "CLI stage-1 HRNet resumed")
+        trained = r2.state.model.encoder1.conv1.weight.detach().cpu().clone()
+        del r1, r2
+
+        def check_grafted(state):
+            if not torch.equal(
+                    state.model.encoder1.conv1.weight.detach().cpu(),
+                    trained):
+                raise AssertionError("--pretrain did not graft "
+                                     "encoder1.conv1.weight")
+
+        s2_steps = 8
+        s2 = ["--recipe", "second_stage/ntumpiirgbd2s_hrnet_w18",
+              "--batch_size", str(BATCH)] + files
+        r3, l3 = cli_run(card, "CLI stage-2 HRNet --pretrain", s2 + [
+            "--pretrain", stage1_dir, "--epochs", "1", "--max_steps",
+            str(s2_steps)],
+            BATCH, s2_steps, k1, on_ready=check_grafted, input_rate=rate)
+        check_k1(l3, r3, s2_steps, "CLI stage-2 HRNet")
+        del r3
+
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+        pn = ["--recipe", "first_stage/ntumpiirgbd2s_hrnetpn_w18",
+              "--batch_size", str(PN_BATCH), "--packed_dir", pack] + files
+        pn_steps = 8
+        r4, l4 = cli_run(card, "CLI stage-1 HRNetPN packed", pn + [
+            "--epochs", "1", "--max_steps", str(pn_steps)], PN_BATCH,
+            pn_steps, point_wrappers(), input_rate=cli_input_rate(pn))
+        route = library_route("resample")
+        if not route.startswith("native"):
+            raise AssertionError(f"the packed path took the {route}")
+        print(f"CLI HRNetPN packed path: resample route {route} [{card}]")
+        del r4
+        torch.cuda.empty_cache()
+        return [l1, l2, l3], [l4]
+    finally:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -1609,6 +1864,11 @@ def main() -> int:
     small_stage2_check(card, "HRNetPN")
     check_build_refusal(card)
     pn_runs = [drive_pn(card), drive_stage2(card, "HRNetPN")]
+    t_cli = time.perf_counter()
+    cli_k1, cli_pn = drive_cli(card)
+    print(f"CLI phase wall time: {time.perf_counter() - t_cli:.1f} s [{card}]")
+    k1_runs += cli_k1
+    pn_runs += cli_pn
     for entries, runs in ((k1, k1_runs), (points, pn_runs)):
         for entry, name in zip(entries, runs[0]):
             entry["launches"] = sum(r[name] for r in runs)

@@ -1,0 +1,338 @@
+"""Contrastive pre-training CLI (counterpart of
+hcmoco_tpu/cli/main_contrast.py).
+
+Reference: `pycontrast/main_contrast.py` + the option surface of
+`pycontrast/options/{base,train}_options.py`, with the JAX CLI's flags and
+`config_from_args`, plus `--device` and `--packed_dir`.  One process drives
+one device: the card unless `--device cpu` asks for the CPU.
+
+Usage:
+  python -m hcmoco_tpu_torch.cli.main_contrast --method CMCRGBD2S \\
+      --arch HRNet --dataset NTUMPII --data_folder ... --train_file_list ...
+  python -m hcmoco_tpu_torch.cli.main_contrast \\
+      --recipe first_stage/ntumpiirgbd2s_hrnet_w18 --data_folder ... \\
+      --train_file_list ... --mpii_root ...
+  python -m hcmoco_tpu_torch.cli.main_contrast --synthetic 512 ...  # no data
+
+Each step's random draws (negatives; HRNetPN's depth2pts points; stage 2's
+soft-Pri3D pixels) come from a generator on the device seeded from
+(seed + 1, global step) alone, so a resumed run draws what an
+uninterrupted one would.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:
+    from ..core.config import TrainConfig
+    from ..train.state import TrainState
+
+# TrainConfig fields of the JAX package that the port does not hold yet;
+# their flags are refused rather than ignored
+_NOT_PORTED = {
+    "alpha": "the moco EMA: ROADMAP.md Queue 1 item 11",
+    "n_class": "the versatility segmentor: ROADMAP.md Queue 1 item 12",
+    "supervise_type": "the versatility segmentor: ROADMAP.md Queue 1 item 12",
+    "test_type": "the versatility segmentor: ROADMAP.md Queue 1 item 12",
+    "cmc_loss_weights": "the versatility segmentor: ROADMAP.md Queue 1 "
+                        "item 12",
+    "other_loss_weights": "the versatility segmentor: ROADMAP.md Queue 1 "
+                          "item 12",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("hcmoco_tpu_torch contrastive pretraining")
+    p.add_argument("--recipe", type=str, default="",
+                   help="named recipe from core.config.RECIPES; other flags "
+                        "override it")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic samples (no dataset files)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the run; 'cpu' is the one way "
+                        "onto the CPU")
+    # mirrored reference flags (options/base_options.py)
+    p.add_argument("--method", type=str, default=None)
+    p.add_argument("--modal", type=str, default=None)
+    p.add_argument("--arch", type=str, default=None)
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--head", type=str, default=None)
+    p.add_argument("--feat_dim", type=int, default=None)
+    p.add_argument("--mem", type=str, default=None)
+    p.add_argument("--nce_k", "-k", type=int, default=None)
+    p.add_argument("--nce_m", "-m", type=float, default=None)
+    p.add_argument("--nce_t", "-t", type=float, default=None)
+    p.add_argument("--temperature", type=float, default=None)
+    p.add_argument("--alpha", type=float, default=None)
+    p.add_argument("--pri3d_num_samples_per_image", type=int, default=None)
+    p.add_argument("--scl_groups", type=int, default=None,
+                   help="cross-subject SCL group count; 0 (default) = one "
+                        "group per process, 1 = the whole batch")
+    p.add_argument("--modality_missing", type=int, default=None)
+    p.add_argument("--linear_feat_map", type=int, default=None)
+    p.add_argument("--pool_method", type=str, default=None)
+    p.add_argument("--skeleton_meta_name", type=str, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--learning_rate", type=float, default=None)
+    p.add_argument("--lr_decay_epochs", type=str, default=None)
+    p.add_argument("--lr_decay_rate", type=float, default=None)
+    p.add_argument("--weight_decay", type=float, default=None)
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--cosine", action="store_true", default=None)
+    p.add_argument("--warm", action="store_true", default=None)
+    p.add_argument("--dataset", type=str, default=None)
+    p.add_argument("--data_folder", type=str, default=None)
+    p.add_argument("--train_file_list", type=str, default=None)
+    p.add_argument("--mpii_root", type=str, default=None)
+    p.add_argument("--coco_root", type=str, default=None)
+    p.add_argument("--seg_root", type=str, default=None)
+    p.add_argument("--seg_file_list", type=str, default=None)
+    p.add_argument("--packed_dir", type=str, default=None)
+    p.add_argument("--aug", type=str, default=None)
+    p.add_argument("--crop_size", type=int, default=None)
+    p.add_argument("--random_flip", type=int, default=None)
+    p.add_argument("--not_use_weighted_sampler", action="store_true",
+                   default=None)
+    # versatility / segmentation (main_segmentor.py surface)
+    p.add_argument("--n_class", type=int, default=None)
+    p.add_argument("--supervise_type", type=int, default=None)
+    p.add_argument("--test_type", type=int, default=None)
+    p.add_argument("--mask_seg_depth", action="store_true", default=None)
+    p.add_argument("--mask_seg_rgb", action="store_true", default=None)
+    p.add_argument("--cmc_loss_weights", type=float, default=None)
+    p.add_argument("--other_loss_weights", type=float, default=None)
+    p.add_argument("--seg_val_file_list", type=str, default=None)
+    p.add_argument("--model_path", type=str, default=None)
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--pretrain", type=str, default=None)
+    p.add_argument("--IN_Pretrain", type=str, default="")
+    p.add_argument("--depth_Pretrain", type=str, default="")
+    p.add_argument("--save_freq", type=int, default=None)
+    p.add_argument("--print_freq", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--compute_dtype", type=str, default=None)
+    p.add_argument("--microbatch", type=int, default=None,
+                   help="split each batch into N sequential microbatches "
+                        "(not ported yet: N > 1 raises)")
+    p.add_argument("--num_workers", "-j", type=int, default=8)
+    p.add_argument("--max_steps", type=int, default=0,
+                   help="stop after N optimizer steps (smoke runs)")
+    p.add_argument("--deterministic_data", action="store_true",
+                   help="accepted for the JAX CLI's command lines, where "
+                        "it has no effect either")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="profiler trace directory (not ported yet: raises)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process training (not ported yet: raises)")
+    return p
+
+
+def config_from_args(args) -> "TrainConfig":
+    from ..core.config import RECIPES, TrainConfig, resolve_config
+
+    if args.recipe and args.recipe not in RECIPES:
+        import sys
+        sys.exit(f"error: unknown --recipe '{args.recipe}'. Available:\n  "
+                 + "\n  ".join(sorted(RECIPES)))
+    for name, what in _NOT_PORTED.items():
+        if getattr(args, name, None) is not None:
+            raise NotImplementedError(f"--{name} sets a field of {what}, "
+                                      "which is not ported yet")
+    cfg = RECIPES[args.recipe] if args.recipe else TrainConfig()
+    overrides = {}
+    for f in dataclasses.fields(TrainConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            if f.name == "lr_decay_epochs" and isinstance(v, str):
+                v = tuple(int(x) for x in v.split(","))
+            elif f.type in ("bool",) or isinstance(f.default, bool):
+                v = bool(v)
+            overrides[f.name] = v
+    cfg = dataclasses.replace(cfg, **overrides)
+    return resolve_config(cfg)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step's draws, a function of (seed, step)
+    alone: the counterpart of jax.random.fold_in(PRNGKey(seed), step)."""
+    hi, lo = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return torch.Generator(device).manual_seed(int(hi) << 32 | int(lo))
+
+
+def metric_floats(metrics: Dict) -> Dict[str, float]:
+    """The step's 0-d tensor metrics read back in one transfer."""
+    names = [k for k, v in metrics.items() if torch.is_tensor(v)]
+    values = torch.stack([metrics[k].float() for k in names]).tolist() \
+        if names else []
+    out = {k: float(v) for k, v in metrics.items() if not torch.is_tensor(v)}
+    out.update(zip(names, values))
+    return out
+
+
+@dataclass
+class RunResult:
+    """What main() did: the final state, the data size, the epochs run,
+    the checkpoint directory, and each step's host seconds: waiting on
+    the data source (`wait_s`), pinning and enqueueing the upload
+    (`upload_s`), and the train step up to its metrics read back
+    (`step_s`)."""
+
+    state: "TrainState"
+    n_data: int
+    steps_per_epoch: int
+    start_epoch: int
+    last_epoch: int
+    ckpt_dir: str
+    wait_s: List[float] = field(default_factory=list)
+    upload_s: List[float] = field(default_factory=list)
+    step_s: List[float] = field(default_factory=list)
+
+
+def main(argv=None, on_ready: Optional[Callable] = None,
+         on_step: Optional[Callable[[int], None]] = None) -> RunResult:
+    """Run the CLI on argv.  on_ready(state) is called once the state is
+    built, grafted and restored, before the first step; on_step(n) after
+    each step, n the global step count (instrumentation, e.g. a
+    profiler's step)."""
+    args = build_argparser().parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost is not ported yet: ROADMAP.md Queue 1 item 10 "
+            "(multi-GPU)")
+    if args.profile_dir:
+        raise NotImplementedError(
+            "--profile_dir is not ported yet: ROADMAP.md Queue 1 item 14")
+    cfg = config_from_args(args)
+    if cfg.microbatch > 1:
+        raise NotImplementedError(
+            "--microbatch > 1 is not ported yet: ROADMAP.md Queue 1 item 9")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("main_contrast: no CUDA device is available; pass "
+                           "--device cpu to train on the CPU")
+
+    from ..core.config import to_dict
+    from ..data.pipeline import to_device
+    from ..models.build import build_model
+    from ..train.checkpoint import CheckpointManager
+    from ..train.contrast_step import make_contrast_train_step
+    from ..train.state import create_train_state
+    from ..utils.meters import MetricLogger
+
+    print("----------------- Options ---------------")
+    for k, v in sorted(to_dict(cfg).items()):
+        print(f"{k:>35}: {v}")
+    print("----------------- End -------------------")
+
+    if args.synthetic:
+        from ..data.synthetic import SyntheticContrastSource
+
+        n_data = args.synthetic
+        source = SyntheticContrastSource(
+            cfg.batch_size, size=cfg.crop_size,
+            num_joints=cfg.num_joints, n_data=n_data, seed=cfg.seed,
+            modal=cfg.modal)
+        steps_per_epoch = max(n_data // cfg.batch_size, 1)
+    else:
+        from ..data.pipeline import build_contrast_source
+
+        source, n_data, steps_per_epoch = build_contrast_source(
+            cfg, num_workers=args.num_workers)
+    if n_data > cfg.counts_max_n_data:
+        raise NotImplementedError(
+            f"n_data={n_data} exceeds counts_max_n_data="
+            f"{cfg.counts_max_n_data}: the row-gather NCE that such a "
+            "dataset needs is not ported yet (ROADMAP.md Queue 1 item 9)")
+
+    torch.manual_seed(cfg.seed)  # the model's initial weights
+    model = build_model(cfg, device=device).to(
+        memory_format=torch.channels_last)
+    it = iter(source)
+    try:
+        # the JAX CLI draws one batch to initialise its state; drawing it
+        # here too keeps the two CLIs' data streams aligned
+        next(it)
+        state = create_train_state(
+            cfg, model, torch.Generator(device).manual_seed(cfg.seed),
+            n_data, steps_per_epoch)
+        if args.IN_Pretrain or args.depth_Pretrain:
+            from ..export.transfer import load_imagenet_pretrained
+
+            for enc, path in (("encoder1", args.IN_Pretrain),
+                              ("encoder2", args.depth_Pretrain)):
+                if path:
+                    n = load_imagenet_pretrained(path, model,
+                                                 encoder_names=(enc,))
+                    print(f"=> loaded {n} conv tensors into {enc} from "
+                          f"{path}")
+        if cfg.pretrain:
+            # stage-1 -> stage-2 warm start with partial grafting
+            # (main_contrast.py:52-67 key-surgery analog)
+            from ..train.checkpoint import graft_pretrain
+
+            state = graft_pretrain(cfg.pretrain, state)
+
+        ckpt_dir = f"{cfg.model_path}/{cfg.model_name}"
+        ckpt = CheckpointManager(ckpt_dir, save_freq=cfg.save_freq)
+        start_epoch = 1
+        if cfg.resume:
+            state, last = ckpt.restore(state)
+            start_epoch = last + 1
+            if last:
+                print(f"=> resumed from epoch {last}")
+        if on_ready is not None:
+            on_ready(state)
+
+        step_fn = make_contrast_train_step(cfg, model, steps_per_epoch)
+        logger = MetricLogger(ckpt_dir, print_freq=cfg.print_freq)
+        result = RunResult(state, n_data, steps_per_epoch, start_epoch,
+                           start_epoch - 1, ckpt_dir)
+        global_step = state.step
+        try:
+            for epoch in range(start_epoch, cfg.epochs + 1):
+                t0 = time.time()
+                logger.reset()
+                for i in range(steps_per_epoch):
+                    t_wait = time.perf_counter()
+                    host = next(it)
+                    t_upload = time.perf_counter()
+                    batch = to_device(host, device)
+                    t_step = time.perf_counter()
+                    metrics = step_fn(state, batch, step_generator(
+                        cfg.seed + 1, global_step, device))
+                    values = metric_floats(metrics)
+                    t_end = time.perf_counter()
+                    global_step += 1
+                    result.wait_s.append(t_upload - t_wait)
+                    result.upload_s.append(t_step - t_upload)
+                    result.step_s.append(t_end - t_step)
+                    logger.log_step(epoch, i, steps_per_epoch, values,
+                                    n=cfg.batch_size)
+                    if on_step is not None:
+                        on_step(global_step)
+                    if args.max_steps and global_step >= args.max_steps:
+                        break
+                logger.write_epoch(epoch)
+                ckpt.save(epoch, state)
+                result.last_epoch = epoch
+                print(f"epoch {epoch}, total time {time.time() - t0:.2f}")
+                if args.max_steps and global_step >= args.max_steps:
+                    break
+        finally:
+            logger.close()
+    finally:
+        it.close()  # stops the DataSource's thread pool
+    return result
+
+
+if __name__ == "__main__":
+    main()

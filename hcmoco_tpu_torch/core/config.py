@@ -10,8 +10,9 @@ second-stage recipes.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -150,9 +151,24 @@ class TrainConfig:
     warmup_from: float = 0.01
     warm_epochs: int = 5
 
-    # data
+    # data (data/pipeline.py::build_contrast_source)
+    dataset: str = ""
+    data_folder: str = "./data"
+    train_file_list: str = ""
+    val_file_list: str = ""
+    mpii_root: str = ""
+    coco_root: str = ""
+    seg_root: str = ""
+    seg_file_list: str = ""
+    seg_val_file_list: str = ""
+    packed_dir: str = ""  # memmapped NTU pack (data/packed.py)
     aug: str = "C"
     crop_size: int = 320
+    random_flip: bool = False
+    not_use_weighted_sampler: bool = False
+    # NTUSegJoint: blank one modality of the segmentation frames
+    mask_seg_depth: bool = False
+    mask_seg_rgb: bool = False
 
     # HRNetPN point-cloud branch: the original depth frame size for the
     # back-projection intrinsics (Kinect, 424x512) and the points sampled
@@ -167,6 +183,20 @@ class TrainConfig:
     microbatch: int = 1
     remat: bool = False
     compute_dtype: str = "bfloat16"  # params are always f32
+
+    # io (cli/main_contrast.py, train/checkpoint.py)
+    model_path: str = "./save"
+    resume: str = ""
+    pretrain: Optional[str] = None
+    save_freq: int = 20
+    print_freq: int = 10
+    seed: int = 0
+
+    @property
+    def model_name(self) -> str:
+        # TrainOptions.modify_options naming (train_options.py:39-47)
+        return (f"{self.method}_{self.arch}_{self.modal}_Jig_{self.jigsaw}_"
+                f"{self.mem}_aug_{self.aug}_{self.head}_{self.nce_t}")
 
     @property
     def hrnet(self) -> HRNetConfig:
@@ -199,9 +229,10 @@ def resolve_config(cfg: TrainConfig) -> TrainConfig:
 def _first_stage(**kw) -> TrainConfig:
     """The reference's FirstStage recipe (HRNet-W18, 320^2, K=16384)."""
     base = TrainConfig(method="CMCRGBD2S", arch="HRNet", width=18,
-                       batch_size=224, epochs=100, learning_rate=0.03,
-                       cosine=True, nce_k=16384, modality_missing=True,
-                       crop_size=320)
+                       dataset="NTUMPII", batch_size=224, epochs=100,
+                       learning_rate=0.03, cosine=True, nce_k=16384,
+                       modality_missing=True, crop_size=320,
+                       random_flip=True)
     return resolve_config(replace(base, **kw))
 
 
@@ -209,26 +240,31 @@ def _second_stage(**kw) -> TrainConfig:
     """The reference's SecondStage recipe: stage 1's plus the dense and
     joint losses over the linear_feat_map heads."""
     base = TrainConfig(method="CMCJointsPri3DRGBD2S", arch="HRNet", width=18,
-                       batch_size=224, epochs=100, learning_rate=0.03,
-                       cosine=True, nce_k=16384, modality_missing=True,
-                       linear_feat_map=True, pri3d_num_samples_per_image=400,
-                       temperature=0.07, crop_size=320)
+                       dataset="NTUMPII", batch_size=224, epochs=100,
+                       learning_rate=0.03, cosine=True, nce_k=16384,
+                       modality_missing=True, linear_feat_map=True,
+                       pri3d_num_samples_per_image=400, temperature=0.07,
+                       crop_size=320, random_flip=True)
     return resolve_config(replace(base, **kw))
 
 
-# the JAX package's FirstStage/ and SecondStage/ recipes; their dataset
-# and flip fields belong to the data pipeline, which is not ported
+# the JAX package's FirstStage/ and SecondStage/ recipes (the Versatility/
+# ones wait for the segmentor, ROADMAP.md Queue 1 item 12)
 RECIPES = {
     "first_stage/ntumpiirgbd2s_hrnet_w18": _first_stage(),
     "first_stage/ntumpiirgbd2s_hrnet_w32": _first_stage(width=32),
     "first_stage/ntumpiirgbd2s_hrnet_w48": _first_stage(width=48),
     "first_stage/ntucocorgbd2s_hrnet_w18": _first_stage(
-        skeleton_meta_name="coco_reduce"),
+        dataset="NTUCOCO", skeleton_meta_name="coco_reduce"),
     "first_stage/ntumpiirgbd2s_hrnetpn_w18": _first_stage(arch="HRNetPN"),
     "second_stage/ntumpiirgbd2s_hrnet_w18": _second_stage(),
     "second_stage/ntumpiirgbd2s_hrnet_w32": _second_stage(width=32),
     "second_stage/ntumpiirgbd2s_hrnet_w48": _second_stage(width=48),
     "second_stage/ntucocorgbd2s_hrnet_w18": _second_stage(
-        skeleton_meta_name="coco_reduce"),
+        dataset="NTUCOCO", skeleton_meta_name="coco_reduce"),
     "second_stage/ntumpiirgbd2s_hrnetpn_w18": _second_stage(arch="HRNetPN"),
 }
+
+
+def to_dict(cfg: TrainConfig) -> dict:
+    return dataclasses.asdict(cfg)

@@ -9,7 +9,7 @@ the batch is the JAX package's, array for array.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -72,3 +72,31 @@ def synthetic_contrast_batch(
         "grid_xy": np.broadcast_to(grid, (b, s, s, 2)).copy(),
         "depth_mean": rng.uniform(2.0, 4.0, b).astype(np.float32),
     }
+
+
+class SyntheticContrastSource:
+    """Infinite iterator of synthetic batches (host numpy), the JAX
+    package's, batch for batch.
+
+    modal: "RGBD2S" (default) yields the full tri-modal dict; "CMC"/"RGB"
+    yield only {rgbd[..., :3], index}, as their real datasets emit a single
+    3-channel image."""
+
+    def __init__(self, batch_size: int, size: int = 320,
+                 num_joints: int = 16, n_data: int = 4096, seed: int = 0,
+                 modal: str = "RGBD2S"):
+        self.batch_size = batch_size
+        self.size = size
+        self.num_joints = num_joints
+        self.n_data = n_data
+        self.modal = modal
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            b = synthetic_contrast_batch(
+                self._rng, self.batch_size, self.size, self.num_joints,
+                self.n_data)
+            if self.modal != "RGBD2S":
+                b = {"rgbd": b["rgbd"][..., :3], "index": b["index"]}
+            yield b

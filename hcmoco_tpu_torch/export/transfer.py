@@ -14,6 +14,10 @@ Name mapping (flax -> torch):
   stage{s}_module{m}/fuse{i}_{j}[_{k}] -> stage{s}.{m}.fuse_layers.{i}.{j}.[{k}.]{0,1}
 Convs transpose HWIO -> OIHW; BN scale/bias -> weight/bias and batch_stats
 mean/var -> running_mean/running_var.
+
+`load_imagenet_pretrained` is the counterpart of the JAX package's loader of
+the same name (over `hrnet_torch_to_flax`): the port already holds the
+reference names, so it is a filtered load.
 """
 
 from __future__ import annotations
@@ -137,3 +141,45 @@ def hrnet_flax_to_torch(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
         emit_conv(torch_name[0], flat_p[pref + ("conv", "kernel")])
         emit_bn(torch_name[1], pref + ("bn",))
     return out
+
+
+_BN_TENSORS = ("weight", "bias", "running_mean", "running_var")
+
+
+def load_imagenet_pretrained(path: str, model, encoder_names=("encoder1",
+                                                              "encoder2")
+                             ) -> int:
+    """--IN_Pretrain / --depth_Pretrain: initialise the HRNet encoders
+    `encoder_names` of `model`, in place, from a torch HRNet state dict
+    (e.g. ImageNet pretrain; build_backbone.py:547-560).  Per conv its
+    weight, per BN its weight, bias, running mean and running var are
+    taken where the file holds the same name at the same shape; every
+    other tensor (the classifier, a stem of another width) is skipped,
+    like the reference's filtered load (official_hrnet.py:461-473).  An
+    encoder that is not an HRNet (HRNetPN's PointNet++) takes nothing.
+    Returns the number of conv weights loaded."""
+    import torch
+
+    from ..models.hrnet import HRNet
+
+    sd = torch.load(path, map_location="cpu")
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    total = 0
+    with torch.no_grad():
+        for enc in encoder_names:
+            encoder = getattr(model, enc, None)
+            if not isinstance(encoder, HRNet):
+                continue
+            for name, mod in encoder.named_modules():
+                if isinstance(mod, torch.nn.Conv2d):
+                    w = sd.get(f"{name}.weight")
+                    if w is not None and w.shape == mod.weight.shape:
+                        mod.weight.copy_(w)
+                        total += 1
+                elif isinstance(mod, torch.nn.BatchNorm2d):
+                    for t in _BN_TENSORS:
+                        v = sd.get(f"{name}.{t}")
+                        if v is not None and v.shape == getattr(mod, t).shape:
+                            getattr(mod, t).copy_(v)
+    return total

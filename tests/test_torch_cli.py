@@ -1,0 +1,222 @@
+"""The port's pre-training CLI (cli/main_contrast.py), its pack CLI and its
+MetricLogger, on the CPU at tiny size (width-4 HRNet, 32^2 crops, f32).
+
+- config_from_args equals the JAX CLI's for every stage recipe with
+  overrides, field for field.
+- main([... '--device', 'cpu']) runs the user's journeys on --synthetic
+  data and on the fixture trees (files and a pack): two epochs of stage 1,
+  --resume for a third (the restored step and banks are the saved ones),
+  then stage 2 with --pretrain (the printed graft counts are the stage-1
+  model's parameters and BN statistics).  Checked: the TSV's header and
+  lines, the checkpoint files, the counts.
+- The refusals: no card without --device cpu, n_data above
+  counts_max_n_data before the model is built, and the flags whose ROADMAP
+  item is not ported.
+- MetricLogger's stdout lines and TSV equal the JAX package's.
+"""
+
+import io
+import os
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+import torch
+
+from hcmoco_tpu.cli import main_contrast as jax_cli
+from hcmoco_tpu.cli import pack_ntu as jax_pack_cli
+from hcmoco_tpu.utils.meters import MetricLogger as JaxMetricLogger
+
+from hcmoco_tpu_torch.cli import main_contrast as cli
+from hcmoco_tpu_torch.cli import pack_ntu as pack_cli
+from hcmoco_tpu_torch.core import config
+from hcmoco_tpu_torch.data.fixtures import make_mpii_fixture, make_ntu_fixture
+from hcmoco_tpu_torch.train.checkpoint import CheckpointManager
+from hcmoco_tpu_torch.train.contrast_step import STAGE2_METRICS
+from hcmoco_tpu_torch.utils.meters import MetricLogger
+
+torch.set_num_threads(1)
+
+PORT_FIELDS = [f.name for f in config.dataclasses.fields(config.TrainConfig)]
+STAGE_RECIPES = sorted(config.RECIPES)
+OVERRIDES = [
+    [],
+    ["--batch_size", "8", "--width", "4", "--cosine", "--crop_size", "32"],
+    ["--lr_decay_epochs", "3,5", "--random_flip", "0", "--seed", "3",
+     "--not_use_weighted_sampler", "--mask_seg_depth", "--warm"],
+    ["--method", "CMCRGBD2S", "--nce_k", "15", "--modality_missing", "0",
+     "--compute_dtype", "float32", "--model_path", "/x", "--resume", "auto",
+     "--pretrain", "/y", "--save_freq", "2", "--print_freq", "1"],
+]
+TINY = ["--width", "4", "--crop_size", "32", "--batch_size", "4",
+        "--nce_k", "15", "--compute_dtype", "float32", "--print_freq", "2",
+        "--device", "cpu"]
+STAGE1_METRICS = ["learning_rate", "loss"] + sorted(
+    f"nce_{m}_{d}" for m in ("acc", "loss")
+    for d in ("12", "21", "23", "32", "13", "31"))
+
+
+@pytest.mark.parametrize("overrides", range(len(OVERRIDES)))
+@pytest.mark.parametrize("recipe", STAGE_RECIPES + [""])
+def test_config_from_args_matches_jax(recipe, overrides):
+    argv = (["--recipe", recipe] if recipe else []) + OVERRIDES[overrides]
+    got = cli.config_from_args(cli.build_argparser().parse_args(argv))
+    want = jax_cli.config_from_args(jax_cli.build_argparser().parse_args(argv))
+    for name in PORT_FIELDS:
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.model_name == want.model_name
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--multihost"], "item 10"),
+    (["--profile_dir", "/tmp/p"], "item 14"),
+    (["--microbatch", "2"], "item 9"),
+    (["--alpha", "0.9"], "item 11"),
+    (["--n_class", "3"], "item 12"),
+])
+def test_unported_flags_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(["--synthetic", "8", "--device", "cpu"] + argv)
+
+
+def test_without_a_card_main_raises(monkeypatch):
+    """The CLI runs on the card unless asked for the CPU; it does not carry
+    on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--synthetic", "8"] + TINY[:-2])
+
+
+def test_n_data_above_counts_max_is_refused_at_start(monkeypatch):
+    from hcmoco_tpu_torch.models import build
+
+    def never(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(build, "build_model", never)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cli.main(["--synthetic", str(config.TrainConfig().counts_max_n_data
+                                     + 1)] + TINY)
+
+
+def test_step_generator_depends_on_seed_and_step_alone():
+    def draw(seed, step):
+        return torch.rand(5, generator=cli.step_generator(seed, step, "cpu"))
+
+    assert torch.equal(draw(1, 7), draw(1, 7))
+    assert not torch.equal(draw(1, 7), draw(1, 8))
+    assert not torch.equal(draw(1, 7), draw(2, 7))
+
+
+def _tsv(ckpt_dir):
+    with open(os.path.join(ckpt_dir, "metrics.tsv")) as f:
+        head, *rows = [line.split("\t") for line in f.read().splitlines()]
+    return head, rows
+
+
+def _journey(tmp_path, data_args, steps_per_epoch):
+    """Stage 1 for two epochs, resumed for a third, then stage 2 grafted
+    from it; returns stage 1's RunResult."""
+    save = str(tmp_path / "save")
+    s1 = ["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18", "--model_path",
+          save] + TINY + data_args
+    r1 = cli.main(s1 + ["--epochs", "2"])
+    assert (r1.start_epoch, r1.last_epoch) == (1, 2)
+    assert r1.state.step == 2 * steps_per_epoch
+    assert len(r1.step_s) == len(r1.wait_s) == 2 * steps_per_epoch
+    mgr = CheckpointManager(r1.ckpt_dir)
+    assert mgr.epochs() == [1, 2]
+    saved = (r1.state.step, r1.state.banks.clone())
+    seen = {}
+
+    def on_ready(state):
+        seen["step"] = state.step
+        seen["banks"] = state.banks.clone()
+
+    r2 = cli.main(s1 + ["--epochs", "3", "--resume", "auto"],
+                  on_ready=on_ready)
+    assert (r2.start_epoch, r2.last_epoch) == (3, 3)
+    assert seen["step"] == saved[0] and torch.equal(seen["banks"], saved[1])
+    assert r2.state.step == 3 * steps_per_epoch
+    assert mgr.epochs() == [1, 2, 3]
+    head, rows = _tsv(r1.ckpt_dir)
+    assert head == ["epoch"] + STAGE1_METRICS
+    assert [r[0] for r in rows] == ["1", "2", "3"]
+    assert all(np.isfinite(float(v)) for r in rows for v in r)
+
+    n_param = len(list(r1.state.model.parameters()))
+    n_stat = sum(k.endswith(("running_mean", "running_var"))
+                 for k in r1.state.model.state_dict())
+    out = io.StringIO()
+    steps = []
+    with redirect_stdout(out):
+        r3 = cli.main(["--recipe", "second_stage/ntumpiirgbd2s_hrnet_w18",
+                       "--model_path", save, "--pretrain", r1.ckpt_dir,
+                       "--epochs", "1", "--max_steps", "2"] + TINY
+                      + data_args, on_step=steps.append)
+    text = out.getvalue()
+    assert steps == [1, 2] and r3.state.step == 2
+    assert f"=> grafted {n_param} param tensors from " in text
+    assert f"=> grafted {n_stat} batch-stat tensors from " in text
+    assert "=> grafted memory banks" in text
+    head, rows = _tsv(r3.ckpt_dir)
+    assert set(STAGE2_METRICS) < set(head) and len(rows) == 1
+    assert os.path.exists(os.path.join(r3.ckpt_dir, "epoch_1.pt"))
+    return r1
+
+
+def test_journey_on_synthetic_data(tmp_path):
+    _journey(tmp_path, ["--synthetic", "16"], steps_per_epoch=4)
+
+
+@pytest.fixture(scope="module")
+def trees(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("cli_trees"))
+    ntu, lst = make_ntu_fixture(os.path.join(root, "ntu"), n_frames=9)
+    mpii = make_mpii_fixture(os.path.join(root, "mpii"), n_images=3)
+    return ["--data_folder", ntu, "--train_file_list", lst, "--mpii_root",
+            mpii, "--num_workers", "2"]
+
+
+def test_journey_on_fixture_trees(tmp_path, trees):
+    """NTU + MPII files: 12 samples, 3 steps an epoch at batch 4."""
+    r1 = _journey(tmp_path, trees, steps_per_epoch=3)
+    assert r1.n_data == 12 and r1.steps_per_epoch == 3
+
+
+def test_journey_on_a_pack(tmp_path, trees):
+    """The NTU frames packed by cli/pack_ntu.py, which writes what the JAX
+    pack CLI writes."""
+    folder, lst = trees[1], trees[3]
+    for mod, name in ((pack_cli, "pack"), (jax_pack_cli, "jax_pack")):
+        mod.main(["--data_folder", folder, "--train_file_list", lst,
+                  "--out_dir", str(tmp_path / name)])
+    for f in ("rgb.npy", "depth.npy", "joints3d.npy", "joints_d.npy"):
+        assert (open(tmp_path / "pack" / f, "rb").read()
+                == open(tmp_path / "jax_pack" / f, "rb").read()), f
+    r1 = _journey(tmp_path, trees + ["--packed_dir", str(tmp_path / "pack")],
+                  steps_per_epoch=3)
+    assert r1.n_data == 12
+
+
+def test_metric_logger_matches_jax(tmp_path):
+    """The same stdout lines and the same TSV as the JAX package's."""
+    rng = np.random.default_rng(0)
+    outs = []
+    for cls, name in ((MetricLogger, "port"), (JaxMetricLogger, "jax")):
+        log = cls(str(tmp_path / name), print_freq=2, tensorboard=False)
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            for epoch in (1, 2):
+                log.reset()
+                for it in range(5):
+                    log.log_step(epoch, it, 5, {
+                        "loss": float(rng.standard_normal()),
+                        "nce_acc_12": float(rng.random())}, n=4)
+                log.write_epoch(epoch)
+        log.close()
+        outs.append((buf.getvalue(), open(
+            tmp_path / name / "metrics.tsv").read()))
+        rng = np.random.default_rng(0)
+    assert outs[0] == outs[1]
+    assert outs[0][0].count("Train: [") == 4

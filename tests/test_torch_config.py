@@ -96,3 +96,27 @@ def test_synthetic_batch_matches_jax(bsz, size, joints):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", STAGE_RECIPES)
+def test_recipe_run_fields_match_jax(name):
+    """The pipeline's and the CLI's fields of each stage recipe (dataset,
+    flip, paths, seed), its model_name (the checkpoint directory) and its
+    to_dict, against the JAX package's."""
+    port, want = config.RECIPES[name], jax_config.RECIPES[name]
+    assert port.dataset == want.dataset in ("NTUMPII", "NTUCOCO")
+    assert port.random_flip is want.random_flip is True
+    assert port.model_name == want.model_name
+    got, full = config.to_dict(port), jax_config.to_dict(want)
+    assert set(got) == set(PORT_FIELDS) < set(full)
+    assert got == {k: full[k] for k in got}
+
+
+def test_data_and_run_fields_are_ported():
+    names = set(PORT_FIELDS)
+    assert {"dataset", "data_folder", "train_file_list", "val_file_list",
+            "mpii_root", "coco_root", "seg_root", "seg_file_list",
+            "seg_val_file_list", "packed_dir", "random_flip",
+            "not_use_weighted_sampler", "mask_seg_depth", "mask_seg_rgb",
+            "model_path", "resume", "pretrain", "save_freq", "print_freq",
+            "seed"} <= names
