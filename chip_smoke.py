@@ -14,7 +14,18 @@ shapes, and drives the train steps the port has through its entry points:
     stage-1 HRNet bs32 fused for an epoch, its resume, stage 2 grafted
     with --pretrain, and HRNetPN bs64 from a pack through the native
     resample; each run's iteration times, host input rate, device busy
-    share and peak memory.  The CLI runs' launches add to the kernels'.
+    share and peak memory.  The CLI runs' launches add to the kernels';
+  * the versatility segmentor (the stage-2 HRNet-W18 model + an FCN head,
+    RECIPES['versatility/sup_rgbd'], bs32, fused, K1 and K1b): a tiny
+    step card vs CPU for supervise_type 0 and 3, five synthetic steps with
+    a profile, cli/main_segmentor.py grafted from the CLI's stage-2
+    checkpoint for an epoch of Kinect-size NTU and Parsing-4K frames with
+    its validation, cli/transfer_ckpt.py's exports loaded into a bare
+    HRNet-W18, and the row-gather NCE: its three formulations against each
+    other at n_data 8192 and 262144, a stage-1 step at n_data 262144 with
+    one profiled step, and --microbatch 2 steps (f32 plain, bf16 fused)
+    equal bit for bit to their halves by hand.  Its two runs' launches
+    add to K1's and K1b's.
 
     python3 chip_smoke.py
 
@@ -37,9 +48,11 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -999,7 +1012,7 @@ def make_cfg(**kw):
 
 BATCH_KEYS = ("rgbd", "index", "skeleton", "use_depth", "use_rgb",
               "depth_mask", "grid_xy", "depth_mean", "pts_u", "joints2d",
-              "joints_vis", "pix_idx")
+              "joints_vis", "pix_idx", "label", "true_label", "neg_idx")
 STAGE2_RECIPES = {"HRNet": "second_stage/ntumpiirgbd2s_hrnet_w18",
                   "HRNetPN": "second_stage/ntumpiirgbd2s_hrnetpn_w18"}
 
@@ -1010,11 +1023,13 @@ def to_device(batch: dict, device) -> dict:
 
 
 def timed_steps(step, state, batch, gen, n: int, label: str,
-                card: str) -> tuple:
+                card: str, times: list = None) -> tuple:
     """n train steps, each timed on the host clock up to a synchronize;
     returns (median of steps 2..n in s, the metrics of each step as
-    floats).  Raises on a non-finite metric or bank row."""
-    times, metrics = [], []
+    floats), and appends each step's seconds to `times` if given.  Raises
+    on a non-finite metric or bank row."""
+    times = [] if times is None else times
+    metrics = []
     for _ in range(n):
         t0 = time.perf_counter()
         m = step(state, batch, gen)
@@ -1298,42 +1313,58 @@ PN_CLASSES = (
 )
 
 
-def profile_steps(card: str, step, state, batch, gen, median_s: float,
-                  n: int = 2) -> None:
-    """Device kernel time of `n` more steps under torch.profiler, by kernel
-    class and the top kernels, and its share of the median step."""
+def device_rows(prof) -> list:
+    """(name, device us) of every kernel, copy and fill that a finished
+    torch.profiler run saw on the card, user annotations left out; read
+    from the raw trace events, which takes a fraction of a second where
+    key_averages() takes seconds a profiled step."""
     from torch.autograd import DeviceType
+
+    rows = [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation() and e.duration_ns() > 0]
+    if not rows:
+        raise AssertionError("the profiler saw no device time")
+    return rows
+
+
+def profile_steps(card: str, step, state, batch, gen, median_s: float,
+                  n: int = 2) -> tuple:
+    """Device kernel time of `n` more steps under torch.profiler, by kernel
+    class and the top kernels, and its share of the median step; returns
+    (device ms a step, busy share)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step(state, batch, gen)
         torch.cuda.synchronize()
-    # kernels only: a user annotation's device row spans counted kernels
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and e.self_device_time_total > 0]
-    if not rows:
-        raise AssertionError(f"{label}: the profiler saw no device time")
-    total = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    by_name = {}  # name -> [device us, calls]
+    for name, us in device_rows(prof):
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
+    names = sorted(by_name, key=lambda k: -by_name[k][0])
+    total = sum(us for us, _ in by_name.values()) / 1e3 / n
     print(f"profile: device kernel time {total:.3f} ms/step, busy share "
           f"{total / (median_s * 1e3):.3f} of the median step [{card}]")
     classes, members = {}, {}
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total):
-        k = e.key.lower()
+    for name in names:
+        k = name.lower()
         cls = next((c for c, keys in PN_CLASSES
                     if any(t in k for t in keys)), "other")
-        classes[cls] = classes.get(cls, 0.0) + e.self_device_time_total / 1e3
-        members.setdefault(cls, []).append(e)
-    for cls, us in sorted(classes.items(), key=lambda kv: -kv[1]):
-        print(f"  [class] {us / n:9.3f} ms/step  {cls}")
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:20]
-    for e in top + [e for e in members.get("K2-K6 point kernels", [])
-                    + members.get("other", [])[:5] if e not in top]:
-        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
-              f"{e.count // n:6d} calls/step  {e.key[:90]}")
+        classes[cls] = classes.get(cls, 0.0) + by_name[name][0] / 1e3
+        members.setdefault(cls, []).append(name)
+    for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"  [class] {ms / n:9.3f} ms/step  {cls}")
+    top = names[:20]
+    for name in top + [k for k in members.get("K2-K6 point kernels", [])
+                       + members.get("other", [])[:5] if k not in top]:
+        us, calls = by_name[name]
+        print(f"  {us / 1e3 / n:9.3f} ms/step {calls // n:6d} calls/step  "
+              f"{name[:90]}")
+    return total, total / (median_s * 1e3)
 
 
 def drive_pn(card: str) -> dict:
@@ -1618,20 +1649,23 @@ def cli_input_rate(argv: list, batches: int = 10) -> float:
 
 
 def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
-            wrappers: dict, on_ready=None, input_rate: float = None):
-    """main(argv), which runs `n` steps, on the card with every count of
-    `wrappers` ({name: (fn, launches a step, or None: checked by the
-    caller)}) and K1's generic-path count set to 0 just before it;
-    torch.profiler records the run's last two steps.  Prints the iteration's median and quartiles
-    over the steps before the profiler's (the first step, a warm-up,
-    left out), samples/s, the host input rate, the device busy share and
-    the peak memory; returns (result, launches by name), after checking
+            wrappers: dict, on_ready=None, input_rate: float = None,
+            main=None):
+    """main(argv) (cli/main_contrast.py's unless `main` is another CLI's
+    with its signature and result), which runs `n` steps, on the card with
+    every count of `wrappers` ({name: (fn, launches a step, or None:
+    checked by the caller)}) and K1's generic-path count set to 0 just
+    before it; torch.profiler records the run's last two steps.
+    Prints the iteration's median and quartiles over the steps before the
+    profiler's (the first step, a warm-up, left out), samples/s, the host
+    input rate, the device busy share and the peak memory; returns
+    (result, launches by name), after checking
     the launches against the expected count a step and that the epoch's
     loss is finite and its checkpoint written."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from hcmoco_tpu_torch.cli.main_contrast import main
+    if main is None:
+        from hcmoco_tpu_torch.cli.main_contrast import main
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1671,15 +1705,11 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     if not bool(torch.isfinite(r.state.banks).all()):
         raise AssertionError(f"{label}: non-finite bank rows")
 
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and e.self_device_time_total > 0]
-    copies = [e for e in rows if e.key.startswith(("Memcpy", "Memset"))]
-    kernel_ms = sum(e.self_device_time_total for e in rows
-                    if e not in copies) / 1e3 / 2
-    h2d_ms = sum(e.self_device_time_total for e in copies
-                 if "HtoD" in e.key) / 1e3 / 2
+    rows = device_rows(prof)
+    kernel_ms = sum(us for name, us in rows
+                    if not name.startswith(("Memcpy", "Memset"))) / 1e3 / 2
+    h2d_ms = sum(us for name, us in rows
+                 if name.startswith("Memcpy") and "HtoD" in name) / 1e3 / 2
     it_s = [a + b + c for a, b, c in zip(r.wait_s, r.upload_s, r.step_s)]
     free = slice(1, n - 3)  # after the warm-up, before the profiler's steps
     q1, med, q3 = statistics.quantiles(it_s[free], n=4)
@@ -1702,7 +1732,7 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     return r, launches
 
 
-def drive_cli(card: str) -> tuple:
+def drive_cli(card: str, stage2_copy: str) -> tuple:
     """The pre-training CLI (cli/main_contrast.py) in process on the card,
     from frames on disk: an NTU tree of CLI_FRAMES Kinect-size frames and
     an MPII tree of CLI_MPII images, written from a seed into a temporary
@@ -1711,10 +1741,8 @@ def drive_cli(card: str) -> tuple:
     and a weight equal to what was saved), stage 2 grafted from it with
     --pretrain, and HRNetPN bs64 from a pack of the NTU tree through the
     native resample.  Returns the K1/K1b launches of the three HRNet runs
-    and the point kernels' of the HRNetPN run."""
-    import shutil
-    import tempfile
-
+    and the point kernels' of the HRNetPN run; copies the stage-2 run's
+    checkpoint to `stage2_copy` (the versatility phase grafts from it)."""
     from hcmoco_tpu_torch.data.fixtures import (make_mpii_fixture,
                                                 make_ntu_fixture)
     from hcmoco_tpu_torch.data.packed import pack_ntu
@@ -1814,6 +1842,8 @@ def drive_cli(card: str) -> tuple:
             str(s2_steps)],
             BATCH, s2_steps, k1, on_ready=check_grafted, input_rate=rate)
         check_k1(l3, r3, s2_steps, "CLI stage-2 HRNet")
+        shutil.copy(os.path.join(r3.ckpt_dir, f"epoch_{r3.last_epoch}.pt"),
+                    stage2_copy)
         del r3
 
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
@@ -1833,6 +1863,570 @@ def drive_cli(card: str) -> tuple:
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- the versatility segmentor, its export, and the row-gather NCE ----------
+
+VERSATILITY_RECIPE = "versatility/sup_rgbd"
+SEG_NTU_FRAMES = 192   # NTU frames of the versatility CLI's tree
+SEG_FRAMES = 64        # Parsing-4K frames of it (and its validation set)
+GATHER_N_DATA = 262144  # above counts_max_n_data: the 'gather' NCE
+
+
+def seg_batch(rng: np.random.Generator, bsz: int, size: int, n_data: int,
+              n_class: int = 25) -> dict:
+    """A synthetic batch with segmentation labels: label uniform over the
+    classes, true_label on about half the frames (one labelled and one
+    unlabelled frame at least)."""
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+
+    b = synthetic_contrast_batch(rng, bsz, size=size, n_data=n_data)
+    b["label"] = rng.integers(0, n_class, (bsz, size, size)).astype(np.int32)
+    b["true_label"] = (rng.random(bsz) < 0.5).astype(np.int32)
+    b["true_label"][:2] = (1, 0)
+    return b
+
+
+def small_segment_check(card: str) -> None:
+    """(a) One tiny f32 versatility step (width 4, 32^2, K=15, 16 pixels
+    an image, 25 classes; negatives and pixels pinned) on the card against
+    the same step on the CPU (held against the JAX package by
+    tests/test_torch_segment_step.py), for supervise_type 0 and 3: losses
+    within rel 1e-4, accuracies within 0.05, banks and the params of model
+    and classifier within rtol 1e-4, atol 1e-5.  Plain ConvBN path (see
+    small_reference_check)."""
+    from hcmoco_tpu_torch.core.config import RECIPES
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.heads import FCNHead
+    from hcmoco_tpu_torch.models.hrnet import set_convbn_fuse
+    from hcmoco_tpu_torch.train.segment_step import make_segment_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    for sup in (0, 3):
+        cfg = dataclasses.replace(
+            RECIPES[VERSATILITY_RECIPE], supervise_type=sup, width=4,
+            crop_size=32, batch_size=6, nce_k=15, compute_dtype="float32",
+            pri3d_num_samples_per_image=16)
+        rng = np.random.default_rng(5)
+        batch = seg_batch(rng, 6, 32, 64)
+        batch["rgbd"] = (rng.standard_normal((6, 32, 32, 6)) * 0.5).astype(
+            np.float32)  # see small_reference_check
+        batch["pix_idx"] = pinned_pixels(batch["depth_mask"], 16, rng)
+        neg = rng.integers(0, 64, (6, 16))
+        neg[:, 0] = batch["index"]
+        batch["neg_idx"] = neg
+        torch.manual_seed(0)
+        model = set_convbn_fuse(build_model(cfg, device="cpu"), False)
+        head = FCNHead(128, cfg.n_class)
+        banks = None
+        res = []
+        for run in ("cpu", "cuda"):
+            m, h = copy.deepcopy(model).to(run), copy.deepcopy(head).to(run)
+            st = create_train_state(cfg, m,
+                                    torch.Generator(run).manual_seed(3),
+                                    n_data=64, steps_per_epoch=10,
+                                    classifier=h)
+            if banks is None:
+                banks = st.banks.clone()
+            st.banks = banks.to(run, copy=True)
+            step = make_segment_train_step(cfg, m, h, steps_per_epoch=10)
+            metrics = {k: float(v) for k, v in
+                       step(st, to_device(batch, run)).items()
+                       if k != "learning_rate"}
+            sd = {f"model.{k}": v.cpu() for k, v in m.state_dict().items()}
+            sd.update({f"classifier.{k}": v.cpu()
+                       for k, v in h.state_dict().items()})
+            res.append((metrics, sd, st.banks.cpu()))
+        (ref, sd_ref, b_ref), (got, sd_got, b_got) = res
+        if ("loss_seg" in got) != (sup != 3):
+            raise AssertionError(f"supervise_type {sup}: metrics {sorted(got)}")
+        for k, want in ref.items():
+            tol = (dict(rtol=0.0, atol=0.05) if "acc" in k
+                   else dict(rtol=1e-4, atol=0.0))
+            if not np.isfinite(got[k]) or not (
+                    abs(got[k] - want) <= tol["atol"]
+                    + tol["rtol"] * abs(want)):
+                raise AssertionError(f"tiny segment step (supervise_type "
+                                     f"{sup}) {k}: card {got[k]} vs cpu "
+                                     f"{want}")
+        torch.testing.assert_close(b_got, b_ref, rtol=1e-4, atol=1e-5)
+        for k, want in sd_ref.items():
+            if want.is_floating_point():
+                torch.testing.assert_close(
+                    sd_got[k], want, rtol=1e-4, atol=1e-5,
+                    msg=lambda msg, k=k: f"tiny segment step {k}: {msg}")
+        print(f"tiny f32 segment step (supervise_type {sup}), card vs cpu: "
+              + ", ".join(f"{k} {got[k]:.6f}/{ref[k]:.6f}" for k in
+                          ("loss", "loss_seg", "loss_scl") if k in got)
+              + f", params of model and classifier and banks within "
+              f"tolerance [{card}]")
+
+
+def drive_versatility(card: str) -> dict:
+    """(b) The versatility step of RECIPES['versatility/sup_rgbd']
+    (HRNet-W18 x2 + SemGCN + the FCN head, 320^2, K=16384, 'dense' NCE,
+    supervise_type 0) at bs32 with HCMOCO_CONVBN_FUSE=1, n_data 8192,
+    through the user entry points: STEPS timed steps (median, quartiles),
+    peak memory, K1/K1b launches (checked: one a fused site and step),
+    then a profile of two steps by kernel class.  Returns the launches in
+    the order of their JSON entries."""
+    from hcmoco_tpu_torch.core.config import RECIPES
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.heads import FCNHead
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+    from hcmoco_tpu_torch.train.segment_step import (SEGMENT_METRICS,
+                                                     make_segment_train_step)
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(RECIPES[VERSATILITY_RECIPE], batch_size=BATCH)
+    os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+    torch.manual_seed(0)
+    model = build_model(cfg).to(memory_format=torch.channels_last)
+    head = FCNHead(128, cfg.n_class).to(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    state = create_train_state(cfg, model, gen, n_data=N_DATA,
+                               steps_per_epoch=100, classifier=head)
+    step = make_segment_train_step(cfg, model, head, steps_per_epoch=100)
+    batch = to_device(seg_batch(np.random.default_rng(0), BATCH,
+                                cfg.crop_size, N_DATA, cfg.n_class), dev)
+    sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+    generic = generic_sites(model.encoder1) + generic_sites(model.encoder2)
+    wrappers = k1_wrappers()
+    label = "versatility HRNet"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    mb.mm_bn_stats_cuda.generic_launches = 0
+    times = []
+    steady, metrics = timed_steps(step, state, batch, gen, STEPS, label,
+                                  card, times)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    n_gen = mb.mm_bn_stats_cuda.generic_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in launches.items():
+        if n != sites * STEPS:
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {sites} x {STEPS}")
+    if n_gen != generic * STEPS:
+        raise AssertionError(f"{label}: K1's generic path launched {n_gen} "
+                             f"times, expected {generic} x {STEPS}")
+    launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                "mm_bn_stats generic": n_gen, **launches}
+    for i, m in enumerate(metrics):
+        print(f"{label} step {i}: " + ", ".join(
+            f"{k} {m[k]:.5f}" for k in ("loss", "loss_seg")
+            + SEGMENT_METRICS))
+    q1, _, q3 = statistics.quantiles(times[1:], n=4)
+    print(f"{label} W{cfg.width} {cfg.crop_size}^2 bs{BATCH} K={cfg.nce_k} "
+          f"supervise_type "
+          f"{cfg.supervise_type} step: median {steady * 1e3:.2f} ms "
+          f"(quartiles {q1 * 1e3:.2f}, {q3 * 1e3:.2f}; steps 2-{STEPS}) = "
+          f"{BATCH / steady:.2f} samples/s; peak memory {peak:.2f} GiB; "
+          f"launches {launches} in {STEPS} steps ({sites} fused sites, "
+          f"{generic} on K1's generic path) [{card}]")
+    profile_steps(card, step, state, batch, gen, steady)
+    del model, head, state, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_segmentor_cli(card: str, stage2_ckpt: str, tmp: str) -> tuple:
+    """(c) cli/main_segmentor.py in process on the card from a tree of
+    SEG_NTU_FRAMES NTU and SEG_FRAMES Parsing-4K frames at the Kinect
+    size, written from a seed under `tmp`: RECIPES['versatility/sup_rgbd']
+    at bs32 fused, --pretrain from the stage-2 checkpoint, one epoch of
+    (SEG_NTU_FRAMES + SEG_FRAMES) / 32 steps and one validation pass on
+    the Parsing-4K frames, whose three heads' mIoU must be finite.
+    Returns (its RunResult, its K1/K1b launches, checked one a fused site
+    and step)."""
+    from hcmoco_tpu_torch.cli.main_segmentor import main as seg_main
+    from hcmoco_tpu_torch.data.fixtures import (make_ntu_fixture,
+                                                make_seg_fixture)
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+
+    t0 = time.perf_counter()
+    ntu, ntu_list = make_ntu_fixture(os.path.join(tmp, "ntu"),
+                                     n_frames=SEG_NTU_FRAMES, seed=5,
+                                     h=KINECT_HW[0], w=KINECT_HW[1])
+    seg, seg_list = make_seg_fixture(os.path.join(tmp, "seg"), ntu,
+                                     n_frames=SEG_FRAMES, seed=6,
+                                     h=KINECT_HW[0], w=KINECT_HW[1])
+    print(f"versatility CLI tree: {SEG_NTU_FRAMES} NTU and {SEG_FRAMES} "
+          f"Parsing-4K frames at {KINECT_HW[0]}x{KINECT_HW[1]} written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    steps = (SEG_NTU_FRAMES + SEG_FRAMES) // BATCH
+    argv = ["--recipe", VERSATILITY_RECIPE, "--batch_size", str(BATCH),
+            "--data_folder", ntu, "--train_file_list", ntu_list,
+            "--seg_root", seg, "--seg_file_list", seg_list,
+            "--seg_val_file_list", seg_list, "--model_path",
+            os.path.join(tmp, "save"), "--seed", "0", "--print_freq", "4"]
+    want = torch.load(stage2_ckpt, map_location="cpu",
+                      weights_only=True)["model"]["encoder1.conv1.weight"]
+
+    def check_grafted(state):
+        if not torch.equal(state.model.encoder1.conv1.weight.detach().cpu(),
+                           want):
+            raise AssertionError("--pretrain did not graft "
+                                 "encoder1.conv1.weight")
+
+    os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+    label = "versatility CLI --pretrain"
+    r, launches = cli_run(
+        card, label, argv + ["--pretrain", stage2_ckpt, "--epochs", "1"],
+        BATCH, steps, {name: (fn, None) for name, fn in k1_wrappers().items()},
+        on_ready=check_grafted, input_rate=cli_input_rate(argv),
+        main=seg_main)
+    model = r.state.model
+    sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+    generic = generic_sites(model.encoder1) + generic_sites(model.encoder2)
+    expect = {name: (generic if name.endswith("generic") else sites) * steps
+              for name in launches}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    if len(r.val) != 1 or not all(
+            np.isfinite(v) for res in r.val[0].values() for v in res.values()):
+        raise AssertionError(f"{label}: validation {r.val}")
+    print(f"{label}: validation on {SEG_FRAMES} Parsing-4K frames: "
+          + ", ".join(f"{name} mIoU {res['miou']:.4f}"
+                      for name, res in r.val[0].items())
+          + f"; best rgbd mIoU {r.best_miou:.4f} [{card}]")
+    return r, launches
+
+
+def check_export(card: str, stage2_ckpt: str, seg_ckpt: str,
+                 tmp: str) -> None:
+    """(d) cli/transfer_ckpt.py on the stage-2 checkpoint (encoder1 and
+    encoder2) and on the segmentor's (encoder1): each .pth loads with
+    strict=True into a bare HRNet-W18 on the card, whose eval forward of a
+    bs2 320^2 input equals the source encoder's (the model rebuilt from
+    the checkpoint, in the recipe's compute dtype, bf16) bit for bit:
+    same weights, dtype, card and kernels."""
+    from hcmoco_tpu_torch.cli import transfer_ckpt
+    from hcmoco_tpu_torch.core.config import HRNET_W18, RECIPES
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.hrnet import HRNet
+
+    dev = torch.device("cuda")
+    x = torch.randn((2, 3, 320, 320), generator=torch.Generator(
+        dev).manual_seed(9), device=dev).contiguous(
+        memory_format=torch.channels_last)
+    cfg = RECIPES["second_stage/ntumpiirgbd2s_hrnet_w18"]
+    for ckpt, enc in ((stage2_ckpt, "encoder1"), (stage2_ckpt, "encoder2"),
+                      (seg_ckpt, "encoder1")):
+        out = os.path.join(tmp, f"{enc}.pth")
+        sd = transfer_ckpt.main(["--ckpt", ckpt, "--encoder", enc, "--out",
+                                 out])
+        bare = HRNet(HRNET_W18, 3, getattr(torch, cfg.compute_dtype)).to(
+            dev, memory_format=torch.channels_last).eval()
+        bare.load_state_dict(torch.load(out, map_location=dev,
+                                        weights_only=True), strict=True)
+        source = build_model(cfg).to(memory_format=torch.channels_last)
+        source.load_state_dict(torch.load(ckpt, map_location=dev,
+                                          weights_only=True)["model"],
+                               strict=True)
+        source = getattr(source, enc).eval()
+        with torch.no_grad():
+            got, want = bare(x), source(x)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"export {enc} of {ckpt}: map {i} differs by "
+                    f"{float((g.float() - w.float()).abs().max())}")
+        print(f"transfer_ckpt {enc} of {os.path.basename(ckpt)}: "
+              f"{len(sd)} tensors, strict load into a bare HRNet-W18, eval "
+              f"forward equal bit for bit on all {len(got)} maps [{card}]")
+        del bare, source, got, want
+
+
+def record_k1_rows(rows: list):
+    """Wraps K1's dispatcher so that each launch on the card appends its
+    row count to `rows`; returns the function that undoes it."""
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+
+    plain = mb.mm_bn_stats
+
+    def recorded(x2d, w):
+        if x2d.is_cuda:
+            rows.append(x2d.shape[0])
+        return plain(x2d, w)
+
+    mb.mm_bn_stats = recorded
+
+    def undo():
+        mb.mm_bn_stats = plain
+
+    return undo
+
+
+def nce_forms(card: str, n_data: int) -> None:
+    """The index form of the NCE at bs32, K=16384 over `n_data` bank rows:
+    'hybrid' and 'gather' against 'dense' on one pinned draw (logits
+    within rtol 1e-5 plus 1e-6 of their largest magnitude, the features'
+    gradients within 1e-5 of theirs), the counts form's CE against the
+    index form's, whether 'dense' (whose backward scatter-adds with f32
+    atomics) repeats its gradient bit for bit, and the device time of
+    each form's forward + backward."""
+    from hcmoco_tpu_torch.contrast import memory as mem
+    from hcmoco_tpu_torch.contrast.losses import per_sample_nce
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(11)
+
+    def unit(*shape):
+        v = torch.randn(shape, generator=g, device=dev)
+        return v / v.norm(dim=-1, keepdim=True)
+
+    k = 16384
+    feats, banks = unit(3, BATCH, 128), unit(3, n_data, 128)
+    y = torch.randperm(n_data, generator=g, device=dev)[:BATCH]
+    idx = mem.sample_negative_indices(g, y, n_data, k)
+    cot = torch.randn((6, BATCH, k + 1), generator=g, device=dev)
+    counts = torch.zeros((BATCH, n_data), device=dev).scatter_add_(
+        1, idx[:, 1:], torch.ones((BATCH, k), device=dev))
+
+    def run(mode):
+        f = feats.clone().requires_grad_(True)
+        if mode == "counts":
+            per = mem.cmc3_losses_counts(f, banks, y, k, 0.07, counts=counts)
+            loss = sum(ce.sum() for ce, _ in per)
+            logits = None
+        else:
+            logits, _ = mem.cmc3_forward(banks, f, y, f, y, k, 0.07,
+                                         neg_idx=idx, mode=mode)
+            logits = torch.stack(logits)
+            loss = (logits * cot).sum()
+        loss.backward()
+        return (None if logits is None else logits.detach()), f.grad
+
+    ref_l, ref_g = run("dense")
+    again = run("dense")[1]
+    dense_exact = torch.equal(again, ref_g)
+    for mode in ("hybrid", "gather"):
+        lg, gr = run(mode)
+        torch.testing.assert_close(
+            lg, ref_l, rtol=1e-5, atol=1e-6 * float(ref_l.abs().max()),
+            msg=lambda m, mode=mode: f"NCE {mode} logits vs dense: {m}")
+        torch.testing.assert_close(
+            gr, ref_g, rtol=0.0, atol=1e-5 * float(ref_g.abs().max()),
+            msg=lambda m, mode=mode: f"NCE {mode} grads vs dense: {m}")
+    # the counts form is the same CE on the same draw
+    f = feats.clone().requires_grad_(True)
+    lg, _ = mem.cmc3_forward(banks, f, y, f, y, k, 0.07, neg_idx=idx,
+                             mode="gather")
+    per_i = [per_sample_nce(x)[0] for x in lg]
+    per_c = [ce for ce, _ in mem.cmc3_losses_counts(feats, banks, y, k, 0.07,
+                                                    counts=counts)]
+    for a, b in zip(per_c, per_i):
+        torch.testing.assert_close(a, b.detach(), rtol=1e-5, atol=1e-5)
+    ms = {mode: cuda_ms(lambda mode=mode: run(mode), iters=10)
+          for mode in ("counts", "dense", "hybrid", "gather")}
+    print(f"six-way NCE at bs{BATCH}, K={k}, n_data {n_data}: hybrid and "
+          f"gather agree with dense; 'dense' gradient run to run "
+          f"{'bit for bit' if dense_exact else 'NOT bit for bit'} "
+          f"(max diff {float((again - ref_g).abs().max()):.3g}); "
+          f"forward + backward device ms: "
+          + ", ".join(f"{m} {t:.4f}" for m, t in ms.items()) + f" [{card}]")
+
+
+def check_microbatch(card: str, dtype: str, fuse: bool,
+                     full_rows: list = None) -> None:
+    """A --microbatch 2 step at bs32 against its two bs16 halves run by
+    hand (loss/2 backward, banks committed after each half, one SGD
+    step), from one state, under cuDNN's and torch's deterministic
+    algorithms.  The step is first run twice: the two must agree bit for
+    bit, which is the reading that sets the bound, and then the halves
+    by hand must equal the step bit for bit, parameters, BN running
+    statistics (a training forward never reads them, so only this
+    catches statistics that do not chain), banks and metrics alike.
+    With `fuse` (HCMOCO_CONVBN_FUSE=1, the path main_contrast
+    --microbatch takes in bf16) K1 and K1b must launch once a fused site
+    and microbatch, K1 at half of each of `full_rows` (a bs32 step's
+    rows, one a site)."""
+    from hcmoco_tpu_torch.contrast import memory as mem
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+    from hcmoco_tpu_torch.train.contrast_step import (
+        fill_missing_grads, make_contrast_loss_fn, make_contrast_train_step)
+    from hcmoco_tpu_torch.train.schedules import learning_rate_fn
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    label = f"--microbatch 2 {dtype} fuse {int(fuse)}"
+    if fuse:
+        os.environ["HCMOCO_CONVBN_FUSE"] = "1"
+    else:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    cfg = make_cfg(microbatch=2, compute_dtype=dtype)
+    torch.manual_seed(0)
+    model = build_model(cfg).to(memory_format=torch.channels_last)
+    base = create_train_state(cfg, model, torch.Generator(dev).manual_seed(1),
+                              n_data=N_DATA, steps_per_epoch=100)
+    batch = to_device(synthetic_contrast_batch(
+        np.random.default_rng(2), BATCH, size=cfg.crop_size, num_joints=16,
+        n_data=N_DATA), dev)
+    batch["counts"] = mem.sample_negative_counts(
+        torch.Generator(dev).manual_seed(3), BATCH, N_DATA, cfg.nce_k,
+        device=dev)
+    wrappers = k1_wrappers()
+    rows = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = []
+    for run in ("step", "step again", "by hand"):
+        st = copy.deepcopy(base)
+        if run == "step":
+            for fn in wrappers.values():
+                fn.launches = 0
+            wrappers["mm_bn_stats"].generic_launches = 0
+            undo = record_k1_rows(rows)
+            m = make_contrast_train_step(cfg, st.model, 100)(st, batch)
+            torch.cuda.synchronize()
+            undo()
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            n_gen = wrappers["mm_bn_stats"].generic_launches
+        elif run == "step again":
+            m = make_contrast_train_step(cfg, st.model, 100)(st, batch)
+        else:
+            loss_fn = make_contrast_loss_fn(cfg, st.model)
+            for group in st.optimizer.param_groups:
+                group["lr"] = learning_rate_fn(cfg, 100)(0)
+            st.optimizer.zero_grad(set_to_none=True)
+            parts = []
+            for half in range(2):
+                part = {key: v[half * BATCH // 2:(half + 1) * BATCH // 2]
+                        for key, v in batch.items()}
+                loss, mm, commit = loss_fn(st, part)
+                (loss / 2).backward()
+                commit()
+                parts.append(mm)
+            fill_missing_grads(st.optimizer)
+            st.optimizer.step()
+            m = {key: torch.stack([p[key] for p in parts]).mean()
+                 for key in parts[0]}
+        runs.append((st, {key: float(v) for key, v in m.items()
+                          if key != "learning_rate"}))
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = deterministic
+    os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    (a, ma), *others = runs
+    if not np.isfinite(ma["loss"]):
+        raise AssertionError(f"{label}: loss {ma['loss']}")
+    for (b, mb_), what in zip(others, ("step again", "by hand")):
+        if mb_ != ma:
+            raise AssertionError(f"{label} vs {what}: metrics {ma} vs {mb_}")
+        state_b = dict(b.model.state_dict())
+        for name, t in a.model.state_dict().items():
+            u = state_b[name]
+            if not torch.equal(t, u):
+                raise AssertionError(
+                    f"{label} vs {what}: {name} differs by "
+                    f"{float((t.double() - u.double()).abs().max())}")
+        if not torch.equal(a.banks, b.banks):
+            raise AssertionError(f"{label} vs {what}: banks differ")
+    n_params = len(list(a.model.parameters()))
+    n_stats = sum(name.endswith(("running_mean", "running_var"))
+                  for name in a.model.state_dict())
+    note = ""
+    if fuse:
+        sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+        generic = generic_sites(model.encoder1) + generic_sites(model.encoder2)
+        for name, n in launches.items():
+            if n != 2 * sites:
+                raise AssertionError(f"{label}: {name} launched {n} times, "
+                                     f"expected 2 x {sites}")
+        if n_gen != 2 * generic:
+            raise AssertionError(f"{label}: K1's generic path launched "
+                                 f"{n_gen} times, expected 2 x {generic}")
+        want = sorted(r // 2 for r in full_rows for _ in range(2))
+        if len(full_rows) != sites or any(r % 2 for r in full_rows) or (
+                sorted(rows) != want):
+            raise AssertionError(f"{label}: K1 rows {sorted(set(rows))}, "
+                                 f"bs{BATCH} rows {sorted(set(full_rows))}")
+        note = (f"; K1 and K1b {2 * sites} launches each ({2 * generic} on "
+                f"K1's generic path), K1 at rows {sorted(set(rows))}, half "
+                f"of bs{BATCH}'s")
+    print(f"{label} step at bs{BATCH} (cuDNN and torch deterministic): "
+          f"equal bit for bit to itself run again and to its two "
+          f"bs{BATCH // 2} halves by hand, {n_params} parameter and "
+          f"{n_stats} BN statistic tensors, banks and metrics; loss "
+          f"{ma['loss']:.6f}{note} [{card}]")
+    del model, base, runs, a, others
+    torch.cuda.empty_cache()
+
+
+def check_row_gather_nce(card: str) -> None:
+    """(e) The index form of the NCE on the card (nce_forms) at n_data
+    8192 and at 262144; an HRNet-W18 stage-1 step at n_data 262144 (the
+    'gather' mode, its banks ~400 MB) with a finite loss, its host median
+    and one profiled step's device time, K1's rows recorded; then the
+    --microbatch 2 checks (check_microbatch) in f32 on the plain ConvBN
+    path and in bf16 on the fused one."""
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.train.contrast_step import (make_contrast_train_step,
+                                                      nce_mode)
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    nce_forms(card, N_DATA)
+    nce_forms(card, GATHER_N_DATA)
+
+    # an HRNet-W18 stage-1 step past counts_max_n_data: 'gather'
+    dev = torch.device("cuda")
+    os.environ["HCMOCO_CONVBN_FUSE"] = "1"
+    cfg = make_cfg()
+    if nce_mode(cfg, GATHER_N_DATA, False) != "gather":
+        raise AssertionError("n_data above counts_max_n_data is not 'gather'")
+    torch.manual_seed(0)
+    model = build_model(cfg).to(memory_format=torch.channels_last)
+    g = torch.Generator(dev).manual_seed(0)
+    state = create_train_state(cfg, model, g, n_data=GATHER_N_DATA,
+                               steps_per_epoch=100)
+    step = make_contrast_train_step(cfg, model, steps_per_epoch=100)
+    batch = to_device(synthetic_contrast_batch(
+        np.random.default_rng(1), BATCH, size=cfg.crop_size, num_joints=16,
+        n_data=GATHER_N_DATA), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    full_rows = []
+    undo = record_k1_rows(full_rows)
+    step(state, batch, g)  # warm-up, and one step's K1 rows
+    torch.cuda.synchronize()
+    undo()
+    steady, metrics = timed_steps(step, state, batch, g, STEPS,
+                                  "stage-1 HRNet 'gather'", card)
+    print(f"stage-1 HRNet W18 bs{BATCH} at n_data {GATHER_N_DATA} ('gather' "
+          f"NCE, banks {state.banks.numel() * 4 / 2**20:.0f} MiB): median "
+          f"{steady * 1e3:.2f} ms of steps 2-{STEPS}, loss "
+          f"{metrics[-1]['loss']:.5f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    profile_steps(card, step, state, batch, g, steady, n=1)
+    del model, state, step, batch
+    os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    torch.cuda.empty_cache()
+
+    check_microbatch(card, "float32", False)
+    check_microbatch(card, "bfloat16", True, full_rows)
+
+
+def versatility_phase(card: str, stage2_ckpt: str, tmp: str) -> list:
+    """(a)-(e); returns the K1/K1b launches of its two main paths (the
+    synthetic step and the CLI), each counted from 0."""
+    small_segment_check(card)
+    runs = [drive_versatility(card)]
+    r, launches = drive_segmentor_cli(card, stage2_ckpt, tmp)
+    runs.append(launches)
+    seg_ckpt = os.path.join(r.ckpt_dir, f"epoch_{r.last_epoch}.pt")
+    del r
+    torch.cuda.empty_cache()
+    check_export(card, stage2_ckpt, seg_ckpt, tmp)
+    check_row_gather_nce(card)
+    return runs
 
 
 def main() -> int:
@@ -1864,10 +2458,23 @@ def main() -> int:
     small_stage2_check(card, "HRNetPN")
     check_build_refusal(card)
     pn_runs = [drive_pn(card), drive_stage2(card, "HRNetPN")]
-    t_cli = time.perf_counter()
-    cli_k1, cli_pn = drive_cli(card)
-    print(f"CLI phase wall time: {time.perf_counter() - t_cli:.1f} s [{card}]")
-    k1_runs += cli_k1
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_versatility_", dir=build)
+    try:
+        stage2_ckpt = os.path.join(tmp, "stage2.pt")
+        t_cli = time.perf_counter()
+        cli_k1, cli_pn = drive_cli(card, stage2_ckpt)
+        print(f"CLI phase wall time: {time.perf_counter() - t_cli:.1f} s "
+              f"[{card}]")
+        t_vers = time.perf_counter()
+        vers_k1 = versatility_phase(card, stage2_ckpt, tmp)
+        print(f"versatility phase wall time: "
+              f"{time.perf_counter() - t_vers:.1f} s [{card}]")
+    finally:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1_runs += cli_k1 + vers_k1
     pn_runs += cli_pn
     for entries, runs in ((k1, k1_runs), (points, pn_runs)):
         for entry, name in zip(entries, runs[0]):

@@ -35,18 +35,15 @@ if TYPE_CHECKING:
     from ..core.config import TrainConfig
     from ..train.state import TrainState
 
-# TrainConfig fields of the JAX package that the port does not hold yet;
-# their flags are refused rather than ignored
+# TrainConfig fields of the JAX package that this CLI does not take; their
+# flags are refused rather than ignored
 _NOT_PORTED = {
     "alpha": "the moco EMA: ROADMAP.md Queue 1 item 11",
-    "n_class": "the versatility segmentor: ROADMAP.md Queue 1 item 12",
-    "supervise_type": "the versatility segmentor: ROADMAP.md Queue 1 item 12",
-    "test_type": "the versatility segmentor: ROADMAP.md Queue 1 item 12",
-    "cmc_loss_weights": "the versatility segmentor: ROADMAP.md Queue 1 "
-                        "item 12",
-    "other_loss_weights": "the versatility segmentor: ROADMAP.md Queue 1 "
-                          "item 12",
 }
+# the versatility segmentor's fields: cli/main_segmentor.py takes them;
+# the pre-training CLI, which trains no segmentation head, refuses them
+_SEGMENTOR_FIELDS = ("n_class", "supervise_type", "test_type",
+                     "cmc_loss_weights", "other_loss_weights")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -121,8 +118,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--compute_dtype", type=str, default=None)
     p.add_argument("--microbatch", type=int, default=None,
-                   help="split each batch into N sequential microbatches "
-                        "(not ported yet: N > 1 raises)")
+                   help="split each batch into N sequential microbatches, "
+                        "one optimizer step (N must divide the batch)")
     p.add_argument("--num_workers", "-j", type=int, default=8)
     p.add_argument("--max_steps", type=int, default=0,
                    help="stop after N optimizer steps (smoke runs)")
@@ -136,7 +133,10 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(args) -> "TrainConfig":
+def config_from_args(args, segmentor: bool = False) -> "TrainConfig":
+    """The TrainConfig of parsed args: the recipe, then every flag given.
+    segmentor: the caller is cli/main_segmentor.py, which takes the
+    versatility flags; otherwise they raise."""
     from ..core.config import RECIPES, TrainConfig, resolve_config
 
     if args.recipe and args.recipe not in RECIPES:
@@ -147,6 +147,13 @@ def config_from_args(args) -> "TrainConfig":
         if getattr(args, name, None) is not None:
             raise NotImplementedError(f"--{name} sets a field of {what}, "
                                       "which is not ported yet")
+    if not segmentor:
+        for name in _SEGMENTOR_FIELDS:
+            if getattr(args, name, None) is not None:
+                raise NotImplementedError(
+                    f"--{name} sets a field of the versatility segmentor "
+                    "(ROADMAP.md Queue 1 item 12), which trains through "
+                    "cli/main_segmentor.py, not this CLI")
     cfg = RECIPES[args.recipe] if args.recipe else TrainConfig()
     overrides = {}
     for f in dataclasses.fields(TrainConfig):
@@ -197,13 +204,8 @@ class RunResult:
     step_s: List[float] = field(default_factory=list)
 
 
-def main(argv=None, on_ready: Optional[Callable] = None,
-         on_step: Optional[Callable[[int], None]] = None) -> RunResult:
-    """Run the CLI on argv.  on_ready(state) is called once the state is
-    built, grafted and restored, before the first step; on_step(n) after
-    each step, n the global step count (instrumentation, e.g. a
-    profiler's step)."""
-    args = build_argparser().parse_args(argv)
+def refuse_unported(args) -> None:
+    """Raise for the flags whose ROADMAP item is not ported."""
     if args.multihost:
         raise NotImplementedError(
             "--multihost is not ported yet: ROADMAP.md Queue 1 item 10 "
@@ -211,27 +213,110 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir is not ported yet: ROADMAP.md Queue 1 item 14")
-    cfg = config_from_args(args)
-    if cfg.microbatch > 1:
-        raise NotImplementedError(
-            "--microbatch > 1 is not ported yet: ROADMAP.md Queue 1 item 9")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("main_contrast: no CUDA device is available; pass "
-                           "--device cpu to train on the CPU")
 
+
+def print_options(cfg: "TrainConfig") -> None:
     from ..core.config import to_dict
-    from ..data.pipeline import to_device
-    from ..models.build import build_model
-    from ..train.checkpoint import CheckpointManager
-    from ..train.contrast_step import make_contrast_train_step
-    from ..train.state import create_train_state
-    from ..utils.meters import MetricLogger
 
     print("----------------- Options ---------------")
     for k, v in sorted(to_dict(cfg).items()):
         print(f"{k:>35}: {v}")
     print("----------------- End -------------------")
+
+
+def graft_and_resume(cfg: "TrainConfig", state: "TrainState",
+                     ckpt_dir: str) -> tuple:
+    """--pretrain (a previous stage's checkpoint, partially grafted;
+    main_contrast.py:52-67), then --resume from ckpt_dir.  Returns
+    (state, its CheckpointManager, the first epoch to run)."""
+    from ..train.checkpoint import CheckpointManager, graft_pretrain
+
+    if cfg.pretrain:
+        state = graft_pretrain(cfg.pretrain, state)
+    ckpt = CheckpointManager(ckpt_dir, save_freq=cfg.save_freq)
+    start_epoch = 1
+    if cfg.resume:
+        state, last = ckpt.restore(state)
+        start_epoch = last + 1
+        if last:
+            print(f"=> resumed from epoch {last}")
+    return state, ckpt, start_epoch
+
+
+def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
+                 ckpt, result: RunResult, step_fn: Callable,
+                 on_step: Optional[Callable[[int], None]] = None,
+                 after_epoch: Optional[Callable[[int], None]] = None
+                 ) -> None:
+    """The epochs from result.start_epoch to cfg.epochs (or --max_steps):
+    each step's batch from `it`, uploaded, stepped with the generator of
+    (seed + 1, global step), its host times recorded in `result` and its
+    metrics logged; each epoch's TSV line and checkpoint, then
+    after_epoch(epoch)."""
+    from ..data.pipeline import to_device
+    from ..utils.meters import MetricLogger
+
+    logger = MetricLogger(ckpt.directory, print_freq=cfg.print_freq)
+    steps_per_epoch = result.steps_per_epoch
+    global_step = state.step
+    try:
+        for epoch in range(result.start_epoch, cfg.epochs + 1):
+            t0 = time.time()
+            logger.reset()
+            for i in range(steps_per_epoch):
+                t_wait = time.perf_counter()
+                host = next(it)
+                t_upload = time.perf_counter()
+                batch = to_device(host, device)
+                t_step = time.perf_counter()
+                metrics = step_fn(state, batch, step_generator(
+                    cfg.seed + 1, global_step, device))
+                values = metric_floats(metrics)
+                t_end = time.perf_counter()
+                global_step += 1
+                result.wait_s.append(t_upload - t_wait)
+                result.upload_s.append(t_step - t_upload)
+                result.step_s.append(t_end - t_step)
+                logger.log_step(epoch, i, steps_per_epoch, values,
+                                n=cfg.batch_size)
+                if on_step is not None:
+                    on_step(global_step)
+                if args.max_steps and global_step >= args.max_steps:
+                    break
+            logger.write_epoch(epoch)
+            ckpt.save(epoch, state)
+            result.last_epoch = epoch
+            if after_epoch is not None:
+                after_epoch(epoch)
+            print(f"epoch {epoch}, total time {time.time() - t0:.2f}")
+            if args.max_steps and global_step >= args.max_steps:
+                break
+    finally:
+        logger.close()
+
+
+def main(argv=None, on_ready: Optional[Callable] = None,
+         on_step: Optional[Callable[[int], None]] = None) -> RunResult:
+    """Run the CLI on argv.  on_ready(state) is called once the state is
+    built, grafted and restored, before the first step; on_step(n) after
+    each step, n the global step count (instrumentation, e.g. a
+    profiler's step)."""
+    args = build_argparser().parse_args(argv)
+    refuse_unported(args)
+    cfg = config_from_args(args)
+    if cfg.batch_size % max(cfg.microbatch, 1):
+        raise ValueError(f"--microbatch {cfg.microbatch} does not divide "
+                         f"--batch_size {cfg.batch_size}")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("main_contrast: no CUDA device is available; pass "
+                           "--device cpu to train on the CPU")
+
+    from ..models.build import build_model
+    from ..train.contrast_step import make_contrast_train_step
+    from ..train.state import create_train_state
+
+    print_options(cfg)
 
     if args.synthetic:
         from ..data.synthetic import SyntheticContrastSource
@@ -247,11 +332,6 @@ def main(argv=None, on_ready: Optional[Callable] = None,
 
         source, n_data, steps_per_epoch = build_contrast_source(
             cfg, num_workers=args.num_workers)
-    if n_data > cfg.counts_max_n_data:
-        raise NotImplementedError(
-            f"n_data={n_data} exceeds counts_max_n_data="
-            f"{cfg.counts_max_n_data}: the row-gather NCE that such a "
-            "dataset needs is not ported yet (ROADMAP.md Queue 1 item 9)")
 
     torch.manual_seed(cfg.seed)  # the model's initial weights
     model = build_model(cfg, device=device).to(
@@ -274,61 +354,15 @@ def main(argv=None, on_ready: Optional[Callable] = None,
                                                  encoder_names=(enc,))
                     print(f"=> loaded {n} conv tensors into {enc} from "
                           f"{path}")
-        if cfg.pretrain:
-            # stage-1 -> stage-2 warm start with partial grafting
-            # (main_contrast.py:52-67 key-surgery analog)
-            from ..train.checkpoint import graft_pretrain
-
-            state = graft_pretrain(cfg.pretrain, state)
-
-        ckpt_dir = f"{cfg.model_path}/{cfg.model_name}"
-        ckpt = CheckpointManager(ckpt_dir, save_freq=cfg.save_freq)
-        start_epoch = 1
-        if cfg.resume:
-            state, last = ckpt.restore(state)
-            start_epoch = last + 1
-            if last:
-                print(f"=> resumed from epoch {last}")
+        state, ckpt, start_epoch = graft_and_resume(
+            cfg, state, f"{cfg.model_path}/{cfg.model_name}")
         if on_ready is not None:
             on_ready(state)
-
-        step_fn = make_contrast_train_step(cfg, model, steps_per_epoch)
-        logger = MetricLogger(ckpt_dir, print_freq=cfg.print_freq)
         result = RunResult(state, n_data, steps_per_epoch, start_epoch,
-                           start_epoch - 1, ckpt_dir)
-        global_step = state.step
-        try:
-            for epoch in range(start_epoch, cfg.epochs + 1):
-                t0 = time.time()
-                logger.reset()
-                for i in range(steps_per_epoch):
-                    t_wait = time.perf_counter()
-                    host = next(it)
-                    t_upload = time.perf_counter()
-                    batch = to_device(host, device)
-                    t_step = time.perf_counter()
-                    metrics = step_fn(state, batch, step_generator(
-                        cfg.seed + 1, global_step, device))
-                    values = metric_floats(metrics)
-                    t_end = time.perf_counter()
-                    global_step += 1
-                    result.wait_s.append(t_upload - t_wait)
-                    result.upload_s.append(t_step - t_upload)
-                    result.step_s.append(t_end - t_step)
-                    logger.log_step(epoch, i, steps_per_epoch, values,
-                                    n=cfg.batch_size)
-                    if on_step is not None:
-                        on_step(global_step)
-                    if args.max_steps and global_step >= args.max_steps:
-                        break
-                logger.write_epoch(epoch)
-                ckpt.save(epoch, state)
-                result.last_epoch = epoch
-                print(f"epoch {epoch}, total time {time.time() - t0:.2f}")
-                if args.max_steps and global_step >= args.max_steps:
-                    break
-        finally:
-            logger.close()
+                           start_epoch - 1, ckpt.directory)
+        train_epochs(args, cfg, state, it, device, ckpt, result,
+                     make_contrast_train_step(cfg, model, steps_per_epoch),
+                     on_step)
     finally:
         it.close()  # stops the DataSource's thread pool
     return result

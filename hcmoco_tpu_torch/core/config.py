@@ -134,9 +134,19 @@ class TrainConfig:
     temperature: float = 0.07
     pri3d_num_samples_per_image: int = 400
     scl_groups: int = 0
-    # the counts NCE builds (bsz, n_data) intermediates; above this
-    # dataset size the row-gather NCE is needed (not ported yet)
+    # the bank NCE's formulation (contrast/memory.py), one estimator:
+    #   'counts' (default): negatives as per-row draw counts, a
+    #     count-weighted logsumexp over the dense scores (no gather);
+    #   'hybrid': dense scores + a scalar gather forward, a chunked
+    #     row-gather backward (no scatter);
+    #   'gather': chunked bank-row gather + bmm both ways;
+    #   'dense': dense scores + torch.gather both ways (its backward
+    #     scatter-adds).
+    bank_logits: str = "counts"
+    # counts/dense/hybrid build (bsz, n_data) intermediates; above this
+    # dataset size the step switches to 'gather'
     counts_max_n_data: int = 131072
+    dense_scores: bool = False  # alias of bank_logits='dense'
 
     # optimization
     epochs: int = 200
@@ -169,6 +179,13 @@ class TrainConfig:
     # NTUSegJoint: blank one modality of the segmentation frames
     mask_seg_depth: bool = False
     mask_seg_rgb: bool = False
+
+    # versatility / segmentation (cli/main_segmentor.py)
+    n_class: int = 25
+    supervise_type: int = 0  # 0: rgbd, 1: rgb, 2: depth, 3: none
+    test_type: int = 0  # the validated head: 0 rgbd, 1 rgb, 2 depth
+    cmc_loss_weights: float = 1.0
+    other_loss_weights: float = 1.0
 
     # HRNetPN point-cloud branch: the original depth frame size for the
     # back-projection intrinsics (Kinect, 424x512) and the points sampled
@@ -248,8 +265,7 @@ def _second_stage(**kw) -> TrainConfig:
     return resolve_config(replace(base, **kw))
 
 
-# the JAX package's FirstStage/ and SecondStage/ recipes (the Versatility/
-# ones wait for the segmentor, ROADMAP.md Queue 1 item 12)
+# the JAX package's FirstStage/, SecondStage/ and Versatility/ recipes
 RECIPES = {
     "first_stage/ntumpiirgbd2s_hrnet_w18": _first_stage(),
     "first_stage/ntumpiirgbd2s_hrnet_w32": _first_stage(width=32),
@@ -263,6 +279,15 @@ RECIPES = {
     "second_stage/ntucocorgbd2s_hrnet_w18": _second_stage(
         dataset="NTUCOCO", skeleton_meta_name="coco_reduce"),
     "second_stage/ntumpiirgbd2s_hrnetpn_w18": _second_stage(arch="HRNetPN"),
+    # joint contrast + cross-modal supervised segmentation
+    "versatility/sup_rgbd": _second_stage(
+        dataset="NTUSeg", supervise_type=0, test_type=0),
+    "versatility/sup_rgb_test_d": _second_stage(
+        dataset="NTUSeg", supervise_type=1, test_type=2, mask_seg_depth=True),
+    "versatility/sup_d_test_rgb": _second_stage(
+        dataset="NTUSeg", supervise_type=2, test_type=1, mask_seg_rgb=True),
+    "versatility/sup_none": _second_stage(
+        dataset="NTUSeg", supervise_type=3, test_type=0),
 }
 
 

@@ -1,8 +1,8 @@
 """Synthetic on-disk dataset fixtures matching the NTU/MPII/Parsing-4K
 layouts (counterpart of hcmoco_tpu/data/fixtures.py), so the file-level
-datasets can be tested and driven without real data.  The NTU and MPII
-writers also take the frame size (h, w); at their defaults every file is
-the JAX package's, byte for byte."""
+datasets can be tested and driven without real data.  The NTU, MPII and
+Parsing-4K writers also take the frame size (h, w); at their defaults
+every file is the JAX package's, byte for byte."""
 
 from __future__ import annotations
 
@@ -122,22 +122,26 @@ def make_coco_fixture(root: str, n_images: int = 3, seed: int = 2) -> str:
 
 
 def make_seg_fixture(root: str, ntu_root: str, n_frames: int = 3,
-                     seed: int = 3) -> Tuple[str, str]:
-    """Parsing-4K-layout fixture; skeletons are placed in the NTU tree."""
+                     seed: int = 3, h: int = 96,
+                     w: int = 128) -> Tuple[str, str]:
+    """Parsing-4K-layout fixture of (h, w) frames (at most 999: the
+    dataset's tag pattern has three-digit action and frame numbers);
+    skeletons are placed in the NTU tree."""
     rng = np.random.default_rng(seed)
     lines = []
     for k in range(n_frames):
         tag = f"S001C001P001R001A{k + 1:03d}F{k + 1:03d}"
         rel = f"rgb/{tag}.jpg"
-        _save_rgb(os.path.join(root, rel), rng)
-        _save_depth(os.path.join(root, "depth", f"MDepth-{tag}.png"), rng)
-        lab = rng.choice([0, 1, 2, 17, 58], size=(96, 128)).astype(np.uint8)
+        _save_rgb(os.path.join(root, rel), rng, h, w)
+        _save_depth(os.path.join(root, "depth", f"MDepth-{tag}.png"), rng,
+                    h, w)
+        lab = rng.choice([0, 1, 2, 17, 58], size=(h, w)).astype(np.uint8)
         p = os.path.join(root, "png_annotation_v2", f"{tag}.png")
         os.makedirs(os.path.dirname(p), exist_ok=True)
         Image.fromarray(lab).save(p)
         _save_skeleton(
             os.path.join(ntu_root, "nturgb+d_parsed_skeleton", tag[:-4],
-                         f"Skeleton-{k + 1:08d}.pkl"), rng)
+                         f"Skeleton-{k + 1:08d}.pkl"), rng, h, w)
         lines.append(rel)
     list_path = os.path.join(root, "seg_list.txt")
     with open(list_path, "w") as f:

@@ -26,6 +26,16 @@ encoder1_linear are 1x1 convs with bias (kernel (1, 1, Fin, Fout) ->
 weight (Fout, Fin, 1, 1)); HCMoCoPNModel's encoder2_linear is a SharedMLP
 (dense0/bn0 -> encoder2_linear.layer0.conv / .bn.bn, as above).
 
+The versatility segmentor's FCNHead (`fcn_flax_to_torch`, the inverse of
+hcmoco_tpu.export.transfer.fcn_torch_to_flax):
+
+  conv{i}/{kernel, bias}      -> convs.{i}.conv.{weight, bias}
+  bn{i}/{scale, bias} + batch_stats {mean, var}
+                              -> convs.{i}.norm_name.{weight, bias,
+                                 running_mean, running_var,
+                                 num_batches_tracked}
+  conv_seg/{kernel, bias}     -> conv_seg.{weight, bias}
+
 BN running variance: flax tracks the biased batch variance, torch the
 unbiased one.  The port keeps torch semantics, and a flax `var` becomes
 `running_var` unchanged.
@@ -124,6 +134,30 @@ def pointnet2_flax_to_torch(params: Dict, stats: Dict,
                     params[f"fp{k}"]["mlp"], stats[f"fp{k}"]["mlp"])
         k += 1
     return out
+
+
+def _conv(out: Dict[str, np.ndarray], prefix: str, p: Dict) -> None:
+    """A flax conv (kernel HWIO, bias) -> weight OIHW, bias."""
+    out[f"{prefix}.weight"] = np.transpose(np.asarray(p["kernel"]),
+                                           (3, 2, 0, 1))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def fcn_flax_to_torch(params: Dict, batch_stats: Dict
+                      ) -> Dict[str, torch.Tensor]:
+    """An FCNHead's flax trees -> the port's FCNHead state dict (module
+    docstring).  MaskedBatchNorm already tracks the unbiased variance in
+    the JAX package, so `var` is `running_var` as it stands."""
+    sd: Dict[str, np.ndarray] = {}
+    i = 0
+    while f"conv{i}" in params:
+        _conv(sd, f"convs.{i}.conv", params[f"conv{i}"])
+        _bn(sd, f"convs.{i}.norm_name", params[f"bn{i}"],
+            batch_stats[f"bn{i}"])
+        i += 1
+    _conv(sd, "conv_seg", params["conv_seg"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def flax_to_port_state_dict(params: Dict[str, Any],

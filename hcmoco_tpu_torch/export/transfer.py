@@ -17,7 +17,10 @@ mean/var -> running_mean/running_var.
 
 `load_imagenet_pretrained` is the counterpart of the JAX package's loader of
 the same name (over `hrnet_torch_to_flax`): the port already holds the
-reference names, so it is a filtered load.
+reference names, so it is a filtered load.  `export_encoder` is the
+counterpart of its `export_encoder` (transfer_ckpt): the port's model
+state dict already holds the reference names under `encoderN.`, so export
+strips that prefix.
 """
 
 from __future__ import annotations
@@ -183,3 +186,23 @@ def load_imagenet_pretrained(path: str, model, encoder_names=("encoder1",
                         if v is not None and v.shape == getattr(mod, t).shape:
                             getattr(mod, t).copy_(v)
     return total
+
+
+def export_encoder(state_dict: Dict[str, Any], encoder_name: str,
+                   out_path: str) -> Dict[str, Any]:
+    """transfer_ckpt: write the flat reference-named HRNet state dict of
+    `encoder1` (RGB) or `encoder2` (depth) of a model state dict (a
+    pre-training or a segmentor checkpoint's `model`) to out_path (.pth),
+    as CPU tensors; returns it.  Raises for an encoder that is not an
+    HRNet (HRNetPN's encoder2 is a PointNet++)."""
+    import torch
+
+    prefix = f"{encoder_name}."
+    sd = {k[len(prefix):]: v.detach().cpu().clone()
+          for k, v in state_dict.items() if k.startswith(prefix)}
+    if "conv1.weight" not in sd or not any(k.startswith("stage4.")
+                                           for k in sd):
+        raise ValueError(f"export_encoder: {encoder_name} of this state "
+                         "dict is not an HRNet")
+    torch.save(sd, out_path)
+    return sd

@@ -93,20 +93,33 @@ def mm_bn_stats_plain(x2d: torch.Tensor, w: torch.Tensor):
 # sites.  Every other shape takes the generic path, one launch a call.
 FAST_SHAPES = ((64, 256), (256, 64), (64, 64))
 
-# device index -> K1's generic-path counter: one unsigned int, zeroed once
-# here; each launch's last CTA sets it back to zero
+# (device index, stream) -> K1's generic-path counter: one unsigned int,
+# zeroed once here on that stream; each launch's last CTA sets it back to
+# zero.  Launches on one stream run in order, so they share a counter
+# safely; launches on two streams may overlap, so each stream has its own.
 _counters: dict = {}
 
 
-def _k1_counter(dev: int) -> torch.Tensor:
-    if dev not in _counters:
-        _counters[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    return _counters[dev]
+def _k1_counter(dev: int, stream: int) -> torch.Tensor:
+    """The generic path's counter of (device, raw stream).  Refuses while
+    the current stream is being captured into a CUDA graph: a replayed
+    graph would reuse the captured counter's address beside eager
+    launches, and how a graph keeps its own is ROADMAP.md S1's design."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "mm_bn_stats_cuda: K1 cannot be captured into a CUDA graph yet: "
+            "its generic path keeps a completion counter per (device, "
+            "stream), and a graph's own counter is ROADMAP.md S1's design")
+    key = (dev, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _counters[key]
 
 
 def mm_bn_stats_cuda(x2d: torch.Tensor, w: torch.Tensor):
     """Launch K1 on x2d's device and current stream.  `.launches` counts
-    every launch, `.generic_launches` those of the generic path."""
+    every launch, `.generic_launches` those of the generic path.  Raises
+    during CUDA graph capture (see _k1_counter)."""
     fn = "mm_bn_stats_cuda"
     r, k = _rows_cols(fn, "x2d", x2d)
     if w.dim() != 2 or w.shape[1] != k:
@@ -115,6 +128,8 @@ def mm_bn_stats_cuda(x2d: torch.Tensor, w: torch.Tensor):
     c = w.shape[0]
     dev = _check_cuda(fn, [("x2d", x2d, BF16, (r, k)),
                            ("w", w, BF16, (c, k))])
+    stream = _stream(dev)
+    counter = _k1_counter(dev, stream)
     lib = _build.load()
     slots = lib.hcmoco_mm_bn_slots(dev, r, k, c)
     if slots <= 0:
@@ -125,7 +140,7 @@ def mm_bn_stats_cuda(x2d: torch.Tensor, w: torch.Tensor):
     partials = torch.empty((slots, 2, c), dtype=torch.float64, device=dev)
     rc = lib.hcmoco_mm_bn_stats(
         dev, x2d.data_ptr(), w.data_ptr(), y.data_ptr(), partials.data_ptr(),
-        s.data_ptr(), _k1_counter(dev).data_ptr(), r, k, c, _stream(dev))
+        s.data_ptr(), counter.data_ptr(), r, k, c, stream)
     _build.check(lib, rc, fn)
     mm_bn_stats_cuda.launches += 1
     if (k, c) not in FAST_SHAPES:

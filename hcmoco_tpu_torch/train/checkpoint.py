@@ -7,7 +7,8 @@ restores everything including the banks.  Here a checkpoint is one
 `torch.save` file, `<directory>/epoch_<n>.pt`, holding the model's
 state_dict (the reference torch names, BN running statistics included),
 the optimizer's state_dict (SGD's momentum buffers), the banks, `step` and
-`epoch`.  The reference BN names and buffers are the same with
+`epoch`; a versatility segmentor's also its classifier's state_dict
+(`classifier`, the reference FCN names).  The reference BN names and buffers are the same with
 HCMOCO_CONVBN_FUSE on or off, so a checkpoint of one path restores into
 the other.
 """
@@ -54,10 +55,13 @@ class CheckpointManager:
         temporary name and renamed, so a reader never sees a partial one."""
         path = self.path(epoch)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "banks": state.banks, "step": int(state.step),
-                    "epoch": int(epoch)}, tmp)
+        ckpt = {"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "banks": state.banks, "step": int(state.step),
+                "epoch": int(epoch)}
+        if state.classifier is not None:
+            ckpt["classifier"] = state.classifier.state_dict()
+        torch.save(ckpt, tmp)
         os.replace(tmp, path)
         for old in self.epochs()[:-self.max_to_keep]:
             os.remove(self.path(old))
@@ -73,6 +77,8 @@ class CheckpointManager:
         ckpt = torch.load(self.path(epoch), map_location=_device(state),
                           weights_only=True)
         state.model.load_state_dict(ckpt["model"], strict=True)
+        if state.classifier is not None:
+            state.classifier.load_state_dict(ckpt["classifier"], strict=True)
         state.optimizer.load_state_dict(ckpt["optimizer"])
         with torch.no_grad():
             state.banks.copy_(ckpt["banks"])
@@ -84,7 +90,7 @@ class CheckpointManager:
         return epochs[-1] if epochs else None
 
 
-def _resolve(pretrain_path: str) -> str:
+def resolve_checkpoint(pretrain_path: str) -> str:
     """A checkpoint file, or a run directory (its latest epoch)."""
     path = os.path.abspath(pretrain_path)
     if os.path.isdir(path):
@@ -105,10 +111,13 @@ def graft_pretrain(pretrain_path: str, state: TrainState) -> TrainState:
     SGD at step 0), as the JAX graft keeps the new optimizer trace.
 
     Reference: main_contrast.py:52-67 (`--pretrain` with partial
-    matching).  pretrain_path is a checkpoint file or a run directory.
+    matching); the segmentor's graft (main_segmentor.py:50-65) fills its
+    encoders, heads and banks alike and leaves its classifier at its
+    initialisation.  pretrain_path is a checkpoint file or a run
+    directory.
     Prints the JAX package's counts: parameters, and BN running means and
     variances as its batch statistics."""
-    path = _resolve(pretrain_path)
+    path = resolve_checkpoint(pretrain_path)
     ckpt = torch.load(path, map_location=_device(state), weights_only=True)
     src = ckpt["model"]
     params = dict(state.model.named_parameters())

@@ -13,8 +13,10 @@ whole batch, and SCL's group is the whole batch (`scl_groups` 0 or 1).
 Batch dict (the JAX package's field names; tensors on the model's device):
   rgbd (B, H, W, 6) f32 NHWC | index (B,) int | skeleton (B, J, 2) f32 |
   use_depth (B,) int | use_rgb (B,) int (optional) |
-  counts (B, n_data) f32 (optional: pins the negative draw; how often each
-  bank row was drawn as a negative)
+  counts (B, n_data) f32 (optional, the counts form: pins the negative
+  draw as how often each bank row was drawn) | neg_idx (B, K+1) int
+  (optional, the index form: pins the drawn rows, the positive in column
+  0)
 arch 'HRNetPN' also reads (dataset.py:1105-1118):
   depth_mask (B, H, W) f32 | grid_xy (B, H, W, 2) f32 | depth_mean (B,) f32 |
   pts_u (B, pn_num_points) f32 in [0, 1) (optional: pins the depth2pts
@@ -33,8 +35,9 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..contrast.losses import (cross_subject_scl_loss, joints_pri3d_loss,
-                               masked_six_way, soft_pri3d_loss)
-from ..contrast.memory import cmc3_losses_counts, update_memory
+                               masked_six_way, per_sample_nce,
+                               soft_pri3d_loss)
+from ..contrast.memory import cmc3_forward, cmc3_losses_counts, update_memory
 from ..core.config import TrainConfig
 from .schedules import learning_rate_fn
 from .state import TrainState
@@ -81,19 +84,48 @@ def _scl_grouped(lm1: torch.Tensor, lm2: torch.Tensor,
                         for p in parts]).mean()
 
 
-def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
-                             steps_per_epoch: int
-                             ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Build step(state, batch, generator=None) -> metrics.
+def nce_mode(cfg: TrainConfig, n_data: int, pinned_idx: bool) -> str:
+    """The bank NCE's formulation for a step (the JAX step's choice,
+    hcmoco_tpu/train/contrast_step.py:206-223): cfg.bank_logits ('dense'
+    if cfg.dense_scores); any mode but 'gather' builds (bsz, n_data)
+    intermediates, so above counts_max_n_data the step takes 'gather';
+    a pinned index draw (`neg_idx`) turns 'counts' into 'dense'."""
+    mode = "dense" if cfg.dense_scores else cfg.bank_logits
+    if mode not in ("counts", "dense", "hybrid", "gather"):
+        raise ValueError(f"bank_logits: unknown mode {mode!r}")
+    if mode != "gather" and n_data > cfg.counts_max_n_data:
+        mode = "gather"
+    if mode == "counts" and pinned_idx:
+        mode = "dense"
+    return mode
 
-    The step updates `state` in place (params, optimizer, banks, step).
-    `generator` draws, in this order: for HRNetPN the depth2pts uniforms
-    unless the batch carries `pts_u`, the negatives unless it carries
-    `counts`, and in stage 2 the soft-Pri3D pixels unless it carries
-    `pix_idx`.
-    Metrics: nce_loss_*/nce_acc_* for the six directions, loss and
-    learning_rate, and in stage 2 STAGE2_METRICS, as 0-d tensors
-    (learning_rate a float)."""
+
+def _split(batch: Dict[str, torch.Tensor], n: int):
+    """n equal microbatches of a batch dict, along dim 0."""
+    bsz = batch["index"].shape[0]
+    if bsz % n:
+        raise ValueError(f"microbatch={n} does not divide the batch of "
+                         f"{bsz}")
+    parts = {k: v.chunk(n) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A zero grad for every parameter that the loss did not reach, so
+    that SGD still decays it and runs its momentum, as the JAX package's
+    optax chain (add_decayed_weights -> trace) does for every leaf."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
+def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
+                          ) -> Callable[..., tuple]:
+    """Build loss_fn(state, batch, generator=None) -> (loss, metrics,
+    commit): one forward of the train step, with commit() the bank EMA
+    update, to be called after the loss's backward (its graph holds the
+    banks as they were).  Metrics are 0-d tensors, detached."""
     if (cfg.modal != "RGBD2S" or cfg.mem not in ("bank", "bank+jointspri3d")
             or cfg.arch not in ("HRNet", "HRNetPN")):
         raise NotImplementedError(
@@ -104,20 +136,13 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
         raise ValueError("mem='bank+jointspri3d' needs linear_feat_map: its "
                          "losses read the linear_merge maps")
     scl_groups = max(cfg.scl_groups, 1)  # 0: one group a process
-    if cfg.remat or cfg.microbatch > 1 or cfg.pn_remat:
+    if cfg.remat or cfg.pn_remat:
         raise NotImplementedError(
-            "remat, pn_remat and microbatch are not ported yet: ROADMAP.md "
-            "Queue 1 items 9 and 15")
-    lr_fn = learning_rate_fn(cfg, steps_per_epoch)
+            "remat and pn_remat are not ported: ROADMAP.md Queue 1 item 15")
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+    def loss_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> tuple:
         batch = device_normalize(batch)
-        if state.banks.shape[1] > cfg.counts_max_n_data:
-            raise NotImplementedError(
-                "n_data above counts_max_n_data needs the row-gather NCE, "
-                "not ported yet")
         model.train()
         y = batch["index"].long()
         # NHWC -> NCHW: a view, channels_last in memory
@@ -133,14 +158,29 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
         else:
             out = model(rgbd, batch["skeleton"], return_fm=stage2)
         feats = torch.stack([out["feat1"], out["feat2"], out["feat3"]])
-        per_sample = cmc3_losses_counts(
-            feats, state.banks, y, k=cfg.nce_k, temperature=cfg.nce_t,
-            counts=batch.get("counts"), generator=generator)
         use_depth = batch.get("use_depth") if cfg.modality_missing else None
-        use_rgb = batch.get("use_rgb")
         # stage 2 masks the six directions by use_depth only
+        use_rgb = None if stage2 else batch.get("use_rgb")
+        mode = nce_mode(cfg, state.banks.shape[1], "neg_idx" in batch)
+        if mode == "counts":
+            per_sample = cmc3_losses_counts(
+                feats, state.banks, y, k=cfg.nce_k, temperature=cfg.nce_t,
+                counts=batch.get("counts"), generator=generator)
+
+            def commit() -> None:
+                for i in range(state.banks.shape[0]):
+                    update_memory(state.banks[i], feats[i], y, cfg.nce_m)
+        else:
+            if "counts" in batch:
+                raise ValueError(f"NCE mode {mode!r} draws indices: pin them "
+                                 "with neg_idx, not counts")
+            logits, commit = cmc3_forward(
+                state.banks, feats, y, feats, y, k=cfg.nce_k,
+                temperature=cfg.nce_t, m=cfg.nce_m, generator=generator,
+                neg_idx=batch.get("neg_idx"), mode=mode)
+            per_sample = [per_sample_nce(lg) for lg in logits]
         losses, accs = masked_six_way(per_sample, use_depth=use_depth,
-                                      use_rgb=None if stage2 else use_rgb)
+                                      use_rgb=use_rgb)
         loss = torch.stack(losses).sum()
         metrics: Dict[str, torch.Tensor] = {}
         if stage2:
@@ -157,29 +197,68 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
             scl = _scl_grouped(
                 lm1, lm2, batch["joints2d"],
                 ones if use_depth is None else use_depth,
-                ones if use_rgb is None else use_rgb, cfg.temperature,
-                scl_groups)
+                ones if batch.get("use_rgb") is None else batch["use_rgb"],
+                cfg.temperature, scl_groups)
             # unit weights (contrast_trainer.py:980)
             loss = loss + sum(sp_losses) + sum(j_losses) + scl
             values = (*sp_losses, *sp_accs, *j_losses, *j_accs, scl)
             metrics.update({k: v.detach()
                             for k, v in zip(STAGE2_METRICS, values)})
-
-        lr = lr_fn(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
-        # after backward: the loss's graph holds the old banks
-        for i in range(state.banks.shape[0]):
-            update_memory(state.banks[i], feats[i], y, cfg.nce_m)
-        state.step += 1
-
         for name, l, a in zip(_DIRECTIONS, losses, accs):
             metrics[f"nce_loss_{name}"] = l.detach()
             metrics[f"nce_acc_{name}"] = a.detach()
         metrics["loss"] = loss.detach()
+        return loss, metrics, commit
+
+    return loss_fn
+
+
+def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
+                             steps_per_epoch: int
+                             ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build step(state, batch, generator=None) -> metrics.
+
+    The step updates `state` in place (params, optimizer, banks, step).
+    `generator` draws, in this order: for HRNetPN the depth2pts uniforms
+    unless the batch carries `pts_u`, the negatives unless it carries
+    `counts` (the counts form) or `neg_idx` (the index form), and in
+    stage 2 the soft-Pri3D pixels unless it carries `pix_idx`.
+    The NCE's formulation is `nce_mode`'s.
+    cfg.microbatch = n > 1 runs n forward/backward passes of batch/n
+    samples against the same parameters (train_step_microbatch of the JAX
+    package): the grads are averaged over n, BN running statistics and
+    the banks chain through the microbatches (each sees the previous
+    one's update), one optimizer step at the end, and each metric is the
+    mean over the microbatches.
+    Metrics: nce_loss_*/nce_acc_* for the six directions, loss and
+    learning_rate, and in stage 2 STAGE2_METRICS, as 0-d tensors
+    (learning_rate a float)."""
+    loss_fn = make_contrast_loss_fn(cfg, model)
+    n_micro = max(cfg.microbatch, 1)
+    lr_fn = learning_rate_fn(cfg, steps_per_epoch)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        parts = [batch] if n_micro == 1 else _split(batch, n_micro)
+        lr = lr_fn(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        per_part = []
+        for part in parts:
+            loss, metrics, commit = loss_fn(state, part, generator)
+            (loss / n_micro if n_micro > 1 else loss).backward()
+            commit()
+            per_part.append(metrics)
+        fill_missing_grads(state.optimizer)
+        state.optimizer.step()
+        state.step += 1
+        if n_micro == 1:
+            metrics = per_part[0]
+        else:
+            metrics = {k: torch.stack([m[k] for m in per_part]).mean()
+                       for k in per_part[0]}
         metrics["learning_rate"] = lr
         return metrics
 

@@ -1,14 +1,15 @@
-"""Train state: model + optimizer + memory banks + step (counterpart of
-hcmoco_tpu/train/state.py).
+"""Train state: model (+ the segmentor's classifier) + optimizer + memory
+banks + step (counterpart of hcmoco_tpu/train/state.py).
 
-The JAX package keeps these in one immutable pytree; here they are the
-usual stateful torch objects, updated in place by the train step.
+The JAX package keeps these in one immutable pytree (the versatility
+segmentor's as {'model': ..., 'classifier': ...}); here they are the usual
+stateful torch objects, updated in place by the train step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +25,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     banks: torch.Tensor  # (n_modal, n_data, dim) f32, rows L2-normalised
     step: int = 0        # global iteration
+    # the versatility segmentor's FCN head, under the same optimizer
+    classifier: Optional[nn.Module] = None
 
 
 def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor],
@@ -41,15 +44,21 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor],
 
 def create_train_state(cfg: TrainConfig, model: nn.Module,
                        generator: torch.Generator, n_data: int,
-                       steps_per_epoch: int) -> TrainState:
-    """Optimizer over all of model's params and randomly initialised banks
-    drawn from `generator`, on the model's device."""
+                       steps_per_epoch: int,
+                       classifier: Optional[nn.Module] = None) -> TrainState:
+    """One optimizer over all of model's params (and the classifier's,
+    after them) and randomly initialised banks drawn from `generator`, on
+    the model's device."""
     if not cfg.mem.startswith("bank"):
         raise NotImplementedError(
             f"mem {cfg.mem} is not ported yet: ROADMAP.md Queue 1 item 11")
     device = next(model.parameters()).device
-    opt, _ = make_optimizer(cfg, model.parameters(), steps_per_epoch)
+    params = list(model.parameters())
+    if classifier is not None:
+        params += list(classifier.parameters())
+    opt, _ = make_optimizer(cfg, params, steps_per_epoch)
     n_modal = {"RGB": 1, "CMC": 2, "RGBD2S": 3}[cfg.modal]
     banks = init_memory(generator, n_modal, n_data, cfg.feat_dim,
                         device=device)
-    return TrainState(model=model, optimizer=opt, banks=banks)
+    return TrainState(model=model, optimizer=opt, banks=banks,
+                      classifier=classifier)

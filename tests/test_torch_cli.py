@@ -70,7 +70,7 @@ def test_config_from_args_matches_jax(recipe, overrides):
 @pytest.mark.parametrize("argv,match", [
     (["--multihost"], "item 10"),
     (["--profile_dir", "/tmp/p"], "item 14"),
-    (["--microbatch", "2"], "item 9"),
+    (["--supervise_type", "1"], "item 12"),
     (["--alpha", "0.9"], "item 11"),
     (["--n_class", "3"], "item 12"),
 ])
@@ -87,16 +87,33 @@ def test_without_a_card_main_raises(monkeypatch):
         cli.main(["--synthetic", "8"] + TINY[:-2])
 
 
-def test_n_data_above_counts_max_is_refused_at_start(monkeypatch):
-    from hcmoco_tpu_torch.models import build
+def test_n_data_above_counts_max_is_refused_at_start(tmp_path, monkeypatch):
+    """No longer refused: a dataset above counts_max_n_data, which the CLI
+    refused at start until the row-gather NCE was ported, trains through
+    the 'gather' formulation (its memory does not grow with n_data)."""
+    from hcmoco_tpu_torch.train import contrast_step
 
-    def never(*a, **k):
-        raise AssertionError("the model was built")
+    modes = []
+    nce_mode = contrast_step.nce_mode
+    monkeypatch.setattr(contrast_step, "nce_mode",
+                        lambda *a: modes.append(nce_mode(*a)) or modes[-1])
+    n_data = config.TrainConfig().counts_max_n_data + 1
+    r = cli.main(["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18",
+                  "--synthetic", str(n_data),
+                  "--max_steps", "1", "--model_path", str(tmp_path)] + TINY)
+    assert r.n_data == n_data and r.state.banks.shape[1] == n_data
+    assert r.state.step == 1 and modes == ["gather"]
+    head, rows = _tsv(r.ckpt_dir)
+    assert all(np.isfinite(float(v)) for v in rows[0])
 
-    monkeypatch.setattr(build, "build_model", never)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["--synthetic", str(config.TrainConfig().counts_max_n_data
-                                     + 1)] + TINY)
+
+def test_microbatch_runs_and_must_divide_the_batch(tmp_path):
+    r = cli.main(["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18",
+                  "--synthetic", "8", "--microbatch", "2", "--epochs", "1", "--model_path",
+                  str(tmp_path)] + TINY)
+    assert r.state.step == 2
+    with pytest.raises(ValueError, match="does not divide"):
+        cli.main(["--synthetic", "8", "--microbatch", "3"] + TINY)
 
 
 def test_step_generator_depends_on_seed_and_step_alone():

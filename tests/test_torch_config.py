@@ -71,7 +71,8 @@ def test_resolve_config_matches_jax(kw):
 
 
 STAGE_RECIPES = sorted(k for k in jax_config.RECIPES
-                       if k.startswith(("first_stage/", "second_stage/")))
+                       if k.startswith(("first_stage/", "second_stage/",
+                                        "versatility/")))
 
 
 def test_recipes_are_the_jax_stage_recipes():
@@ -104,7 +105,7 @@ def test_recipe_run_fields_match_jax(name):
     flip, paths, seed), its model_name (the checkpoint directory) and its
     to_dict, against the JAX package's."""
     port, want = config.RECIPES[name], jax_config.RECIPES[name]
-    assert port.dataset == want.dataset in ("NTUMPII", "NTUCOCO")
+    assert port.dataset == want.dataset in ("NTUMPII", "NTUCOCO", "NTUSeg")
     assert port.random_flip is want.random_flip is True
     assert port.model_name == want.model_name
     got, full = config.to_dict(port), jax_config.to_dict(want)
@@ -120,3 +121,24 @@ def test_data_and_run_fields_are_ported():
             "not_use_weighted_sampler", "mask_seg_depth", "mask_seg_rgb",
             "model_path", "resume", "pretrain", "save_freq", "print_freq",
             "seed"} <= names
+
+
+def test_versatility_and_nce_fields_match_jax():
+    """The segmentor's fields and the NCE formulation switches, at the JAX
+    package's defaults, and each versatility recipe's supervision."""
+    port, jax_cfg = config.TrainConfig(), jax_config.TrainConfig()
+    want = dict(n_class=25, supervise_type=0, test_type=0,
+                cmc_loss_weights=1.0, other_loss_weights=1.0,
+                bank_logits="counts", dense_scores=False,
+                counts_max_n_data=131072)
+    for name, value in want.items():
+        assert getattr(port, name) == getattr(jax_cfg, name) == value, name
+    sup = {"versatility/sup_rgbd": (0, 0, False, False),
+           "versatility/sup_rgb_test_d": (1, 2, True, False),
+           "versatility/sup_d_test_rgb": (2, 1, False, True),
+           "versatility/sup_none": (3, 0, False, False)}
+    for name, (s, t, md, mr) in sup.items():
+        r = config.RECIPES[name]
+        assert (r.supervise_type, r.test_type, r.mask_seg_depth,
+                r.mask_seg_rgb) == (s, t, md, mr), name
+        assert r.mem == "bank+jointspri3d" and r.linear_feat_map

@@ -110,6 +110,26 @@ def test_fixture_frame_size(tmp_path, h, w):
     assert s["rgbd"].shape == (SIZE, SIZE, 6)
 
 
+@pytest.mark.parametrize("h,w", [(96, 128), (424, 512)])
+def test_seg_fixture_frame_size(tmp_path, h, w):
+    """The Parsing-4K writer takes the frame size; NTUSegJoint reads its
+    frames, labels and skeletons back (one labelled frame, the label
+    cropped with the rgb-depth pair)."""
+    root, lst = fixtures.make_ntu_fixture(str(tmp_path / "ntu"), n_frames=2,
+                                          h=h, w=w)
+    seg, seg_list = fixtures.make_seg_fixture(str(tmp_path / "seg"), root,
+                                              n_frames=2, h=h, w=w)
+    img = np.asarray(ntu.Image.open(os.path.join(
+        seg, "png_annotation_v2", "S001C001P001R001A001F001.png")))
+    assert img.shape == (h, w)
+    ds = combined.NTUSegJoint(root, lst, seg, seg_list, size=SIZE,
+                              only_seg=True)
+    assert len(ds) == 2
+    s = ds[1]
+    assert s["rgbd"].shape == (SIZE, SIZE, 6) and int(s["true_label"]) == 1
+    assert s["label"].shape == (SIZE, SIZE)
+
+
 # (class, constructor kwargs) for every NTU dataset class
 NTU_CASES = {
     "pairs": ("NTURGBDPairs", dict(random_flip=True,
@@ -264,23 +284,27 @@ STAGE_RECIPES = sorted(config.RECIPES)
 
 @pytest.mark.parametrize("name", STAGE_RECIPES)
 def test_build_contrast_source_matches_jax(trees, name):
-    """Each stage recipe (at batch 4, crop 32) on the fixture trees: the
-    same n_data, steps_per_epoch and first batch."""
+    """Each stage and versatility recipe (at batch 4, crop 32) on the
+    fixture trees: the same n_data, steps_per_epoch and first batch."""
     kw = dict(batch_size=4, crop_size=SIZE, data_folder=trees["ntu"],
               train_file_list=trees["ntu_list"], mpii_root=trees["mpii"],
-              coco_root=trees["coco"], seed=3)
+              coco_root=trees["coco"], seg_root=trees["seg"],
+              seg_file_list=trees["seg_list"], seed=3)
     got = pipeline.build_contrast_source(
         dataclasses.replace(config.RECIPES[name], **kw), num_workers=1)
     want = jax_pipeline.build_contrast_source(
         dataclasses.replace(jax_config.RECIPES[name], **kw))
     want[0].num_workers = 1
     assert got[1:] == want[1:]
-    assert got[1] == 6 + 3  # NTU frames, then MPII or COCO people
+    # NTU frames, then MPII or COCO people or Parsing-4K frames
+    assert got[1] == 6 + 3
     its = [iter(got[0]), iter(want[0])]
     try:
         b = next(its[0])
         assert_same(b, next(its[1]), name)
-        assert ("grid_xy" in b) and (b["grid_xy"].any() == ("hrnetpn" in name))
+        # NTUSegJoint always tracks the crop's pixel coordinates
+        assert ("grid_xy" in b) and (b["grid_xy"].any() == (
+            "hrnetpn" in name or name.startswith("versatility/")))
     finally:
         for it in its:
             it.close()

@@ -81,3 +81,56 @@ def test_sums_are_deterministic_on_card():
                 zero, zero)
         p, q = (matmul_bn.bn_apply_bwd_stats_cuda(*args) for _ in range(2))
         assert all(torch.equal(u, v) for u, v in zip(p, q))
+
+
+@pytest.mark.cuda
+def test_generic_path_on_two_streams_at_once():
+    """Run on the card only: K1's generic path launched alternately on two
+    streams, so that their launches overlap, gives on each stream the sums
+    of a lone launch bit for bit, and its plain version's y and sums (y
+    equal to torch.matmul's, the sums within 1e-5 of each channel's sum
+    of magnitudes).  Each stream has its own completion counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shapes = ((51200, 36, 18), (12800, 72, 36))
+    inputs = [(torch.randn((r, k), generator=g, device="cuda").bfloat16(),
+               torch.randn((c, k), generator=g, device="cuda").bfloat16())
+              for r, k, c in shapes]
+    alone = [matmul_bn.mm_bn_stats_cuda(x, w) for x, w in inputs]
+    for (x, w), (y, s1, s2) in zip(inputs, alone):
+        py, p1, p2 = matmul_bn.mm_bn_stats_plain(x, w)
+        assert torch.equal(y, py)
+        mag1 = py.float().abs().sum(0)
+        mag2 = (py.float() ** 2).sum(0)
+        assert bool(((s1 - p1).abs() <= 1e-5 * mag1 + 1e-6).all())
+        assert bool(((s2 - p2).abs() <= 1e-5 * mag2 + 1e-6).all())
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(50):
+        for i, (s, (x, w)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                outs[i].append(matmul_bn.mm_bn_stats_cuda(x, w))
+    torch.cuda.synchronize()
+    for (_, want1, want2), got in zip(alone, outs):
+        for _, s1, s2 in got:
+            assert torch.equal(s1, want1) and torch.equal(s2, want2)
+    keys = {(torch.cuda.current_device(), s.cuda_stream) for s in streams}
+    assert keys <= set(matmul_bn._counters)
+
+
+@pytest.mark.cuda
+def test_k1_refuses_graph_capture():
+    """Run on the card only: K1's wrapper raises, naming ROADMAP S1,
+    while its stream is captured into a CUDA graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    x = torch.randn((3200, 144), device="cuda").bfloat16()
+    w = torch.randn((18, 144), device="cuda").bfloat16()
+    matmul_bn.mm_bn_stats_cuda(x, w)  # built and warmed outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="S1"):
+        with torch.cuda.graph(graph):
+            matmul_bn.mm_bn_stats_cuda(x, w)

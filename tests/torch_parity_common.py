@@ -47,11 +47,13 @@ def bn_rows(model: torch.nn.Module, *inputs) -> dict:
 
 def check_bn_stats(model: torch.nn.Module, port_before: dict,
                    jax_params: dict, jax_before: dict, jax_after: dict,
-                   rows: dict, atol: float, rtol: float = 0.0) -> int:
+                   rows: dict, atol: float, rtol: float = 0.0,
+                   updates: int = 1) -> int:
     """Compare the port model's BN running stats with JAX's.
 
-    port_before / jax_before are the stats before the compared updates.
-    Returns the number of BN layers compared."""
+    port_before / jax_before are the stats before the compared updates:
+    `updates` chained ones (a microbatch step's, one a microbatch) of
+    `rows` each.  Returns the number of BN layers compared."""
     want_before = flax_to_port_state_dict(jax_params, jax_before)
     want_after = flax_to_port_state_dict(jax_params, jax_after)
     got = model.state_dict()
@@ -60,7 +62,7 @@ def check_bn_stats(model: torch.nn.Module, port_before: dict,
     assert set(moms) == set(rows), set(moms) ^ set(rows)
     for name, mom in moms.items():
         n = rows[name]
-        keep = 1.0 - mom
+        keep = (1.0 - mom) ** updates
         np.testing.assert_allclose(
             got[f"{name}.running_mean"].numpy(),
             want_after[f"{name}.running_mean"].numpy(), rtol=rtol, atol=atol,
