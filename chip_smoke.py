@@ -25,7 +25,17 @@ shapes, and drives the train steps the port has through its entry points:
     other at n_data 8192 and 262144, a stage-1 step at n_data 262144 with
     one profiled step, and --microbatch 2 steps (f32 plain, bf16 fused)
     equal bit for bit to their halves by hand.  Its two runs' launches
-    add to K1's and K1b's.
+    add to K1's and K1b's;
+  * the downstream stacks from stage 2's depth encoder as
+    cli/transfer_ckpt.py exported it, fused: K1 and K1b against their
+    plain versions at the trainers' row counts (566440 rows at the
+    parsing model's layer1), then downstream/seg/train.py (HRNet-W18
+    human parsing, 473^2, bs40, --pretrained) for an epoch of Kinect-size
+    Parsing-4K frames with its validation and a --test_only pass with
+    flip TTA, and downstream/a2j/train.py (A2J 3D pose, 288^2, bs12,
+    --pretrained_pth) on an ITOP fixture with PCK@10cm before and after
+    each epoch; each run's iteration times, device busy share, peak
+    memory and K1/K1b launches, which add to the kernels'.
 
     python3 chip_smoke.py
 
@@ -39,7 +49,9 @@ main path, its error against the plain version, its time, the plain
 version's, the least time the card could take for the same work (`bound_ms`,
 from this run's shapes and data and the H100 SXM's published peaks) and,
 where one PyTorch call computes the same function, that call's time.
-TF32 is off for matmuls and cuDNN convs: f32 means f32 here.  Nothing of
+TF32 is off for matmuls and cuDNN convs: f32 means f32 here, but for the
+downstream trainers' runs, which take torch's default, as their CLIs do
+(cuDNN's f32 convs in TF32).  Nothing of
 JAX or of the JAX package (hcmoco_tpu) is imported; the script checks that
 before it prints its last line.
 """
@@ -289,11 +301,22 @@ def within(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
-def check_k1b(card: str) -> list:
+# K1b's (R, C, site): the layer1 shapes of a W18 bs32 step and a ragged R
+K1B_SHAPES = ((204800, 256, "layer1 conv3/downsample"),
+              (204800, 64, "layer1 conv1"),
+              (12800 + 37, 18, "ragged R, C=18"))
+
+
+def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
     """K1b (bn_apply_stats forward and backward, K1's dyt prologue) against
-    the plain versions on the same inputs, at the layer1 shapes and a ragged
-    R with C=18.  Channel 0 of y is constant, so the var >= 0 clamp binds
-    there.  Tolerances: out, dy, dyt within 1 bf16 ulp; mean, var within 1
+    the plain versions on the same inputs, at `shapes` (by default the
+    layer1 shapes and a ragged R with C=18; the JSON entries time the
+    first).  Channel 0 of y is constant, so the var >= 0 clamp binds
+    there (with `clamp`, required; without, only where the plain version's
+    var is 0: s2 rcp(R) - (s1 rcp(R))^2, PyTorch's CUDA division by a
+    scalar as the kernel computes it, may round to one positive ulp, as at
+    R = 62208, and then var is held to the plain version's like the
+    others).  Tolerances: out, dy, dyt within 1 bf16 ulp; mean, var within 1
     f32 ulp and the running statistics within 2 (the update's add may
     contract into an FMA in PyTorch's kernel); dbias, dscale within 1e-5 of
     the f64 sums of their terms' magnitudes; ds1, ds2 within 1 bf16 ulp plus
@@ -307,9 +330,7 @@ def check_k1b(card: str) -> list:
     dev = "cuda"
     errs = [0.0] * 4
     main = None
-    for r, c, site in ((204800, 256, "layer1 conv3/downsample"),
-                       (204800, 64, "layer1 conv1"),
-                       (12800 + 37, 18, "ragged R, C=18")):
+    for r, c, site in shapes:
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev)
 
@@ -330,7 +351,8 @@ def check_k1b(card: str) -> list:
                                                     1e-5, run_k)
         pout, pmean, pvar, prstd = mb.bn_apply_fwd_plain(y, s1, s2, scale,
                                                          bias, 1e-5, run_p)
-        if not (float(pvar[0]) == 0.0 == float(var[0])):
+        binds = float(pvar[0]) == 0.0
+        if (clamp or binds) and not (binds and float(var[0]) == 0.0):
             raise AssertionError(f"K1b fwd at {site}: the clamp did not bind "
                                  f"on the constant channel")
         big = torch.maximum(out.float().abs(), pout.float().abs())
@@ -370,7 +392,7 @@ def check_k1b(card: str) -> list:
             errs[1] = max(errs[1], within(f"K1b bwd {name} at {site}",
                                           got[i], want[i],
                                           bf16_ulp(big) + prop[i - 2]))
-        if float(got[3][0]) != 0.0:
+        if binds and float(got[3][0]) != 0.0:
             raise AssertionError(f"K1b bwd at {site}: ds2 not masked on the "
                                  "constant channel")
         dy = mb.bn_apply_bwd_dy_cuda(dout, prstd, scale)
@@ -2429,6 +2451,334 @@ def versatility_phase(card: str, stage2_ckpt: str, tmp: str) -> list:
     return runs
 
 
+# ---- the downstream stacks: parsing and A2J from stage 2's depth encoder ----
+
+SEG_CROP, SEG_BATCH = 473, 40   # the parsing recipe's crop, per-GPU batch
+SEG_TRAIN, SEG_VAL = 320, 40    # Parsing-4K frames of the parsing tree
+A2J_CROP, A2J_BATCH = 288, 12   # A2J's crop and batch (a2j/train.py)
+ITOP_TRAIN, ITOP_TEST = 64, 16  # ITOP frames of the A2J fixture
+# K1 at the downstream trainers' row counts: (R, K, C, site); R = batch x
+# H x W of the site's input (473^2: branches 119/60/30/15; 288^2: 72/36/
+# 18/9), every (K, C) of each trainer's fused sites
+K1_DOWNSTREAM = (
+    (566440, 64, 256, "parsing layer1 conv3/downsample 119x119"),
+    (566440, 256, 64, "parsing layer1 conv1 119x119"),
+    (566440, 64, 64, "parsing layer1 block-1 conv1 119x119"),
+    (144000, 36, 18, "parsing fuse 36->18 60x60"),
+    (36000, 72, 18, "parsing fuse 72->18 30x30"),
+    (36000, 72, 36, "parsing fuse 72->36 30x30"),
+    (9000, 144, 18, "parsing fuse 144->18 15x15"),
+    (9000, 144, 36, "parsing fuse 144->36 15x15"),
+    (9000, 144, 72, "parsing fuse 144->72 15x15"),
+    (62208, 64, 256, "A2J layer1 conv3/downsample 72x72"),
+    (62208, 256, 64, "A2J layer1 conv1 72x72"),
+    (62208, 64, 64, "A2J layer1 block-1 conv1 72x72"),
+    (15552, 36, 18, "A2J fuse 36->18 36x36"),
+    (3888, 72, 18, "A2J fuse 72->18 18x18"),
+    (3888, 72, 36, "A2J fuse 72->36 18x18"),
+    (972, 144, 18, "A2J fuse 144->18 9x9"),
+    (972, 144, 36, "A2J fuse 144->36 9x9"),
+    (972, 144, 72, "A2J fuse 144->72 9x9"))
+K1B_DOWNSTREAM = ((566440, 256, "parsing layer1 conv3/downsample"),
+                  (566440, 64, "parsing layer1 conv1"),
+                  (144000, 18, "parsing fuse 36->18"),
+                  (62208, 256, "A2J layer1 conv3/downsample"),
+                  (972, 72, "A2J fuse 144->72"))
+
+
+def k1_exact_check(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                   yp: torch.Tensor, site: str) -> tuple:
+    """K1's y against the exact product of its bf16 inputs (in f64): within
+    1 bf16 ulp plus the f32 accumulation bound K 2^-24 sum_k |x w|, the
+    bound any f32-accumulated, bf16-rounded product meets.  Where y parts
+    from the plain version `yp` by more than 1 bf16 ulp (cuBLAS at
+    144000x36->18 picks an algorithm that strays on cancelling sums), y
+    must be the closer of the two to the exact product.  Returns (max
+    |y - exact| in those units, elements parted from yp)."""
+    ex = x.double() @ w.double().t()
+    tol = (bf16_ulp(torch.maximum(y.double().abs(), ex.abs()))
+           + x.shape[1] * 2.0 ** -24 * (x.double().abs()
+                                         @ w.double().abs().t()))
+    err = (y.double() - ex).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"K1 y at {site}: {int((err > tol).sum())} "
+                             "elements off the exact product by more than "
+                             "1 bf16 ulp + the f32 accumulation bound")
+    yf, ypf = y.float(), yp.float()
+    parted = (yf - ypf).abs() > bf16_ulp(torch.maximum(yf.abs(), ypf.abs()))
+    if bool((parted & (err > (yp.double() - ex).abs())).any()):
+        raise AssertionError(f"K1 y at {site}: where it parts from the "
+                             "plain version by more than 1 bf16 ulp, the "
+                             "plain version is closer to the exact product")
+    return float((err / tol).max()), int(parted.sum())
+
+
+def check_downstream_kernels(card: str) -> None:
+    """K1 and K1b against their plain versions at the downstream row
+    counts (none a multiple of the fast path's 32- or 64-row blocks but
+    62208): y as k1_exact_check holds it (within 1 bf16 ulp of the plain
+    version, as check_k1 holds it, unless the plain version strays
+    farther from the exact product), s1/s2 within 1e-5 of each channel's
+    summed magnitudes of f64 sums of the kernel's own y, the same bits
+    over two launches; K1b as check_k1b holds it.  Times the
+    566440x64->256 call."""
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for r, k, c, site in K1_DOWNSTREAM:
+        x = torch.randn((r, k), generator=g, device="cuda").bfloat16()
+        w = (torch.randn((c, k), generator=g, device="cuda")
+             / k ** 0.5).bfloat16()
+        y, s1, s2 = mb.mm_bn_stats_cuda(x, w)
+        y2, a1, a2 = mb.mm_bn_stats_cuda(x, w)
+        yp = mb.mm_bn_stats_plain(x, w)[0]
+        if not (torch.equal(y, y2) and torch.equal(s1, a1)
+                and torch.equal(s2, a2)):
+            raise AssertionError(f"K1 differs between launches at {site}")
+        rel, parted = k1_exact_check(x, w, y, yp, site)
+        err = (y.float() - yp.float()).abs()
+        yd = y.double()
+        for name, got, want, scale in (
+                ("s1", s1, yd.sum(0), yd.abs().sum(0)),
+                ("s2", s2, (yd * yd).sum(0), (yd * yd).sum(0))):
+            if bool(((got.double() - want).abs() > 1e-5 * scale).any()):
+                raise AssertionError(
+                    f"K1 {name} off at {site} (R={r}): max err "
+                    f"{float((got.double() - want).abs().max())}")
+        path = "fast" if (k, c) in mb.FAST_SHAPES else "generic"
+        note = ""
+        if (r, k, c) == K1_DOWNSTREAM[0][:3]:
+            ms = cuda_ms(lambda: mb.mm_bn_stats_cuda(x, w))
+            plain_ms = cuda_ms(lambda: mb.mm_bn_stats_plain(x, w))
+            bnd = bound(2 * (r * k + c * k + r * c) + 8 * c, 2 * r * k * c,
+                        BF16_OPS_S)
+            note = (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        print(f"K1 {path} R={r} K={k} C={c} ({site}): y max|y - plain| "
+              f"{float(err.max()):.6g}, {parted} elements more than 1 bf16 "
+              f"ulp from plain (the plain version the farther from the "
+              f"exact product there), max |y - exact| {rel:.3f} of 1 bf16 "
+              f"ulp + the f32 accumulation bound; s1/s2 within 1e-5, 2 "
+              f"launches identical{note} [{card}]")
+        del x, y, y2, yp, yd, err
+    check_k1b(card, K1B_DOWNSTREAM, clamp=False)
+    torch.cuda.empty_cache()
+
+
+def capture_stdout(fn):
+    """fn()'s result and what it printed, which is printed here too."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    sys.stdout.write(buf.getvalue())
+    return result, buf.getvalue()
+
+
+def downstream_run(card: str, label: str, main, argv: list, bsz: int,
+                   n: int, sites: int, generic: int) -> tuple:
+    """A downstream trainer's main(argv) on the card, `n` train steps, with
+    every K1/K1b count set to 0 just before it; torch.profiler records
+    its last two steps.  Checks that K1 and the four K1b kernels launched
+    `sites` times a step and K1's generic path `generic` times, and that
+    every step's loss is finite.  Prints the iteration's median and
+    quartiles over the steps before the profiler's (the first, a warm-up,
+    left out) with its parts, the device time a step and the busy share,
+    and the peak memory of the training steps and of the whole run.
+    Returns (the run, its printed text, its launches by name)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = k1_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    wrappers["mm_bn_stats"].generic_launches = 0
+    train_peak = []
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=n - 3, warmup=1, active=2,
+                                   repeat=1)) as prof:
+        def on_step(i):
+            prof.step()
+            if i == n:
+                train_peak.append(torch.cuda.max_memory_allocated())
+        r, out = capture_stdout(lambda: main(argv, on_step=on_step))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                "mm_bn_stats generic":
+                    wrappers["mm_bn_stats"].generic_launches, **launches}
+    if len(r.step_s) != n:
+        raise AssertionError(f"{label}: ran {len(r.step_s)} steps, "
+                             f"expected {n}")
+    want = {name: (generic if name.endswith("generic") else sites) * n
+            for name in launches}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    losses = [m["loss"] for m in r.metrics]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss in {losses}")
+
+    rows = device_rows(prof)
+    kernel_ms = sum(us for name, us in rows
+                    if not name.startswith(("Memcpy", "Memset"))) / 1e3 / 2
+    it_s = [a + b + c for a, b, c in zip(r.wait_s, r.upload_s, r.step_s)]
+    free = slice(1, n - 3)  # after the warm-up, before the profiler's steps
+    q1, med, q3 = statistics.quantiles(it_s[free], n=4)
+    print(f"{label}: {n} steps, losses " + ", ".join(f"{v:.5f}"
+                                                   for v in losses))
+    classes, by_name = {}, {}
+    for name, us in rows:
+        k = name.lower()
+        cls = next((c for c, keys in PN_CLASSES
+                    if any(t in k for t in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + us / 1e3 / 2
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / 2
+    print(f"{label}: device ms/step by class: " + ", ".join(
+        f"{c} {ms:.3f}" for c, ms in sorted(classes.items(),
+                                            key=lambda kv: -kv[1]))
+        + f" [{card}]")
+    for name in sorted(by_name, key=lambda k: -by_name[k])[:6]:
+        print(f"  {by_name[name]:9.3f} ms/step  {name[:100]}")
+    print(f"{label}: iteration median {med * 1e3:.2f} ms (quartiles "
+          f"{q1 * 1e3:.2f}, {q3 * 1e3:.2f}; steps 2-{n - 3}) = "
+          f"{bsz / med:.2f} samples/s; medians of its parts: data wait "
+          f"{statistics.median(r.wait_s[free]) * 1e3:.2f} ms, pin + upload "
+          f"enqueue {statistics.median(r.upload_s[free]) * 1e3:.2f} ms, step "
+          f"{statistics.median(r.step_s[free]) * 1e3:.2f} ms; device kernel "
+          f"time {kernel_ms:.3f} ms/step, busy share "
+          f"{kernel_ms / (med * 1e3):.3f}; peak memory "
+          f"{train_peak[0] / 2**30:.2f} GiB over the train steps, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the "
+          f"run [{card}]")
+    print(f"{label}: K1/K1b launches {launches} in {n} steps = {sites} a "
+          f"step ({generic} on K1's generic path) for the one HRNet-W18 "
+          f"(the pre-training step's two: 80, 62); wall {wall:.1f} s "
+          f"[{card}]")
+    return r, out, launches
+
+
+def downstream_phase(card: str, encoder2: str, tmp: str) -> list:
+    """The downstream journey on the card from stage 2's exported depth
+    encoder (`encoder2`, transfer_ckpt's .pth), HCMOCO_CONVBN_FUSE=1:
+    (a) K1 and K1b against their plain versions at the trainers' row
+    counts; (b) depth parsing (downstream/seg/train.py): HRNet-W18, crop
+    473, bs40, --pretrained, on a Parsing-4K tree of Kinect-size frames
+    written from a seed, one epoch of SEG_TRAIN / 40 steps and its
+    validation, then --test_only with flip TTA at two scales on 2 val
+    frames from the best weights; (c) A2J (downstream/a2j/train.py):
+    HRNet-W18, crop 288, bs12, --pretrained_pth, on an ITOP fixture, 8
+    steps over two epochs with PCK@10cm before and after each.  Returns
+    the K1/K1b launches of (b) and (c)."""
+    import re
+
+    from hcmoco_tpu_torch.data.fixtures import make_seg_fixture
+    from hcmoco_tpu_torch.downstream.a2j.data import make_itop_fixture
+    from hcmoco_tpu_torch.downstream.a2j.train import main as a2j_main
+    from hcmoco_tpu_torch.downstream.seg.train import main as seg_main
+    from hcmoco_tpu_torch.core.config import HRNET_W18
+    from hcmoco_tpu_torch.models.hrnet import HRNet, fused_sites
+
+    check_downstream_kernels(card)
+    bare = HRNet(HRNET_W18, 3, torch.float32)  # one HRNet-W18 per trainer
+    sites, generic = fused_sites(bare), generic_sites(bare)
+    del bare
+    sd = torch.load(encoder2, map_location="cpu", weights_only=True)
+    n_convs = sum(1 for k, v in sd.items()
+                  if k.endswith(".weight") and v.dim() == 4)
+    t0 = time.perf_counter()
+    seg_root, seg_list = make_seg_fixture(
+        os.path.join(tmp, "parsing"), os.path.join(tmp, "parsing_ntu"),
+        n_frames=SEG_TRAIN + SEG_VAL, seed=7, h=KINECT_HW[0], w=KINECT_HW[1])
+    lines = open(seg_list).read().split()
+    lists = {}
+    for name, part in (("train", lines[:SEG_TRAIN]),
+                       ("val", lines[SEG_TRAIN:]),
+                       ("test", lines[SEG_TRAIN:SEG_TRAIN + 2])):
+        lists[name] = os.path.join(seg_root, f"{name}.txt")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(part) + "\n")
+    itop = make_itop_fixture(os.path.join(tmp, "itop"), n_train=ITOP_TRAIN,
+                             n_test=ITOP_TEST, seed=0)
+    print(f"downstream trees: {SEG_TRAIN} + {SEG_VAL} Parsing-4K frames at "
+          f"{KINECT_HW[0]}x{KINECT_HW[1]}, ITOP {ITOP_TRAIN} + {ITOP_TEST} "
+          f"frames at 240x320, written in {time.perf_counter() - t0:.2f} s")
+
+    os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+    # the trainers run as their CLIs run: with torch's default, cuDNN's f32
+    # convs in TF32 (A2J's f32 output convs with TF32 off took an FFT-based
+    # complex GEMM, 223 of 297 device ms a step)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        steps = SEG_TRAIN // SEG_BATCH
+        best = os.path.join(tmp, "parsing_best.pt")
+        seg = ["--root", seg_root, "--modality", "depth", "--crop",
+               str(SEG_CROP), "--width", "18", "--batch_size",
+               str(SEG_BATCH), "--restore", best, "--seed", "0"]
+        label = "parsing W18 473^2 bs40"
+        r, out, seg_launches = downstream_run(
+            card, label, seg_main, seg + [
+                "--train_list", lists["train"], "--val_list", lists["val"],
+                "--pretrained", encoder2, "--epochs", "1", "--max_steps",
+                str(steps), "--print_freq", "4"],
+            SEG_BATCH, steps, sites, generic)
+        if f"=> loaded {n_convs} conv tensors from {encoder2}" not in out:
+            raise AssertionError(f"{label}: the export's {n_convs} convs "
+                                 "were not all loaded")
+        miou = re.findall(r"epoch 1: mIoU (\d\.\d+)", out)
+        if len(miou) != 1 or len(r.scores) != 1:
+            raise AssertionError(f"{label}: no validation mIoU")
+        del r
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        r, out = capture_stdout(lambda: seg_main(seg + [
+            "--train_list", lists["train"], "--val_list", lists["test"],
+            "--test_only", "--eval_flip", "--test_scales", "0.75,1.0"]))
+        test_miou = re.findall(r"testval mIoU: (\d\.\d+)", out)
+        if len(test_miou) != 1 or "=> restored weights" not in out:
+            raise AssertionError(f"{label}: --test_only gave no mIoU")
+        print(f"{label}: loaded {n_convs} conv tensors of stage 2's "
+              f"encoder2; validation mIoU {miou[0]} on {SEG_VAL} frames; "
+              f"--test_only (flip TTA, scales 0.75 and 1.0) from the best "
+              f"weights on 2 frames: mIoU {test_miou[0]} in "
+              f"{time.perf_counter() - t1:.1f} s [{card}]")
+        del r
+        torch.cuda.empty_cache()
+
+        label = "A2J W18 288^2 bs12"
+        a2j_steps = 8
+        tr, te, btr, bte = itop
+        r, out, a2j_launches = downstream_run(
+            card, label, a2j_main, [
+                "--train_dir", tr, "--test_dir", te, "--bndbox_train", btr,
+                "--bndbox_test", bte, "--pretrained_pth", encoder2,
+                "--width", "18", "--crop", str(A2J_CROP), "--batch_size",
+                str(A2J_BATCH), "--epochs", "2", "--max_steps",
+                str(a2j_steps), "--print_freq", "4", "--eval_first",
+                "--seed", "0"],
+            A2J_BATCH, a2j_steps, sites, generic)
+        if f"=> loaded {n_convs} conv tensors from {encoder2}" not in out:
+            raise AssertionError(f"{label}: the export's {n_convs} convs "
+                                 "were not all loaded")
+        pck = dict(re.findall(r"epoch (\d): PCK@10cm (\d\.\d+)", out))
+        if not {"0", "1"} <= set(pck):
+            raise AssertionError(f"{label}: PCK@10cm for epochs {pck}")
+        print(f"{label}: loaded {n_convs} conv tensors of stage 2's "
+              f"encoder2; PCK@10cm by epoch {pck} on {ITOP_TEST} frames "
+              f"[{card}]")
+        del r
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+        torch.backends.cudnn.allow_tf32 = False
+    return [seg_launches, a2j_launches]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -2471,10 +2821,16 @@ def main() -> int:
         vers_k1 = versatility_phase(card, stage2_ckpt, tmp)
         print(f"versatility phase wall time: "
               f"{time.perf_counter() - t_vers:.1f} s [{card}]")
+        t_down = time.perf_counter()
+        # check_export wrote stage 2's depth encoder there
+        down_k1 = downstream_phase(card, os.path.join(tmp, "encoder2.pth"),
+                                   tmp)
+        print(f"downstream phase wall time: "
+              f"{time.perf_counter() - t_down:.1f} s [{card}]")
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)
-    k1_runs += cli_k1 + vers_k1
+    k1_runs += cli_k1 + vers_k1 + down_k1
     pn_runs += cli_pn
     for entries, runs in ((k1, k1_runs), (points, pn_runs)):
         for entry, name in zip(entries, runs[0]):

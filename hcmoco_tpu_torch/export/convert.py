@@ -36,6 +36,15 @@ hcmoco_tpu.export.transfer.fcn_torch_to_flax):
                                  num_batches_tracked}
   conv_seg/{kernel, bias}     -> conv_seg.{weight, bias}
 
+The downstream models (`seg_flax_to_torch`, `a2j_flax_to_torch`): the
+backbone through the HRNet name tables, at the top level for SegHRNet
+(the reference's seg_hrnet.py names) and under `Backbone.` for A2JHRNet;
+then
+
+  last_conv1 / last_bn / last_conv2 -> last_layer.0 / .1 / .3
+  {classificationModel, regressionModel, DepthRegressionModel}/
+      conv{i}, bn{i}, output     -> the same names (conv and BN as above)
+
 BN running variance: flax tracks the biased batch variance, torch the
 unbiased one.  The port keeps torch semantics, and a flax `var` becomes
 `running_var` unchanged.
@@ -49,6 +58,10 @@ import numpy as np
 import torch
 
 from .transfer import hrnet_flax_to_torch
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def _bn(out: Dict[str, np.ndarray], prefix: str, p: Dict, s: Dict) -> None:
@@ -157,7 +170,7 @@ def fcn_flax_to_torch(params: Dict, batch_stats: Dict
             batch_stats[f"bn{i}"])
         i += 1
     _conv(sd, "conv_seg", params["conv_seg"])
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def flax_to_port_state_dict(params: Dict[str, Any],
@@ -190,4 +203,45 @@ def flax_to_port_state_dict(params: Dict[str, Any],
             sd[f"{lin}.weight"] = np.transpose(
                 np.asarray(params[lin]["kernel"]), (3, 2, 0, 1))
             sd[f"{lin}.bias"] = np.asarray(params[lin]["bias"])
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return _tensors(sd)
+
+
+def seg_flax_to_torch(params: Dict, batch_stats: Dict
+                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's SegHRNet trees -> the port's SegHRNet state dict
+    (module docstring)."""
+    sd = dict(hrnet_flax_to_torch(params["backbone"],
+                                  batch_stats.get("backbone", {})))
+    _conv(sd, "last_layer.0", params["last_conv1"])
+    _bn(sd, "last_layer.1", params["last_bn"], batch_stats["last_bn"])
+    _conv(sd, "last_layer.3", params["last_conv2"])
+    return _tensors(sd)
+
+
+A2J_HEADS = ("classificationModel", "regressionModel",
+             "DepthRegressionModel")
+
+
+def anchor_head_flax_to_torch(params: Dict, batch_stats: Dict,
+                              prefix: str = "") -> Dict[str, np.ndarray]:
+    """One A2J AnchorHead's flax trees -> conv{i}, bn{i} (i = 1..4) and
+    output under `prefix` (numpy)."""
+    out: Dict[str, np.ndarray] = {}
+    for i in range(1, 5):
+        _conv(out, f"{prefix}conv{i}", params[f"conv{i}"])
+        _bn(out, f"{prefix}bn{i}", params[f"bn{i}"], batch_stats[f"bn{i}"])
+    _conv(out, f"{prefix}output", params["output"])
+    return out
+
+
+def a2j_flax_to_torch(params: Dict, batch_stats: Dict
+                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's A2JHRNet trees -> the port's A2JHRNet state dict
+    (module docstring)."""
+    sd = {f"Backbone.{k}": v for k, v in hrnet_flax_to_torch(
+        params["Backbone"], batch_stats.get("Backbone", {})).items()}
+    for head in A2J_HEADS:
+        if head in params:  # is_3d=False has no depth head
+            sd.update(anchor_head_flax_to_torch(
+                params[head], batch_stats[head], f"{head}."))
+    return _tensors(sd)

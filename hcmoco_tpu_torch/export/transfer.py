@@ -17,7 +17,8 @@ mean/var -> running_mean/running_var.
 
 `load_imagenet_pretrained` is the counterpart of the JAX package's loader of
 the same name (over `hrnet_torch_to_flax`): the port already holds the
-reference names, so it is a filtered load.  `export_encoder` is the
+reference names, so it is a filtered load, `load_hrnet_state`, which the
+downstream trainers' `--pretrained` loads share.  `export_encoder` is the
 counterpart of its `export_encoder` (transfer_ckpt): the port's model
 state dict already holds the reference names under `encoderN.`, so export
 strips that prefix.
@@ -26,7 +27,7 @@ strips that prefix.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -149,42 +150,65 @@ def hrnet_flax_to_torch(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
 _BN_TENSORS = ("weight", "bias", "running_mean", "running_var")
 
 
+def load_hrnet_state(state_dict: Dict[str, Any], encoder,
+                     skip: Tuple[str, ...] = ()) -> int:
+    """Copy a torch HRNet state dict into the HRNet `encoder` (a bare
+    backbone, or a model whose backbone sits at the top level under the
+    reference names, as the parsing model's does), in place: per conv its
+    weight, per BN its weight, bias, running mean and running var, where
+    the dict holds the same name at the same shape; every other tensor is
+    skipped, like the reference's filtered load (official_hrnet.py:461-473,
+    seg_hrnet.py:456-480).  Modules under a child named in `skip` (a head
+    of the model) take nothing.  Returns the number of conv weights
+    loaded, the count of the JAX package's hrnet_torch_to_flax."""
+    import torch
+
+    total = 0
+    with torch.no_grad():
+        for name, mod in encoder.named_modules():
+            if name.split(".")[0] in skip:
+                continue
+            if isinstance(mod, torch.nn.Conv2d):
+                w = state_dict.get(f"{name}.weight")
+                if w is not None and w.shape == mod.weight.shape:
+                    mod.weight.copy_(w)
+                    total += 1
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                for t in _BN_TENSORS:
+                    v = state_dict.get(f"{name}.{t}")
+                    if v is not None and v.shape == getattr(mod, t).shape:
+                        getattr(mod, t).copy_(v)
+    return total
+
+
+def read_state_dict(path: str) -> Dict[str, Any]:
+    """A torch state dict from `path` on the CPU (a pickled module gives
+    its state_dict())."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu")
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return sd
+
+
 def load_imagenet_pretrained(path: str, model, encoder_names=("encoder1",
                                                               "encoder2")
                              ) -> int:
     """--IN_Pretrain / --depth_Pretrain: initialise the HRNet encoders
     `encoder_names` of `model`, in place, from a torch HRNet state dict
-    (e.g. ImageNet pretrain; build_backbone.py:547-560).  Per conv its
-    weight, per BN its weight, bias, running mean and running var are
-    taken where the file holds the same name at the same shape; every
-    other tensor (the classifier, a stem of another width) is skipped,
-    like the reference's filtered load (official_hrnet.py:461-473).  An
-    encoder that is not an HRNet (HRNetPN's PointNet++) takes nothing.
-    Returns the number of conv weights loaded."""
-    import torch
-
+    (e.g. ImageNet pretrain; build_backbone.py:547-560) through
+    `load_hrnet_state`; the classifier or a stem of another width is
+    skipped.  An encoder that is not an HRNet (HRNetPN's PointNet++)
+    takes nothing.  Returns the number of conv weights loaded."""
     from ..models.hrnet import HRNet
 
-    sd = torch.load(path, map_location="cpu")
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
+    sd = read_state_dict(path)
     total = 0
-    with torch.no_grad():
-        for enc in encoder_names:
-            encoder = getattr(model, enc, None)
-            if not isinstance(encoder, HRNet):
-                continue
-            for name, mod in encoder.named_modules():
-                if isinstance(mod, torch.nn.Conv2d):
-                    w = sd.get(f"{name}.weight")
-                    if w is not None and w.shape == mod.weight.shape:
-                        mod.weight.copy_(w)
-                        total += 1
-                elif isinstance(mod, torch.nn.BatchNorm2d):
-                    for t in _BN_TENSORS:
-                        v = sd.get(f"{name}.{t}")
-                        if v is not None and v.shape == getattr(mod, t).shape:
-                            getattr(mod, t).copy_(v)
+    for enc in encoder_names:
+        encoder = getattr(model, enc, None)
+        if isinstance(encoder, HRNet):
+            total += load_hrnet_state(sd, encoder)
     return total
 
 

@@ -8,7 +8,8 @@ dicts load with strict=True.
 Activations are NCHW tensors held in torch.channels_last memory, so a 1x1
 site views its input as the (B*H*W, C) matrix that kernel K1 takes, without
 a copy.  Convs run in `dtype` (bf16 on the card); BN math in f32; params and
-BN statistics are f32.
+BN statistics are f32 (a model moved to float64 with dtype float64 runs
+every op in float64, the CPU tests' reference).
 
 HCMOCO_CONVBN_FUSE=1, read when the model is built, routes every 1x1
 stride-1 ConvBN site in training through conv1x1_bn_stats + bn_apply_stats
@@ -49,6 +50,12 @@ def set_convbn_fuse(module: nn.Module, on: bool) -> nn.Module:
     return module
 
 
+def stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of BN and resize math for activations in `dtype`: f32,
+    or float64 in a model run in float64 (the CPU tests' reference)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _is_fusable(conv: nn.Conv2d) -> bool:
     return conv.kernel_size == (1, 1) and conv.stride == (1, 1)
 
@@ -70,7 +77,7 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
         y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
     else:
         y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding)
-        y = bn(y.float()).to(dtype)
+        y = bn(y.to(stat_dtype(y.dtype))).to(dtype)
     return F.relu(y) if relu else y
 
 
@@ -173,11 +180,12 @@ def pool_maps(feats: Sequence[torch.Tensor], method: str) -> torch.Tensor:
 
 
 def _resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Bilinear resize on NCHW in f32, align_corners=False."""
+    """Bilinear resize on NCHW in f32 (float64 for a float64 map),
+    align_corners=False."""
     if x.shape[2] == h and x.shape[3] == w:
         return x
-    out = F.interpolate(x.float(), size=(h, w), mode="bilinear",
-                        align_corners=False)
+    out = F.interpolate(x.to(stat_dtype(x.dtype)), size=(h, w),
+                        mode="bilinear", align_corners=False)
     return out.to(x.dtype)
 
 

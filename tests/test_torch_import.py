@@ -20,6 +20,10 @@ def _port_modules():
         hcmoco_tpu_torch.__path__, "hcmoco_tpu_torch.")]
     assert "hcmoco_tpu_torch.train.contrast_step" in names
     assert "hcmoco_tpu_torch.export.convert" in names
+    for sub in ("seg.datasets", "seg.legacy", "seg.metric", "seg.criterion",
+                "seg.model", "seg.inference", "seg.train", "a2j.data",
+                "a2j.anchors", "a2j.model", "a2j.train"):
+        assert f"hcmoco_tpu_torch.downstream.{sub}" in names, sub
     return ["hcmoco_tpu_torch"] + names
 
 

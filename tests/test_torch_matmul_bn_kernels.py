@@ -134,3 +134,54 @@ def test_k1_refuses_graph_capture():
     with pytest.raises(RuntimeError, match="S1"):
         with torch.cuda.graph(graph):
             matmul_bn.mm_bn_stats_cuda(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,c", [(566440, 64, 256), (566440, 256, 64),
+                                   (566440, 64, 64), (972, 144, 72),
+                                   (972, 144, 18)])
+def test_k1_and_k1b_at_downstream_rows_on_card(r, k, c):
+    """Run on the card only: K1 and K1b at the downstream trainers' row
+    counts, none a whole number of the fast path's row blocks: 566440,
+    the parsing model's layer1 at 473^2 bs40 (fast path), and 972, A2J's
+    9x9 branch at 288^2 bs12 (generic path).  K1's y within 1 bf16 ulp of
+    the plain version, its sums within 1e-5 of each channel's sum of
+    magnitudes and the same bits over two launches; K1b's forward and
+    backward as test_k1b_kernels_match_plain_on_card holds them.  (At
+    other row counts cuBLAS, the plain version, may stray from the exact
+    product on cancelling sums, by up to its f32 accumulation bound;
+    chip_smoke.py's k1_exact_check holds y to the exact product there.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((r, k), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((c, k), generator=g, device="cuda") / k ** 0.5).bfloat16()
+    y, s1, s2 = matmul_bn.mm_bn_stats_cuda(x, w)
+    y2, a1, a2 = matmul_bn.mm_bn_stats_cuda(x, w)
+    assert torch.equal(y, y2) and torch.equal(s1, a1) and torch.equal(s2, a2)
+    assert _ulp_close(y, matmul_bn.mm_bn_stats_plain(x, w)[0])
+    yd = y.double()
+    assert bool(((s1.double() - yd.sum(0)).abs()
+                 <= 1e-5 * yd.abs().sum(0)).all())
+    assert bool(((s2.double() - (yd * yd).sum(0)).abs()
+                 <= 1e-5 * (yd * yd).sum(0)).all())
+
+    scale = torch.rand((c,), generator=g, device="cuda") + 0.5
+    bias = torch.randn((c,), generator=g, device="cuda")
+    got = matmul_bn.bn_apply_fwd_cuda(y, s1, s2, scale, bias, 1e-5)
+    want = matmul_bn.bn_apply_fwd_plain(y, s1, s2, scale, bias, 1e-5)
+    assert _ulp_close(got[0], want[0])
+    for a, b in zip(got[1:3], want[1:3]):
+        assert _ulp_close(a, b, bits=24)
+    dout = torch.randn((r, c), generator=g, device="cuda").bfloat16()
+    cts = (torch.randn((c,), generator=g, device="cuda") * 1e-3,
+           torch.randn((c,), generator=g, device="cuda") * 1e-3)
+    args = (dout, y, s1, want[1], want[2], want[3], scale) + cts
+    kb = matmul_bn.bn_apply_bwd_stats_cuda(*args)
+    pb = matmul_bn.bn_apply_bwd_stats_plain(*args)
+    mag = dout.double().abs().sum(0)
+    assert bool(((kb[1].double() - pb[1].double()).abs() <= 2e-5 * mag).all())
+    assert _ulp_close(matmul_bn.bn_apply_bwd_dy_cuda(dout, want[3], scale),
+                      matmul_bn.bn_apply_bwd_dy_plain(dout, want[3], scale))
+    assert _ulp_close(matmul_bn.mm_bn_bwd_dyt_cuda(dout, y, pb[2], pb[3]),
+                      matmul_bn.mm_bn_bwd_dyt_plain(dout, y, pb[2], pb[3]))

@@ -48,14 +48,16 @@ def bn_rows(model: torch.nn.Module, *inputs) -> dict:
 def check_bn_stats(model: torch.nn.Module, port_before: dict,
                    jax_params: dict, jax_before: dict, jax_after: dict,
                    rows: dict, atol: float, rtol: float = 0.0,
-                   updates: int = 1) -> int:
+                   updates: int = 1, convert=flax_to_port_state_dict) -> int:
     """Compare the port model's BN running stats with JAX's.
 
     port_before / jax_before are the stats before the compared updates:
     `updates` chained ones (a microbatch step's, one a microbatch) of
-    `rows` each.  Returns the number of BN layers compared."""
-    want_before = flax_to_port_state_dict(jax_params, jax_before)
-    want_after = flax_to_port_state_dict(jax_params, jax_after)
+    `rows` each.  `convert` maps the JAX trees to the port's state dict
+    (an HCMoCo model's by default).  Returns the number of BN layers
+    compared."""
+    want_before = convert(jax_params, jax_before)
+    want_after = convert(jax_params, jax_after)
     got = model.state_dict()
     moms = {n: mod.momentum for n, mod in model.named_modules()
             if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm)}
