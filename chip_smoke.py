@@ -35,7 +35,16 @@ shapes, and drives the train steps the port has through its entry points:
     flip TTA, and downstream/a2j/train.py (A2J 3D pose, 288^2, bs12,
     --pretrained_pth) on an ITOP fixture with PCK@10cm before and after
     each epoch; each run's iteration times, device busy share, peak
-    memory and K1/K1b launches, which add to the kernels'.
+    memory and K1/K1b launches, which add to the kernels';
+  * data parallelism (parallel/mesh.py): the pre-training CLI under
+    torchrun's environment for a world of one (NCCL, a rank-0 checkpoint
+    and its resume; no NCCL kernel in its profile), and two ranks on the
+    one card over gloo (`chip_smoke.py --dp-rank`, NCCL refusing two
+    ranks on one device) against one process: HRNet-W18 stage 1 at
+    320^2 bs32 fused (K1 and K1b on each rank's rows, K1's sums
+    all-reduced), stage 2 and HRNetPN (K2-K6) at bs16 in f32; the ranks
+    equal bit for bit after every step, the collectives a step and their
+    host time.  Both ranks' launches add to the kernels'.
 
     python3 chip_smoke.py
 
@@ -56,6 +65,7 @@ JAX or of the JAX package (hcmoco_tpu) is imported; the script checks that
 before it prints its last line.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -301,22 +311,32 @@ def within(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
-# K1b's (R, C, site): the layer1 shapes of a W18 bs32 step and a ragged R
+# K1b's (R, C, site[, N]): the layer1 shapes of a W18 bs32 step and a
+# ragged R
 K1B_SHAPES = ((204800, 256, "layer1 conv3/downsample"),
               (204800, 64, "layer1 conv1"),
               (12800 + 37, 18, "ragged R, C=18"))
+# one of two ranks' rows of the W18 bs32 step, normalised by the global
+# batch's N: layer1, and the 40x40 branch of a stage-2 fuse (36 -> 36)
+K1B_DP_SHAPES = ((102400, 256, "layer1 conv3/downsample, rank rows",
+                  204800),
+                 (102400, 64, "layer1 conv1, rank rows", 204800),
+                 (25600, 36, "40x40 branch, rank rows", 51200))
 
 
 def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
     """K1b (bn_apply_stats forward and backward, K1's dyt prologue) against
     the plain versions on the same inputs, at `shapes` (by default the
     layer1 shapes and a ragged R with C=18; the JSON entries time the
-    first).  Channel 0 of y is constant, so the var >= 0 clamp binds
-    there (with `clamp`, required; without, only where the plain version's
-    var is 0: s2 rcp(R) - (s1 rcp(R))^2, PyTorch's CUDA division by a
-    scalar as the kernel computes it, may round to one positive ulp, as at
-    R = 62208, and then var is held to the plain version's like the
-    others).  Tolerances: out, dy, dyt within 1 bf16 ulp; mean, var within 1
+    first).  A shape with a fourth entry N takes the data-parallel split:
+    s1 and s2 sum N rows (the global batch's), y is the first R of them
+    (a rank's), and forward and backward normalise by N, the kernel and
+    the plain version alike.  Channel 0 of y is constant, so the var >= 0
+    clamp binds there (with `clamp`, required; without, only where the
+    plain version's var is 0: s2 rcp(R) - (s1 rcp(R))^2, PyTorch's CUDA
+    division by a scalar as the kernel computes it, may round to one
+    positive ulp, as at R = 62208, and then var is held to the plain
+    version's like the others).  Tolerances: out, dy, dyt within 1 bf16 ulp; mean, var within 1
     f32 ulp and the running statistics within 2 (the update's add may
     contract into an FMA in PyTorch's kernel); dbias, dscale within 1e-5 of
     the f64 sums of their terms' magnitudes; ds1, ds2 within 1 bf16 ulp plus
@@ -330,14 +350,16 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
     dev = "cuda"
     errs = [0.0] * 4
     main = None
-    for r, c, site in shapes:
+    for r, c, site, *split in shapes:
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev)
 
-        y = (rnd(r, c) * 1.3 + 0.2).bfloat16()
-        y[:, 0] = 0.5
-        yf = y.float()
-        s1, s2 = yf.sum(0), (yf * yf).sum(0)
+        n = split[0] if split else None
+        yg = (rnd(n or r, c) * 1.3 + 0.2).bfloat16()
+        yg[:, 0] = 0.5
+        ygf = yg.float()
+        s1, s2 = ygf.sum(0), (ygf * ygf).sum(0)
+        y, yf = yg[:r], ygf[:r]
         scale = torch.rand((c,), generator=g, device=dev) + 0.5
         bias = rnd(c)
         rm0, rv0 = rnd(c), rnd(c).abs() + 0.5
@@ -348,9 +370,9 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
 
         run_k, run_p = running(), running()
         out, mean, var, rstd = mb.bn_apply_fwd_cuda(y, s1, s2, scale, bias,
-                                                    1e-5, run_k)
+                                                    1e-5, run_k, n)
         pout, pmean, pvar, prstd = mb.bn_apply_fwd_plain(y, s1, s2, scale,
-                                                         bias, 1e-5, run_p)
+                                                         bias, 1e-5, run_p, n)
         binds = float(pvar[0]) == 0.0
         if (clamp or binds) and not (binds and float(var[0]) == 0.0):
             raise AssertionError(f"K1b fwd at {site}: the clamp did not bind "
@@ -370,7 +392,7 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
 
         dout = rnd(r, c).bfloat16()
         dm, dv = rnd(c) * 1e-3, rnd(c) * 1e-3
-        args = (dout, y, s1, pmean, pvar, prstd, scale, dm, dv)
+        args = (dout, y, s1, pmean, pvar, prstd, scale, dm, dv, n)
         got = mb.bn_apply_bwd_stats_cuda(*args)
         want = mb.bn_apply_bwd_stats_plain(*args)
         terms = dout.float() * ((yf - pmean) * prstd)
@@ -381,7 +403,7 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
                 ("dbias", dout.double().sum(0), mag_b))):
             errs[1] = max(errs[1], within(f"K1b bwd {name} at {site}",
                                           got[i], ref, 1e-5 * mag))
-        rs, sc, rf = prstd.double(), scale.double(), float(r)
+        rs, sc, rf = prstd.double(), scale.double(), float(n or r)
         e_b, e_s = 2e-5 * mag_b, 2e-5 * mag_s
         prop = (rs * sc / rf * e_b
                 + 0.5 * rs * rs * sc * (2 * s1.double().abs() / rf / rf)
@@ -408,8 +430,8 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
 
         fwd_args = (y, s1, s2, scale, bias, 1e-5)
         calls = (
-            (lambda: mb.bn_apply_fwd_cuda(*fwd_args, run_k),
-             lambda: mb.bn_apply_fwd_plain(*fwd_args, run_p)),
+            (lambda: mb.bn_apply_fwd_cuda(*fwd_args, run_k, n),
+             lambda: mb.bn_apply_fwd_plain(*fwd_args, run_p, n)),
             (lambda: mb.bn_apply_bwd_stats_cuda(*args),
              lambda: mb.bn_apply_bwd_stats_plain(*args)),
             (lambda: mb.bn_apply_bwd_dy_cuda(dout, prstd, scale),
@@ -431,7 +453,8 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
         lib_b = cuda_ms(lambda: torch.ops.aten.native_batch_norm_backward(
             d4, y4, scale, rm, rv, smean, sinv, True, 1e-5,
             [True, True, True]))
-        print(f"K1b R={r} C={c} ({site}): fwd {times[0][0]:.4f} ms (plain "
+        print(f"K1b R={r} C={c}" + (f" N={n}" if n else "")
+              + f" ({site}): fwd {times[0][0]:.4f} ms (plain "
               f"{times[0][1]:.4f}, F.batch_norm {lib_f:.4f}), bwd sums "
               f"{times[1][0]:.4f} (plain {times[1][1]:.4f}, "
               f"native_batch_norm_backward {lib_b:.4f}), dy "
@@ -1754,6 +1777,91 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     return r, launches
 
 
+NCCL_CLI_STEPS = 4
+
+
+def nccl_cli(card: str, argv: list, save: str) -> list:
+    """cli/main_contrast.py under torchrun's environment for a world of
+    one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT set here;
+    no torchrun binary): it joins an NCCL process group, trains
+    NCCL_CLI_STEPS steps and saves as rank 0, then a second run resumes
+    from that checkpoint for NCCL_CLI_STEPS more.  In a world of one the
+    port issues no collective, so the profiler (over the resumed run's
+    steps) must show no NCCL kernel.  Returns both runs' K1/K1b
+    launches."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from hcmoco_tpu_torch.cli.main_contrast import main
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    seen = {}
+
+    def on_ready(state):
+        seen["backend"] = dist.get_backend()
+        seen["world"] = dist.get_world_size()
+        seen["step"] = state.step
+
+    wrappers = k1_wrappers()
+    runs = []
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        for i, extra in enumerate((
+                ["--epochs", "1", "--max_steps", str(NCCL_CLI_STEPS)],
+                ["--epochs", "2", "--resume", "auto", "--max_steps",
+                 str(2 * NCCL_CLI_STEPS)])):
+            for fn in wrappers.values():
+                fn.launches = 0
+            wrappers["mm_bn_stats"].generic_launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                r = main(argv + ["--model_path", save] + extra,
+                         on_ready=on_ready)
+                torch.cuda.synchronize()
+            if seen != {"backend": "nccl", "world": 1,
+                        "step": i * NCCL_CLI_STEPS}:
+                raise AssertionError(f"NCCL CLI run {i}: {seen}")
+            if dist.is_initialized():
+                raise AssertionError("the CLI left its process group")
+            steps = len(r.step_s)
+            model = r.state.model
+            sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+            gen = generic_sites(model.encoder1) + generic_sites(
+                model.encoder2)
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                        "mm_bn_stats generic":
+                            wrappers["mm_bn_stats"].generic_launches,
+                        **launches}
+            want = {name: (gen if name.endswith("generic") else sites)
+                    * steps for name in launches}
+            if steps != NCCL_CLI_STEPS or launches != want:
+                raise AssertionError(f"NCCL CLI run {i}: {steps} steps, "
+                                     f"launches {launches}, expected {want}")
+            nccl = [(n, us) for n, us in device_rows(prof)
+                    if "nccl" in n.lower()]
+            if nccl:
+                raise AssertionError(f"NCCL CLI run {i}: NCCL kernels in a "
+                                     f"world of one: {nccl[:5]}")
+            runs.append(launches)
+            print(f"NCCL CLI run {i}: world 1 over nccl, epochs "
+                  f"{r.start_epoch}-{r.last_epoch}, {steps} steps from step "
+                  f"{i * NCCL_CLI_STEPS}, checkpoint "
+                  f"epoch_{r.last_epoch}.pt written by rank 0; 0 NCCL "
+                  f"kernels in its profile (no collective in a world of "
+                  f"one) [{card}]")
+            del r
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    print(f"NCCL CLI runs (start, resume) wall time "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return runs
+
+
 def drive_cli(card: str, stage2_copy: str) -> tuple:
     """The pre-training CLI (cli/main_contrast.py) in process on the card,
     from frames on disk: an NTU tree of CLI_FRAMES Kinect-size frames and
@@ -1848,6 +1956,8 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
         check_k1(l2, r2, steps1, "CLI stage-1 HRNet resumed")
         trained = r2.state.model.encoder1.conv1.weight.detach().cpu().clone()
         del r1, r2
+        torch.cuda.empty_cache()
+        l_nccl = nccl_cli(card, s1, os.path.join(tmp, "save_nccl"))
 
         def check_grafted(state):
             if not torch.equal(
@@ -1881,7 +1991,7 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
         print(f"CLI HRNetPN packed path: resample route {route} [{card}]")
         del r4
         torch.cuda.empty_cache()
-        return [l1, l2, l3], [l4]
+        return [l1, l2, l3] + l_nccl, [l4]
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2567,7 +2677,6 @@ def check_downstream_kernels(card: str) -> None:
 
 def capture_stdout(fn):
     """fn()'s result and what it printed, which is printed here too."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -2779,9 +2888,395 @@ def downstream_phase(card: str, encoder2: str, tmp: str) -> list:
     return [seg_launches, a2j_launches]
 
 
+# ---- data parallelism: two ranks on one card over gloo ----------------------
+
+# (label, arch, stage, global batch, steps, HCMOCO_CONVBN_FUSE, dtype)
+DP_CASES = (("stage-1 HRNet", "HRNet", 1, 32, 3, True, "bfloat16"),
+            ("stage-2 HRNet f32", "HRNet", 2, 16, 2, False, "float32"),
+            ("stage-1 HRNetPN f32", "HRNetPN", 1, 16, 2, False, "float32"))
+DP_LR = 0.03
+# 2 ranks against one process on the same card: the loss and every loss
+# metric of the first step within DP_METRIC[dtype] relative (of later
+# steps within DP_LATER_METRIC: an SGD step at lr 0.03 carries the first
+# step's rounding into the next forward, 5e-3 of loss_rgb2joint in f32).
+# f32 (TF32 off): the state (dp_distance: the parameters' update and the
+# BN running statistics relative in L2, the banks max abs) after the
+# first step within twice the distance between two one-process runs that
+# differ only in rounding, measured in the same run (at least
+# DP_STATE_MIN): BN with nn.BatchNorm's two-pass variance against the
+# ranks' E[x^2] - E[x]^2.  bf16: the update is rounding noise at
+# initialisation (a one-process fused run and a plain one part by 0.97 of
+# it), so what the first step sets deterministically is held instead
+# (DP_SITE_TOL, relative in L2, worst site): at every fused site K1's
+# all-reduced s1 and s2 and the normaliser N (exactly the one process's
+# rows), the change K1b makes to the running mean and variance; and the
+# BN statistics and banks after the first step.  The limits are about 3x
+# a sound run's readings on an H100 (s1 3.5e-3, s2 6.0e-3, mean 3.5e-3,
+# var 3.3e-2, stats 7.1e-5, banks 3.7e-3): normalising by a rank's rows,
+# or missing the all-reduce, parts mean and var by 1 and s1 by 0.5.
+DP_METRIC = {"float32": 1e-3, "bfloat16": 2e-2}
+DP_LATER_METRIC = 2e-2
+DP_STATE_MIN = {"update": 1e-3, "stats": 1e-6, "banks": 1e-5}
+DP_SITE_TOL = {"s1": 1e-2, "s2": 2e-2, "mean": 1e-2, "var": 1e-1,
+               "stats": 2e-4, "banks": 1.2e-2}
+DP_TIMEOUT_S = 240
+DP_WORLD = 2
+
+
+@contextlib.contextmanager
+def ranks_formula():
+    """In this process, training BN layers normalise as the data-parallel
+    ranks do (f32 sums of x and x^2, var = E[x^2] - E[x]^2, the
+    all-reduce an identity) in a world of one."""
+    from hcmoco_tpu_torch.parallel import batchnorm
+
+    before = batchnorm.global_stats_active
+    batchnorm.global_stats_active = lambda: True
+    try:
+        yield
+    finally:
+        batchnorm.global_stats_active = before
+
+
+@contextlib.contextmanager
+def record_fused_sites(sites: list):
+    """Append, for every fused ConvBN site that runs inside, K1's channel
+    sums as K1b takes them (all-reduced over the ranks), the rows N they
+    cover, and the change K1b makes to the site's running mean and
+    variance."""
+    from hcmoco_tpu_torch.models import hrnet
+
+    apply = hrnet.bn_apply_stats
+
+    def recording(y, s1, s2, scale, bias, eps, running=None, n=None):
+        rm, rv = running[0].clone(), running[1].clone()
+        out = apply(y, s1, s2, scale, bias, eps, running, n)
+        sites.append({"s1": s1.detach().cpu(), "s2": s2.detach().cpu(),
+                      "n": n or y.shape[0],
+                      "mean": (running[0] - rm).cpu(),
+                      "var": (running[1] - rv).cpu()})
+        return out
+
+    hrnet.bn_apply_stats = recording
+    try:
+        yield
+    finally:
+        hrnet.bn_apply_stats = apply
+
+
+def dp_cfg(arch: str, stage: int, bsz: int, dtype: str):
+    """A DP case's config; scl_groups 0 (one SCL group a rank) is given
+    as DP_WORLD groups, so that one process takes the ranks' groups."""
+    from hcmoco_tpu_torch.core.config import RECIPES
+
+    if stage == 1:
+        cfg = make_cfg(arch=arch, batch_size=bsz, learning_rate=DP_LR,
+                       compute_dtype=dtype)
+    else:
+        cfg = dataclasses.replace(RECIPES[STAGE2_RECIPES[arch]],
+                                  batch_size=bsz, learning_rate=DP_LR,
+                                  compute_dtype=dtype)
+    return dataclasses.replace(cfg, scl_groups=cfg.scl_groups or DP_WORLD)
+
+
+def dp_state_parts(state) -> dict:
+    """The replicated state as three f32 vectors: parameters, BN running
+    statistics, banks."""
+    model = state.model
+    return {"params": torch.cat([p.detach().float().reshape(-1)
+                                 for p in model.parameters()]),
+            "stats": torch.cat([b.detach().float().reshape(-1)
+                                for b in model.buffers()
+                                if b.is_floating_point()]),
+            "banks": state.banks.detach().reshape(-1).clone()}
+
+
+def dp_run(case: tuple, rank: int, size: int) -> dict:
+    """One case's steps on this rank's rows of each global batch (all the
+    rows in a world of one), through build_model, create_train_state and
+    make_contrast_train_step; the draws from a generator seeded alike on
+    every rank.  In a world of two, after every step the ranks'
+    parameters, BN statistics and banks are gathered and must be equal
+    bit for bit.  Returns the metrics, the state before and after the
+    first step, the fused sites of the first step (record_fused_sites),
+    the kernels' launches, the collectives a step and the step times."""
+    import torch.distributed as dist
+
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.parallel import mesh
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    label, arch, stage, bsz, steps, fuse, dtype = case
+    dev = torch.device("cuda")
+    cfg = dp_cfg(arch, stage, bsz, dtype)
+    if fuse:
+        os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+    else:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    torch.manual_seed(0)
+    model = build_model(cfg, device=dev).to(memory_format=torch.channels_last)
+    state = create_train_state(cfg, model,
+                               torch.Generator(dev).manual_seed(0),
+                               n_data=N_DATA, steps_per_epoch=100)
+    step = make_contrast_train_step(cfg, model, steps_per_epoch=100)
+    batches = []
+    for i in range(steps):
+        b = synthetic_contrast_batch(np.random.default_rng(40 + i), bsz,
+                                     size=cfg.crop_size, num_joints=16,
+                                     n_data=N_DATA)
+        batches.append(to_device(mesh.shard_rows(b, rank, size), dev))
+    before = {k: v.cpu() for k, v in dp_state_parts(state).items()}
+    wrappers = (k1_wrappers() if fuse else
+                {name: fn for name, (fn, _) in point_wrappers().items()}
+                if arch == "HRNetPN" else {})
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    mm_bn_stats_cuda = k1_wrappers()["mm_bn_stats"]
+    mm_bn_stats_cuda.generic_launches = 0
+    mesh.STATS.update(calls=0, seconds=0.0)
+    metrics, times, sites = [], [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with (record_fused_sites(sites) if fuse and i == 0
+              else contextlib.nullcontext()):
+            m = step(state, b, torch.Generator(dev).manual_seed(100 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first = {k: v.cpu() for k, v in dp_state_parts(state).items()}
+        if size > 1:
+            parts = dp_state_parts(state)
+            flat = torch.cat(list(parts.values()))
+            got = [torch.empty_like(flat) for _ in range(size)]
+            dist.all_gather(got, flat)
+            if not all(torch.equal(g, got[0]) for g in got):
+                raise AssertionError(f"{label} step {i}: the ranks' "
+                                     "parameters, BN statistics or banks "
+                                     "differ")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if fuse:
+        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                    "mm_bn_stats generic": mm_bn_stats_cuda.generic_launches,
+                    **launches}
+    out = dict(metrics=metrics, before=before, first=first, sites=sites,
+               launches=launches, step_s=times,
+               calls=mesh.STATS["calls"] / steps,
+               coll_s=mesh.STATS["seconds"] / steps)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_distance(b: dict, a: dict) -> dict:
+    """How far run b's state after the first step lies from run a's
+    (dp_run results): the parameters' update from the initial state and
+    the BN statistics, relative in L2; the banks, max abs."""
+    upd_a = a["first"]["params"] - a["before"]["params"]
+    upd_b = b["first"]["params"] - b["before"]["params"]
+    return {"update": float((upd_b - upd_a).norm() / upd_a.norm()),
+            "stats": float((b["first"]["stats"] - a["first"]["stats"]).norm()
+                           / a["first"]["stats"].norm()),
+            "banks": float((b["first"]["banks"]
+                            - a["first"]["banks"]).abs().max())}
+
+
+def dp_sites(label: str, b: dict, a: dict) -> dict:
+    """How far run b's fused sites lie from run a's in the first step
+    (dp_run's `sites`, relative in L2, the worst site): K1's s1 and s2 as
+    K1b took them, and K1b's change to the running mean and variance.
+    Raises unless both ran the same sites, each normalised by the same N."""
+    if not a["sites"] or len(b["sites"]) != len(a["sites"]):
+        raise AssertionError(f"DP {label}: {len(b['sites'])} fused sites "
+                             f"on 2 ranks, {len(a['sites'])} on one process")
+    worst = dict.fromkeys(("s1", "s2", "mean", "var"), 0.0)
+    for i, (sb, sa) in enumerate(zip(b["sites"], a["sites"])):
+        if sb["n"] != sa["n"]:
+            raise AssertionError(f"DP {label}: fused site {i} normalised by "
+                                 f"N={sb['n']} on 2 ranks, {sa['n']} rows "
+                                 "on one process")
+        for k in worst:
+            worst[k] = max(worst[k], float((sb[k] - sa[k]).norm()
+                                           / sa[k].norm()))
+    return worst
+
+
+def dp_worker(out_path: str) -> int:
+    """A rank of check_data_parallel: joins the gloo group that the
+    parent's environment describes, on cuda:0 with the other rank, runs
+    every DP case and writes its results to out_path."""
+    from hcmoco_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, size = mesh.init_distributed(backend="gloo", timeout_s=DP_TIMEOUT_S)
+    try:
+        res = {case[0]: dp_run(case, rank, size) for case in DP_CASES}
+        if rank:  # rank 0's states stand for both (checked equal)
+            for r in res.values():
+                for k in ("before", "first", "sites"):
+                    r.pop(k)
+        torch.save(res, out_path)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def check_data_parallel(card: str) -> tuple:
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device) against one process on the same card: for each DP_CASES case,
+    HRNet-W18 stage 1 at 320^2 in bf16 with K1/K1b at every fused site,
+    stage 2 in f32, and HRNetPN (K2-K6, K56a/K56b) at 4096 points in f32,
+    each rank holding half of the global batch.  First K1b against its
+    plain version at a rank's rows normalised by the global batch's
+    (K1B_DP_SHAPES).  The parent runs the one-process steps with the
+    ranks' BN formula (ranks_formula), and the f32 cases once more with a
+    change of rounding alone, nn.BatchNorm's two-pass variance (the
+    floor), then two `chip_smoke.py --dp-rank` processes the same steps on
+    their rows; a rank that fails, or does not finish in DP_TIMEOUT_S,
+    fails the phase.  Holds the loss and metrics to the one-process run
+    (DP_METRIC), the state after the first step to it (f32: the parameter
+    update, BN statistics and banks within twice the floor; bf16: the
+    fused sites' sums, N and running-stat changes, the BN statistics and
+    banks, DP_SITE_TOL), the ranks to each other bit for bit after every
+    step (in the ranks), and the kernels' launches a rank to the one
+    process's; prints the collectives a step and the step times (two
+    ranks on one card over gloo: not a multi-card figure).  Returns the
+    K1/K1b and the point kernels' launches of both ranks, by JSON
+    entry."""
+    check_k1b(card, K1B_DP_SHAPES)
+    # f32 means f32 on both sides (the ranks set the same in dp_worker)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with ranks_formula():  # BN as the ranks normalise
+        one = {case[0]: dp_run(case, 0, 1) for case in DP_CASES}
+    # the f32 cases once more with nn.BatchNorm's own (two-pass) variance
+    floor = {case[0]: dp_distance(dp_run(case, 0, 1), one[case[0]])
+             for case in DP_CASES if case[6] == "float32"}
+    os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    torch.cuda.empty_cache()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_dp_", dir=build)
+    procs = []
+    try:
+        port = str(free_port())
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        t1 = time.perf_counter()
+        for r in range(DP_WORLD):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
+                       LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(DP_WORLD),
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 outs[r]], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = []
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                log, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"DP rank {r} did not finish in "
+                                     f"{DP_TIMEOUT_S} s")
+            logs.append(log)
+            if p.returncode != 0:
+                raise AssertionError(f"DP rank {r} failed "
+                                     f"({p.returncode}):\n{log[-4000:]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        t2 = time.perf_counter()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1_total, pn_total = {}, {}
+    for case in DP_CASES:
+        label, _, _, bsz, steps, fuse, dtype = case
+        a, b = one[label], ranks[0][label]
+        worst = 0.0
+        for s, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
+            if mb != ranks[1][label]["metrics"][s]:
+                raise AssertionError(f"DP {label} step {s}: the ranks' "
+                                     "metrics differ")
+            for k, va in ma.items():
+                vb = mb[k]
+                if not np.isfinite(vb):
+                    raise AssertionError(f"DP {label} step {s}: {k} {vb}")
+                if "acc" in k:  # a count of hits: one flip is 1/bs
+                    continue
+                rel = abs(vb - va) / max(abs(va), 1e-3)
+                worst = max(worst, rel)
+                if rel > (DP_METRIC[dtype] if s == 0 else DP_LATER_METRIC):
+                    raise AssertionError(f"DP {label} step {s}: {k} {vb} on "
+                                         f"2 ranks, {va} on one process")
+        dist = dp_distance(b, a)
+        if dtype == "float32":
+            tol = {k: max(2 * v, DP_STATE_MIN[k])
+                   for k, v in floor[label].items()}
+            ref = ("one process with nn.BatchNorm's two-pass variance: "
+                   + ", ".join(f"{k} {v:.3g}"
+                               for k, v in floor[label].items()))
+        else:
+            del dist["update"]
+            dist.update(dp_sites(label, b, a))
+            tol = DP_SITE_TOL
+            ref = (f"{len(a['sites'])} fused sites, N equal to one "
+                   "process's rows at each")
+        if any(v > tol[k] for k, v in dist.items()):
+            raise AssertionError(
+                f"DP {label}: after the first step, 2 ranks against one "
+                f"process: {dist}, tolerances {tol}")
+        total = (k1_total if fuse else pn_total)
+        for r in ranks:
+            for name, n in r[label]["launches"].items():
+                total[name] = total.get(name, 0) + n
+        per_rank = [r[label]["launches"] for r in ranks]
+        if per_rank[0] != per_rank[1] or per_rank[0] != a["launches"]:
+            raise AssertionError(f"DP {label}: launches a rank {per_rank}, "
+                                 f"one process {a['launches']}")
+        print(f"DP {label} global bs{bsz}, {steps} steps, 2 ranks x "
+              f"{bsz // 2} rows against one process: losses "
+              + ", ".join(f"{mb['loss']:.5f}/{ma['loss']:.5f}"
+                          for ma, mb in zip(a["metrics"], b["metrics"]))
+              + f"; {dtype}: worst loss rel diff {worst:.3g}; after the "
+              "first step "
+              + ", ".join(f"{k} {v:.3g}" for k, v in dist.items())
+              + f" ({ref}); tolerances {tol}; ranks equal bit for bit after every "
+              f"step; launches a rank {per_rank[0]} [{card}]")
+        print(f"DP {label}: step median {statistics.median(b['step_s']) * 1e3:.1f}"
+              f" ms on each of 2 ranks ({bsz // 2} rows) against "
+              f"{statistics.median(a['step_s']) * 1e3:.1f} ms for one "
+              f"process ({bsz} rows); {b['calls']:.0f} collectives a step, "
+              f"{b['coll_s'] * 1e3:.1f} ms a step in their calls (host "
+              f"clock) -- two ranks on one card over gloo: not a multi-card "
+              f"figure [{card}]")
+    print(f"DP phase: one-process references {t1 - t0:.1f} s, two ranks "
+          f"(start, build, {len(DP_CASES)} cases) {t2 - t1:.1f} s [{card}]")
+    return k1_total, pn_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_worker(sys.argv[2])
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2827,11 +3322,15 @@ def main() -> int:
                                    tmp)
         print(f"downstream phase wall time: "
               f"{time.perf_counter() - t_down:.1f} s [{card}]")
+        t_dp = time.perf_counter()
+        dp_k1, dp_pn = check_data_parallel(card)
+        print(f"data-parallel phase wall time: "
+              f"{time.perf_counter() - t_dp:.1f} s [{card}]")
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)
-    k1_runs += cli_k1 + vers_k1 + down_k1
-    pn_runs += cli_pn
+    k1_runs += cli_k1 + vers_k1 + down_k1 + [dp_k1]
+    pn_runs += cli_pn + [dp_pn]
     for entries, runs in ((k1, k1_runs), (points, pn_runs)):
         for entry, name in zip(entries, runs[0]):
             entry["launches"] = sum(r[name] for r in runs)

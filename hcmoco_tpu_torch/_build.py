@@ -113,9 +113,10 @@ def load() -> ctypes.CDLL:
             lib.hcmoco_mm_bn_stats.argtypes = [ci] + [vp] * 6 + [ci] * 3 + [vp]
             lib.hcmoco_mm_bn_dyt.argtypes = [ci] + [vp] * 5 + [ci, ci, vp]
             lib.hcmoco_bn_fwd.argtypes = ([ci] + [vp] * 12
-                                          + [ci, ci, f, f, f, f, vp])
+                                          + [ci, ci, ci, f, f, f, f, vp])
             lib.hcmoco_bn_bwd_slots.argtypes = [ci, ci]
-            lib.hcmoco_bn_bwd_stats.argtypes = [ci] + [vp] * 14 + [ci, ci, vp]
+            lib.hcmoco_bn_bwd_stats.argtypes = ([ci] + [vp] * 14
+                                                + [ci, ci, ci, vp])
             lib.hcmoco_bn_bwd_dy.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
             lib.hcmoco_fps_scratch.argtypes = [ci]
             lib.hcmoco_fps_scratch.restype = ctypes.c_longlong

@@ -6,6 +6,15 @@ Reference: `pycontrast/main_contrast.py` + the option surface of
 `config_from_args`, plus `--device` and `--packed_dir`.  One process drives
 one device: the card unless `--device cpu` asks for the CPU.
 
+Data parallelism: under torchrun (WORLD_SIZE in the environment), or with
+`--multihost` over torchrun's multi-node rendezvous (the counterpart of
+jax.distributed.initialize()), each process joins the process group (NCCL
+on the card, gloo on the CPU), drives cuda:LOCAL_RANK and trains on its
+rows of the global batch; `--batch_size` stays the global batch:
+  torchrun --nproc_per_node=4 -m hcmoco_tpu_torch.cli.main_contrast \
+      --recipe first_stage/ntumpiirgbd2s_hrnet_w18 ... --batch_size 224
+A plain `python -m` run is one process on one card.
+
 Usage:
   python -m hcmoco_tpu_torch.cli.main_contrast --method CMCRGBD2S \\
       --arch HRNet --dataset NTUMPII --data_folder ... --train_file_list ...
@@ -24,6 +33,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional
@@ -129,7 +140,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default="",
                    help="profiler trace directory (not ported yet: raises)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process training (not ported yet: raises)")
+                   help="data-parallel training over torchrun's (multi-node) "
+                        "rendezvous: join the process group its environment "
+                        "describes")
     return p
 
 
@@ -204,15 +217,60 @@ class RunResult:
     step_s: List[float] = field(default_factory=list)
 
 
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_PORT")
+
+
 def refuse_unported(args) -> None:
     """Raise for the flags whose ROADMAP item is not ported."""
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet: ROADMAP.md Queue 1 item 10 "
-            "(multi-GPU)")
     if args.profile_dir:
         raise NotImplementedError(
             "--profile_dir is not ported yet: ROADMAP.md Queue 1 item 14")
+
+
+def join_ranks(args, cfg: "TrainConfig") -> tuple:
+    """(rank, world size, device) of this process.  Under torchrun
+    (WORLD_SIZE in the environment) or --multihost it joins the process
+    group, NCCL on the card (cuda:LOCAL_RANK) and gloo on the CPU;
+    otherwise (0, 1, --device).  Exits with the JAX CLI's error when the
+    global batch does not split over the ranks (times --microbatch)."""
+    from ..parallel.mesh import init_distributed
+
+    missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
+    if args.multihost and missing:
+        raise NotImplementedError(
+            "--multihost joins the process group that torchrun's rendezvous "
+            f"describes, and {', '.join(missing)} is not set: launch with "
+            "torchrun (--nnodes/--rdzv_endpoint across hosts).  Finding a "
+            "cluster without it, as jax.distributed.initialize() does on "
+            "SLURM, is not ported (ROADMAP.md Queue 1 item 10 ports "
+            "torchrun's rendezvous)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to train on the CPU")
+    rank, size = 0, 1
+    if args.multihost or "WORLD_SIZE" in os.environ:
+        rank, size = init_distributed(device=args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    n = size * max(cfg.microbatch, 1)
+    if cfg.batch_size % n:
+        sys.exit(f"error: --batch_size {cfg.batch_size} must be divisible "
+                 f"by the {size}-device 'data' mesh axis"
+                 + (f" times --microbatch {cfg.microbatch}"
+                    if cfg.microbatch > 1 else ""))
+    return rank, size, device
+
+
+def shard_stream(batches, rows):
+    """This rank's rows of every batch of a host stream (the synthetic
+    sources, which generate the global batch); the stream itself when
+    rows is None."""
+    if rows is None:
+        yield from batches
+        return
+    for b in batches:
+        yield {k: np.ascontiguousarray(v[rows]) for k, v in b.items()}
 
 
 def print_options(cfg: "TrainConfig") -> None:
@@ -238,7 +296,7 @@ def graft_and_resume(cfg: "TrainConfig", state: "TrainState",
     if cfg.resume:
         state, last = ckpt.restore(state)
         start_epoch = last + 1
-        if last:
+        if last and ckpt.is_writer:
             print(f"=> resumed from epoch {last}")
     return state, ckpt, start_epoch
 
@@ -288,7 +346,8 @@ def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
             result.last_epoch = epoch
             if after_epoch is not None:
                 after_epoch(epoch)
-            print(f"epoch {epoch}, total time {time.time() - t0:.2f}")
+            if not logger.quiet:
+                print(f"epoch {epoch}, total time {time.time() - t0:.2f}")
             if args.max_steps and global_step >= args.max_steps:
                 break
     finally:
@@ -307,16 +366,44 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     if cfg.batch_size % max(cfg.microbatch, 1):
         raise ValueError(f"--microbatch {cfg.microbatch} does not divide "
                          f"--batch_size {cfg.batch_size}")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("main_contrast: no CUDA device is available; pass "
-                           "--device cpu to train on the CPU")
+    rank, size, device = join_ranks(args, cfg)
+    try:
+        return _run(args, cfg, rank, size, device, on_ready, on_step)
+    finally:
+        if size > 1 or "WORLD_SIZE" in os.environ:
+            from ..parallel.mesh import destroy
+            destroy()
 
+
+def rank_rows(cfg: "TrainConfig", rank: int, size: int):
+    """This rank's rows of the global batch, None in a world of one."""
+    from ..parallel.mesh import shard_positions
+
+    if size == 1:
+        return None
+    return shard_positions(cfg.batch_size, rank, size,
+                           max(cfg.microbatch, 1))
+
+
+def decode_threads(args, size: int) -> int:
+    """--num_workers, divided by the ranks on this host under data
+    parallelism (at least 1)."""
+    from ..parallel.mesh import local_world_size
+
+    if size == 1:
+        return args.num_workers
+    return max(args.num_workers // local_world_size(), 1)
+
+
+def _run(args, cfg: "TrainConfig", rank: int, size: int, device,
+         on_ready, on_step) -> RunResult:
     from ..models.build import build_model
     from ..train.contrast_step import make_contrast_train_step
     from ..train.state import create_train_state
 
-    print_options(cfg)
+    if rank == 0:
+        print_options(cfg)
+    rows = rank_rows(cfg, rank, size)
 
     if args.synthetic:
         from ..data.synthetic import SyntheticContrastSource
@@ -327,16 +414,17 @@ def main(argv=None, on_ready: Optional[Callable] = None,
             num_joints=cfg.num_joints, n_data=n_data, seed=cfg.seed,
             modal=cfg.modal)
         steps_per_epoch = max(n_data // cfg.batch_size, 1)
+        it = shard_stream(iter(source), rows)
     else:
         from ..data.pipeline import build_contrast_source
 
         source, n_data, steps_per_epoch = build_contrast_source(
-            cfg, num_workers=args.num_workers)
+            cfg, num_workers=decode_threads(args, size), rows=rows)
+        it = iter(source)
 
     torch.manual_seed(cfg.seed)  # the model's initial weights
     model = build_model(cfg, device=device).to(
         memory_format=torch.channels_last)
-    it = iter(source)
     try:
         # the JAX CLI draws one batch to initialise its state; drawing it
         # here too keeps the two CLIs' data streams aligned
@@ -352,8 +440,9 @@ def main(argv=None, on_ready: Optional[Callable] = None,
                 if path:
                     n = load_imagenet_pretrained(path, model,
                                                  encoder_names=(enc,))
-                    print(f"=> loaded {n} conv tensors into {enc} from "
-                          f"{path}")
+                    if rank == 0:
+                        print(f"=> loaded {n} conv tensors into {enc} "
+                              f"from {path}")
         state, ckpt, start_epoch = graft_and_resume(
             cfg, state, f"{cfg.model_path}/{cfg.model_name}")
         if on_ready is not None:

@@ -8,7 +8,10 @@ supervision `--supervise_type` picks; every epoch the rgb, d and rgbd heads
 are validated and the best mIoU of the `--test_type` head is kept
 (:96-128).  The pre-training CLI's flags (cli/main_contrast.py) plus the
 versatility ones; one process drives one device, the card unless
-`--device cpu` asks for the CPU.
+`--device cpu` asks for the CPU.  Under torchrun (or `--multihost`) it
+trains data-parallel as cli/main_contrast.py does: `--batch_size` is the
+global batch, each rank decodes and validates its rows, and the
+validation counts are summed over the ranks.
 
 Usage:
   python -m hcmoco_tpu_torch.cli.main_segmentor \\
@@ -28,6 +31,7 @@ classifier beside the model; cli/transfer_ckpt.py exports their encoders.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -35,8 +39,9 @@ import numpy as np
 import torch
 
 from .main_contrast import (RunResult, build_argparser, config_from_args,
-                            graft_and_resume, print_options, refuse_unported,
-                            train_epochs)
+                            decode_threads, graft_and_resume, join_ranks,
+                            print_options, rank_rows, refuse_unported,
+                            shard_stream, train_epochs)
 
 
 @dataclass
@@ -65,8 +70,10 @@ def synthetic_labels(batches: Iterator[Dict[str, np.ndarray]], n_class: int,
 def validate(eval_fn: Callable, source, n_batches: int, device,
              n_class: int) -> Dict[str, Dict[str, float]]:
     """n_batches of `source` through eval_fn; the counts summed in float64
-    on the host, then {head: {aacc, miou, macc}}."""
+    on the host (and over the ranks, each of which validates its rows),
+    then {head: {aacc, miou, macc}}."""
     from ..data.pipeline import to_device
+    from ..parallel.mesh import global_sum, world_size
     from ..train.segment_step import SEG_HEADS, calc_seg_metrics
 
     totals = np.zeros((len(SEG_HEADS), 4, n_class), np.float64)
@@ -78,8 +85,11 @@ def validate(eval_fn: Callable, source, n_batches: int, device,
                 .numpy().astype(np.float64)
     finally:
         it.close()
+    totals = torch.from_numpy(totals)
+    if world_size() > 1:
+        totals = global_sum(totals.to(device)).cpu()
     results = {}
-    for name, t in zip(SEG_HEADS, torch.from_numpy(totals)):
+    for name, t in zip(SEG_HEADS, totals):
         aacc, miou, macc, _, _ = calc_seg_metrics(*t)
         results[name] = dict(aacc=float(aacc), miou=float(miou),
                              macc=float(macc))
@@ -104,19 +114,26 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     if cfg.microbatch > 1:
         raise ValueError("the segment step has no microbatch form (nor has "
                          "the JAX package's)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("main_segmentor: no CUDA device is available; "
-                           "pass --device cpu to train on the CPU")
+    rank, size, device = join_ranks(args, cfg)
+    try:
+        return _run(args, cfg, rank, size, device, on_ready, on_step)
+    finally:
+        if size > 1 or "WORLD_SIZE" in os.environ:
+            from ..parallel.mesh import destroy
+            destroy()
 
+
+def _run(args, cfg, rank: int, size: int, device, on_ready,
+         on_step) -> SegRunResult:
     from ..models.build import build_model
     from ..models.heads import FCNHead
     from ..train.segment_step import (TEST_HEAD, make_segment_train_step,
                                       make_validate_fn)
     from ..train.state import create_train_state
 
-    print_options(cfg)
-
+    if rank == 0:
+        print_options(cfg)
+    rows = rank_rows(cfg, rank, size)
     val_source = None
     if args.synthetic:
         from ..data.synthetic import SyntheticContrastSource
@@ -126,21 +143,23 @@ def main(argv=None, on_ready: Optional[Callable] = None,
             cfg.batch_size, size=cfg.crop_size, num_joints=cfg.num_joints,
             n_data=n_data, seed=cfg.seed)
         steps_per_epoch = max(n_data // cfg.batch_size, 1)
-        it = synthetic_labels(iter(source), cfg.n_class, cfg.seed)
+        it = shard_stream(synthetic_labels(iter(source), cfg.n_class,
+                                           cfg.seed), rows)
     else:
         from ..data.combined import NTUSegJoint
         from ..data.pipeline import DataSource, build_contrast_source
 
+        threads = decode_threads(args, size)
         source, n_data, steps_per_epoch = build_contrast_source(
-            cfg, num_workers=args.num_workers)
+            cfg, num_workers=threads, rows=rows)
         it = iter(source)
         val_ds = NTUSegJoint(
             cfg.data_folder, cfg.train_file_list, cfg.seg_root,
             cfg.seg_val_file_list, size=cfg.crop_size,
             random_resized_crop=True, only_seg=True, seed=cfg.seed + 1)
         val_source = DataSource(val_ds, cfg.batch_size, np.ones(len(val_ds)),
-                                seed=cfg.seed + 2,
-                                num_workers=args.num_workers)
+                                seed=cfg.seed + 2, num_workers=threads,
+                                rows=rows)
         n_val_batches = max(len(val_ds) // cfg.batch_size, 1)
 
     torch.manual_seed(cfg.seed)  # the model's and classifier's weights
@@ -171,13 +190,14 @@ def main(argv=None, on_ready: Optional[Callable] = None,
                 return
             results = validate(eval_fn, val_source, n_val_batches, device,
                                cfg.n_class)
+            say = print if rank == 0 else (lambda *a: None)
             for name, r in results.items():
-                print(f"val[{name}] mIoU {r['miou']:.4f} "
-                      f"mAcc {r['macc']:.4f} aAcc {r['aacc']:.4f}")
+                say(f"val[{name}] mIoU {r['miou']:.4f} "
+                    f"mAcc {r['macc']:.4f} aAcc {r['aacc']:.4f}")
             result.val.append(results)
             if results[test_head]["miou"] > result.best_miou:
                 result.best_miou = results[test_head]["miou"]
-                print(f"new best {test_head} mIoU: {result.best_miou:.4f}")
+                say(f"new best {test_head} mIoU: {result.best_miou:.4f}")
 
         train_epochs(args, cfg, state, it, device, ckpt, result,
                      make_segment_train_step(cfg, model, classifier,

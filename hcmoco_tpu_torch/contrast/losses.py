@@ -14,7 +14,17 @@ contrast_trainer.py:
 
 The reference's data-dependent early returns become masked means with
 clamped denominators, as in the JAX package, so the step never syncs with
-the host on the masks.  Dense maps are NCHW (B, C, h, w), the port's
+the host on the masks.
+
+Under data parallelism (parallel/mesh.py) the losses are the JAX
+package's global-batch means: each rank keeps its numerators local, and
+every denominator and gate (mask counts, `use_depth.sum() > 0`) is summed
+over the ranks with no gradient.  A rank's loss is then its share of the
+global loss, the shares add up to it over the ranks, and so do their
+gradients (the step all-reduces the gradients as a sum).  In a world of
+one every function here computes what it did before.
+
+Dense maps are NCHW (B, C, h, w), the port's
 layout; the joint index follows the reference: joints2d[..., 0] is the
 row, [..., 1] the column, flat index row * h + col after //4 and clamping.
 """
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 from ..models.heads import gaussian_blur_nhwc
 from ..models.hrnet import nearest_resize
 from ..ops.point_ops import gather_points
+from ..parallel.mesh import gather_rows, global_sum, my_rows, world_size
 from .memory import _l2norm
 
 
@@ -40,11 +51,20 @@ def _pixel_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """mean of x over rows where mask, 0 if the mask is empty."""
+    """mean of x over rows where mask, 0 if the mask is empty; the mask's
+    count is the global batch's (this rank's share of the mean)."""
     mask = mask.float()
-    total = mask.sum()
+    total = global_sum(mask.sum())
     return torch.sum(x * mask) / torch.clamp(total, min=1.0) \
         * torch.sign(total)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """x.mean() over the global batch's rows (this rank's share)."""
+    size = world_size()
+    if size == 1:
+        return x.mean()
+    return x.sum() / (x.numel() * size)
 
 
 def per_sample_nce(logits: torch.Tensor):
@@ -72,12 +92,12 @@ def masked_six_way(per_sample: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         if use_depth is None:
             raise ValueError("masked_six_way: use_rgb needs use_depth")
         together = (use_depth == 1) & (use_rgb == 1)
-        any_together = together.sum() > 0
+        any_together = global_sum(together.sum()) > 0
         for i, (ce, cor) in enumerate(per_sample):
             loss, acc = _masked_mean(ce, together), _masked_mean(cor, together)
             if i >= 4:
-                loss = torch.where(any_together, loss, ce.mean())
-                acc = torch.where(any_together, acc, cor.mean())
+                loss = torch.where(any_together, loss, _mean(ce))
+                acc = torch.where(any_together, acc, _mean(cor))
             losses.append(loss)
             accs.append(acc)
     elif use_depth is not None:
@@ -87,12 +107,12 @@ def masked_six_way(per_sample: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                 losses.append(_masked_mean(ce, depth_ok))
                 accs.append(_masked_mean(cor, depth_ok))
             else:
-                losses.append(ce.mean())
-                accs.append(cor.mean())
+                losses.append(_mean(ce))
+                accs.append(_mean(cor))
     else:
         for ce, cor in per_sample:
-            losses.append(ce.mean())
-            accs.append(cor.mean())
+            losses.append(_mean(ce))
+            accs.append(_mean(cor))
     return losses, accs
 
 
@@ -129,16 +149,20 @@ def soft_pri3d_loss(merge1: torch.Tensor, merge2: torch.Tensor,
     cross-entropied against softmax(-pixel distance) along the key axis
     (dim 1).  An image with no valid pixel contributes 0, and the whole
     loss is 0 when use_depth has no 1 (the reference's early return, which
-    is its only use of use_depth here).  Returns ([rgb2depth, depth2rgb]
-    losses, [their accuracies])."""
+    is its only use of use_depth here).  Under data parallelism the pixels
+    are drawn for the global batch (its masks gathered) and each rank keeps
+    its rows, so the ranks draw what one process would.  Returns
+    ([rgb2depth, depth2rgb] losses, [their accuracies])."""
     b, _, h, w = merge1.shape
     mask_small = nearest_resize(depth_mask.float()[:, None], h, w)
     mask_small = mask_small.reshape(b, h * w)
     img_ok = mask_small.sum(-1) > 0
-    batch_ok = (use_depth.sum() > 0).float() if use_depth is not None \
-        else 1.0
+    batch_ok = (global_sum(use_depth.sum()) > 0).float() \
+        if use_depth is not None else 1.0
     if sample_ind is None:
-        sample_ind = sample_valid_pixels(mask_small, num_samples, generator)
+        full = gather_rows(mask_small)  # the global batch's masks
+        sample_ind = sample_valid_pixels(
+            full, num_samples, generator)[my_rows(full.shape[0])]
     g1 = _l2norm(gather_points(_pixel_rows(merge1), sample_ind))
     g2 = _l2norm(gather_points(_pixel_rows(merge2), sample_ind))
     # logits[b, i, j] = <key_i, query_j> / T (matmul(m2^T, m1), :700)
@@ -192,7 +216,7 @@ def _masked_ce(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     logsoft = F.log_softmax(logits.float(), dim=1)
     ce = -torch.diagonal(logsoft, dim1=1, dim2=2)  # (B, J)
     v = valid.float()
-    return torch.sum(ce * v) / torch.clamp(v.sum(), min=1.0)
+    return torch.sum(ce * v) / torch.clamp(global_sum(v.sum()), min=1.0)
 
 
 def joints_pri3d_loss(rgb_map: torch.Tensor, d_map: torch.Tensor,
@@ -220,20 +244,19 @@ def joints_pri3d_loss(rgb_map: torch.Tensor, d_map: torch.Tensor,
     return losses, accs
 
 
-def cross_subject_scl_loss(rgb_map: torch.Tensor, d_map: torch.Tensor,
-                           joints2d: torch.Tensor, use_depth: torch.Tensor,
-                           use_rgb: torch.Tensor,
-                           temperature: float) -> torch.Tensor:
-    """Structure-aware cross-sample contrast (contrast_trainer.py:830-892):
-    the batch's rgb and depth joint features stacked (2*B*J, C); the
-    positives of a row are the same joint id in every other row; rows and
-    columns of a missing modality are dropped; loss = the mean over rows
-    of -mean over positives of log-softmax.  0 when no sample has depth
-    (the reference's early return)."""
-    b, c = rgb_map.shape[:2]
-    j = joints2d.shape[1]
-    rgb_j = _l2norm(gather_joint_features(rgb_map, joints2d))
-    d_j = _l2norm(gather_joint_features(d_map, joints2d))
+def scl_joint_features(rgb_map: torch.Tensor, d_map: torch.Tensor,
+                       joints2d: torch.Tensor):
+    """The L2-normalised (B, J, C) rgb and depth joint features that the
+    cross-subject SCL contrasts."""
+    return (_l2norm(gather_joint_features(rgb_map, joints2d)),
+            _l2norm(gather_joint_features(d_map, joints2d)))
+
+
+def scl_loss(rgb_j: torch.Tensor, d_j: torch.Tensor,
+             use_depth: torch.Tensor, use_rgb: torch.Tensor,
+             temperature: float) -> torch.Tensor:
+    """cross_subject_scl_loss from the joint features of its group."""
+    b, j, c = rgb_j.shape
     cat = torch.cat([rgb_j.reshape(b * j, c), d_j.reshape(b * j, c)])
     n = 2 * b * j
     logsoft = F.log_softmax(cat @ cat.t() / temperature, dim=1)
@@ -246,3 +269,18 @@ def cross_subject_scl_loss(rgb_map: torch.Tensor, d_map: torch.Tensor,
     row_loss = -(logsoft * pos).sum(-1) / torch.clamp(pos.sum(-1), min=1.0)
     loss = row_loss.mean()
     return torch.where(use_depth.sum() > 0, loss, torch.zeros_like(loss))
+
+
+def cross_subject_scl_loss(rgb_map: torch.Tensor, d_map: torch.Tensor,
+                           joints2d: torch.Tensor, use_depth: torch.Tensor,
+                           use_rgb: torch.Tensor,
+                           temperature: float) -> torch.Tensor:
+    """Structure-aware cross-sample contrast (contrast_trainer.py:830-892):
+    the batch's rgb and depth joint features stacked (2*B*J, C); the
+    positives of a row are the same joint id in every other row; rows and
+    columns of a missing modality are dropped; loss = the mean over rows
+    of -mean over positives of log-softmax.  0 when no sample has depth
+    (the reference's early return).  The batch is the group: the train
+    step groups it (contrast_step._scl_grouped)."""
+    return scl_loss(*scl_joint_features(rgb_map, d_map, joints2d),
+                    use_depth, use_rgb, temperature)

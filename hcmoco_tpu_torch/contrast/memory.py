@@ -19,6 +19,12 @@ one estimator:
     n_data).
 
 Bank rows carry no gradient (torch buffers in the reference).
+
+Under data parallelism (parallel/mesh.py) the banks are replicated: the
+negatives are drawn for the global batch from a generator seeded alike on
+every rank, each rank keeping its rows, and the bank update takes the
+features and indices of all the ranks in global row order, so every rank
+applies the update one process would, duplicates across ranks included.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import my_rows, world_size
 
 # (query feat index, bank index) for the six CMCMem3 directions
 # 12, 21, 23, 32, 13, 31 (mem_bank.py:176-191)
@@ -50,9 +58,11 @@ def sample_negative_indices(generator: torch.Generator, y: torch.Tensor,
                             n_data: int, k: int) -> torch.Tensor:
     """(bsz, K+1) int64 uniform draws from `generator` (on y's device) with
     the positive forced into column 0 (mem_bank.py:68-70:
-    `idx.select(1, 0).copy_(y)`)."""
-    idx = torch.randint(0, n_data, (y.shape[0], k + 1), generator=generator,
-                        device=y.device)
+    `idx.select(1, 0).copy_(y)`).  Under data parallelism the draw is the
+    global batch's and this rank keeps its rows."""
+    rows = y.shape[0] * world_size()
+    idx = torch.randint(0, n_data, (rows, k + 1), generator=generator,
+                        device=y.device)[my_rows(rows)]
     idx[:, 0] = y.long()
     return idx
 
@@ -62,9 +72,11 @@ def sample_negative_counts(generator: torch.Generator, bsz: int, n_data: int,
     """(bsz, n_data) f32 counts of k uniform draws per row, i.e.
     Multinomial(k, uniform): the draws' bincount.  The counts are integers
     below 2^24, so the f32 scatter-add is exact and the result does not
-    depend on the order of the adds, on CUDA too."""
-    idx = torch.randint(0, n_data, (bsz, k), generator=generator,
-                        device=device)
+    depend on the order of the adds, on CUDA too.  Under data parallelism
+    the draw is the global batch's and this rank keeps its bsz rows."""
+    rows = bsz * world_size()
+    idx = torch.randint(0, n_data, (rows, k), generator=generator,
+                        device=device)[my_rows(rows)]
     counts = torch.zeros((bsz, n_data), dtype=torch.float32, device=device)
     return counts.scatter_add_(1, idx, torch.ones(idx.shape, device=device))
 

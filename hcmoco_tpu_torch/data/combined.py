@@ -30,7 +30,8 @@ import numpy as np
 from PIL import Image
 
 from .ntu import NTUSkeleton3D, load_depth_png
-from .mpii import load_mpii_db, mpii_gcn_item, MPII_NUM_JOINTS
+from .mpii import (load_mpii_db, mpii_gcn_item, skip_mpii_draws,
+                   MPII_NUM_JOINTS)
 from .coco import (load_coco_keypoint_db, coco_reduce, kinect_reduce)
 from .transforms import (
     KINECT2MPII, COCO_REDUCE_FLIP_PAIRS, MPII_FLIP_PAIRS,
@@ -160,6 +161,14 @@ class NTUMPIIGCN:
     @property
     def aux_len(self):
         return len(self.db)
+
+    def skip_draws(self, index) -> None:
+        """Consume sample `index`'s draws without decoding it."""
+        if index < len(self.db):
+            skip_mpii_draws(self._rng, self.ntu.random_resized_crop,
+                            self.ntu.random_flip)
+        else:
+            self.ntu.skip_draws(index - len(self.db))
 
     def __getitem__(self, index) -> Dict[str, np.ndarray]:
         if index < len(self.db):
@@ -297,6 +306,10 @@ class NTUSegJoint:
     def aux_len(self):
         # weighted-sampler balance partner = seg frames (util.py:574-576)
         return len(self.ntu.image_list) - self.split
+
+    def skip_draws(self, index) -> None:
+        """Consume sample `index`'s draws without decoding it."""
+        self.ntu.skip_draws(index)
 
     def __getitem__(self, index) -> Dict[str, np.ndarray]:
         out, params = _ntu_gcn_fields(

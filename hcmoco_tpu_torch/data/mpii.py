@@ -63,6 +63,18 @@ def load_image_rgb(path: str) -> np.ndarray:
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
+def skip_mpii_draws(rng: np.random.Generator, random_resized_crop: bool,
+                    random_flip: bool) -> None:
+    """Consume the draws of one mpii_gcn_item without decoding it (a
+    data-parallel rank skipping another rank's row), in its order."""
+    if random_resized_crop:
+        rng.standard_normal()
+        if rng.random() < 0.6:
+            rng.standard_normal()
+    if random_flip:
+        rng.random()
+
+
 def mpii_gcn_item(rec: dict, size: int, rng: np.random.Generator,
                   random_resized_crop: bool, random_flip: bool
                   ) -> Dict[str, np.ndarray]:

@@ -140,6 +140,37 @@ class NTUSkeleton3D(NTURGBDPairs):
         self._pair_cache = (index, img, depth)
         return img.size[1], img.size[0]
 
+    def _header_hw(self, index):
+        """(frame_h, frame_w) from the image file's header alone."""
+        with Image.open(self.image_list[index]) as img:
+            return img.size[1], img.size[0]
+
+    def _draw_crop(self, sk: dict, original_h: int, original_w: int):
+        """(i, j, h, w, need_flip) of one sample: every draw load_raw
+        makes from the dataset's generator, in its order."""
+        rng = self._rng
+        if self.random_resized_crop:
+            joints2d = np.asarray(sk["joints"][0]["d_loc"],
+                                  np.float32)
+            hx0, hx1 = joints2d[:, 1].min(), joints2d[:, 1].max()
+            hy0, hy1 = joints2d[:, 0].min(), joints2d[:, 0].max()
+            rand_x = int(rng.integers(int(hx0), max(int(hx1), int(hx0) + 1)))
+            rand_y = int(rng.integers(int(hy0), max(int(hy1), int(hy0) + 1)))
+            _, _, h, w = random_resized_crop_params(
+                rng, original_h, original_w, (0.08, 1.2), (1.0, 1.0))
+            i = int(rand_x - h / 2.0)
+            j = int(rand_y - w / 2.0)
+        else:
+            i, j, h, w = 0, 0, original_w, original_h
+        # the flip is drawn last (the load/resize consumes no randomness)
+        return i, j, h, w, bool(rng.random() >= 0.5)
+
+    def skip_draws(self, index) -> None:
+        """Consume the draws of sample `index` without decoding it: a
+        data-parallel rank's DataSource skips the other ranks' rows so
+        that its own draw what one process would."""
+        self._draw_crop(self._skeleton_dict(index), *self._header_hw(index))
+
     def _load_region(self, index, i, j, h, w):
         """(rgb uint8 (h,w,3), depth uint16 (h,w)) crop window, zero-padded
         outside the frame.  File-backed default decodes the full frame;
@@ -167,7 +198,6 @@ class NTUSkeleton3D(NTURGBDPairs):
         (e.g. batch-array slots) the crop/resample writes into directly —
         the packed+native path then produces the batch with ZERO extra
         sample copies (raw_output mode only)."""
-        rng = self._rng
         original_h, original_w = self._frame_hw(index)
 
         sk = self._skeleton_dict(index)
@@ -177,28 +207,14 @@ class NTUSkeleton3D(NTURGBDPairs):
                               np.float32)
         joints3d = joints3d - joints3d[0]
 
+        i, j, h, w, need_flip = self._draw_crop(sk, original_h, original_w)
         if self.random_resized_crop:
-            joints2d = np.asarray(sk["joints"][0]["d_loc"],
-                                  np.float32)
-            hx0, hx1 = joints2d[:, 1].min(), joints2d[:, 1].max()
-            hy0, hy1 = joints2d[:, 0].min(), joints2d[:, 0].max()
-            rand_x = int(rng.integers(int(hx0), max(int(hx1), int(hx0) + 1)))
-            rand_y = int(rng.integers(int(hy0), max(int(hy1), int(hy0) + 1)))
-            _, _, h, w = random_resized_crop_params(
-                rng, original_h, original_w, (0.08, 1.2), (1.0, 1.0))
-            i = int(rand_x - h / 2.0)
-            j = int(rand_y - w / 2.0)
-            # flip is drawn here (same RNG order as the crop->resize->flip
-            # sequence: the load/resize consumes no randomness)
-            need_flip = bool(rng.random() >= 0.5)
             rgb_arr, depth_arr = self._crop_resize_pair(
                 index, i, j, h, w, self.random_flip and need_flip,
                 out_pair=out_pair)
         else:
-            i, j, h, w = 0, 0, original_w, original_h
             rgb_full, depth_full = self._load_region(
                 index, 0, 0, original_h, original_w)
-            need_flip = bool(rng.random() >= 0.5)
             if self.random_flip and need_flip:
                 rgb_full = rgb_full[:, ::-1]
                 depth_full = depth_full[:, ::-1]

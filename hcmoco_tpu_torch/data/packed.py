@@ -110,6 +110,8 @@ class PackedNTUSkeleton(NTUSkeleton3D):
         # constant frame size from the pack header — no page-in at all
         return self.meta["h"], self.meta["w"]
 
+    _header_hw = _frame_hw
+
     def _load_region(self, index, i, j, h, w):
         """Read ONLY the crop window's bytes from the mmap (the whole point
         of the packed format: the kernel pages in ~h*w rows, not frames)."""

@@ -9,7 +9,11 @@ per-rank DataLoader.
 
 Deltas from the reference: one batch stream (no per-rank loaders /
 DistributedSamplerWrapper), and a background thread pool decodes samples
-ahead of the device step.  The weighting math is identical:
+ahead of the device step.  Under data parallelism every rank draws the
+same global batch of indices and decodes only its rows of it (`rows`):
+the other rows' random draws are consumed without a decode
+(`skip_draws`), so the ranks' batches concatenate to the one-process
+batch.  The weighting math is identical:
   NTU-vs-db:   w[db]  = ntu_len/total,  w[ntu] = db_len/total
   NTU-vs-seg:  w[ntu] = seg_len/total,  w[seg] = ntu_len/total
 (util.py:570-576; note the NTUSeg case flips which side is "first").
@@ -55,15 +59,32 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 
 class DataSource:
-    """Iterable of collated batches with a thread-pool prefetcher."""
+    """Iterable of collated batches with a thread-pool prefetcher.
+
+    rows: the positions in each global batch of `batch_size` that this
+    source decodes (a data-parallel rank's, mesh.shard_positions), in
+    order; None decodes them all.  Every sample's draws come from its
+    dataset's generator in global-batch order, the skipped rows' through
+    the dataset's skip_draws, so at num_workers=1 the ranks' batches are
+    the rows of the one-process batch (with more workers the shared
+    generator makes the draws depend on thread timing, as it does for one
+    process)."""
 
     def __init__(self, dataset, batch_size: int, weights: np.ndarray,
-                 seed: int = 0, num_workers: int = 8, prefetch: int = 2):
+                 seed: int = 0, num_workers: int = 8, prefetch: int = 2,
+                 rows=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = WeightedBatchSampler(weights, seed)
         self.num_workers = max(num_workers, 1)
         self.prefetch = prefetch
+        self.rows = list(range(batch_size))
+        if rows is not None and len(rows) < batch_size:
+            if not hasattr(dataset, "skip_draws"):
+                raise NotImplementedError(
+                    f"{type(dataset).__name__} cannot skip another rank's "
+                    "rows (no skip_draws): it is not sharded yet")
+            self.rows = [int(r) for r in rows]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         pool = cf.ThreadPoolExecutor(self.num_workers)
@@ -78,11 +99,23 @@ class DataSource:
                                             False):
             into = None  # slot protocol is raw-output-mode only
 
+        own = self.rows
+        slot = {p: k for k, p in enumerate(own)}
+
         def make_batch():
             idx = self.sampler.draw(self.batch_size)
+            # a rank submits its rows' decodes in global order, the other
+            # rows' skip_draws in between
             if into is None:
-                return [pool.submit(self.dataset.__getitem__, int(i))
-                        for i in idx]
+                futs, skips = {}, []
+                for p, i in enumerate(idx):
+                    if p in slot:
+                        futs[p] = pool.submit(self.dataset.__getitem__,
+                                              int(i))
+                    else:
+                        skips.append(pool.submit(self.dataset.skip_draws,
+                                                 int(i)))
+                return [futs[p] for p in own], skips
             # batch arrays are allocated from sample 0's shapes by the
             # FIRST pool job; later slots gate on the allocation event.
             # Everything flows through the pool in submission order so the
@@ -91,13 +124,14 @@ class DataSource:
             # tests/test_packed.py::test_slot_writer_path_matches_collate).
             out: Dict[str, np.ndarray] = {}
             ready = threading.Event()
+            n_rows = len(own)
 
             def first(i):
                 try:
                     s0 = self.dataset[int(i)]
                     for k, v in s0.items():
                         out[k] = np.empty(
-                            (self.batch_size,) + np.shape(v),
+                            (n_rows,) + np.shape(v),
                             np.asarray(v).dtype)
                         out[k][0] = v
                 finally:
@@ -107,9 +141,15 @@ class DataSource:
                 ready.wait()
                 into(int(i), out, b)
 
-            futs = [pool.submit(first, int(idx[0]))]
-            futs += [pool.submit(rest, int(i), b)
-                     for b, i in enumerate(idx) if b > 0]
+            futs = []
+            for p, i in enumerate(idx):
+                b = slot.get(p)
+                if b is None:
+                    futs.append(pool.submit(self.dataset.skip_draws, int(i)))
+                elif b == 0:
+                    futs.append(pool.submit(first, int(i)))
+                else:
+                    futs.append(pool.submit(rest, int(i), b))
             return out, futs
 
         for _ in range(self.prefetch):
@@ -119,7 +159,10 @@ class DataSource:
                 item = pending.pop(0)
                 pending.append(make_batch())
                 if into is None:
-                    yield collate([f.result() for f in item])
+                    futs, skips = item
+                    for f in skips:
+                        f.result()
+                    yield collate([f.result() for f in futs])
                 else:
                     out, futs = item
                     for f in futs:
@@ -129,11 +172,12 @@ class DataSource:
             pool.shutdown(wait=False, cancel_futures=True)
 
 
-def build_contrast_source(cfg, num_workers: int = 8):
+def build_contrast_source(cfg, num_workers: int = 8, rows=None):
     """Dataset registry dispatch (modal2Dataset, dataset.py:1120-1128 +
     loader wiring util.py:537-578). Returns (source, n_data,
     steps_per_epoch).  num_workers: the DataSource's decode threads (the
-    JAX package fixes 8)."""
+    JAX package fixes 8); rows: the global batch's rows this source
+    decodes (DataSource)."""
     from .ntu import NTURGBDPairs, NTUSkeleton3D, NTUHeatmap
     from .combined import NTUMPIIGCN, NTUCOCOGCN, NTUSegJoint
 
@@ -184,7 +228,7 @@ def build_contrast_source(cfg, num_workers: int = 8):
         weights = mixing_weights(len(ds), first_len, second_len)
 
     source = DataSource(ds, cfg.batch_size, weights, seed=cfg.seed,
-                        num_workers=num_workers)
+                        num_workers=num_workers, rows=rows)
     steps_per_epoch = max(len(ds) // cfg.batch_size, 1)
     return source, len(ds), steps_per_epoch
 

@@ -114,6 +114,17 @@ class ITOPDataset:
     def __len__(self):
         return len(self.files)
 
+    def skip_draws(self, index) -> None:
+        """Consume a sample's augmentation draws without loading it (a
+        data-parallel rank skipping another rank's row), in
+        preprocess_frame's order."""
+        if self.augment:
+            rng = self._rng
+            for _ in range(4):
+                rng.integers(-RAND_CROP_SHIFT, RAND_CROP_SHIFT)
+            rng.integers(-RAND_ROTATE, RAND_ROTATE)
+            rng.random()
+
     def __getitem__(self, index) -> Dict[str, np.ndarray]:
         mat = self._scio.loadmat(self.files[index])
         depth = mat["DepthNormal"][..., 3].astype(np.float32) \

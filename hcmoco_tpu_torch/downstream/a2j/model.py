@@ -22,6 +22,7 @@ from torch import nn
 
 from ...core.config import HRNET_CONFIGS
 from ...models.hrnet import HRNet, merge_all_res, stat_dtype
+from ...parallel.batchnorm import GlobalBatchNorm2d
 from ..seg.model import merged_channels
 
 
@@ -42,8 +43,8 @@ class AnchorHead(nn.Module):
             cin = in_channels if i == 1 else feature_size
             setattr(self, f"conv{i}",
                     nn.Conv2d(cin, feature_size, 3, padding=1))
-            setattr(self, f"bn{i}", nn.BatchNorm2d(feature_size,
-                                                   momentum=0.1))
+            setattr(self, f"bn{i}", GlobalBatchNorm2d(feature_size,
+                                                      momentum=0.1))
         self.output = nn.Conv2d(
             feature_size, num_anchors * num_classes * out_per_anchor, 3,
             padding=1)

@@ -12,7 +12,12 @@ add_decayed_weights -> scale_by_adam (eps outside the square root); the
 StepLR is a staircase at lr_step x steps-per-epoch optimizer steps, set
 before each step.  `--arch resnet50` raises: ROADMAP.md Queue 1 item 11.
 Convs run in bf16 (f32 with `--synthetic`); HCMOCO_CONVBN_FUSE=1 sends
-the backbone's 1x1 ConvBN sites through K1/K1b in training.
+the backbone's 1x1 ConvBN sites through K1/K1b in training.  Under
+torchrun it trains data-parallel as the pre-training CLI does
+(parallel/mesh.py): `--batch_size` is the global batch, each rank decodes
+its rows, BN is the global batch's, each rank's loss is its share of the
+global mean and the gradients are summed over the ranks; every rank
+evaluates the whole test set with the same weights, rank 0 prints.
 
 Usage:
   python -m hcmoco_tpu_torch.downstream.a2j.train --train_dir ... \\
@@ -23,6 +28,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import pickle
 import time
 from typing import Callable, Optional
@@ -63,6 +69,9 @@ def build_argparser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run; 'cpu' is the one way "
                         "onto the CPU")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel training over torchrun's (multi-node) "
+                        "rendezvous")
     return p
 
 
@@ -74,6 +83,9 @@ class SyntheticITOP:
 
     def __len__(self):
         return self.n
+
+    def skip_draws(self, i) -> None:
+        """Nothing to consume: each sample draws from its own generator."""
 
     def __getitem__(self, i):
         from .data import DEPTH_FACTOR, KEYPOINTS
@@ -119,7 +131,12 @@ def hrnet_anchors(crop: int, device) -> torch.Tensor:
 def make_train_step(model, optimizer, lr_fn, anchors, args) -> Callable:
     """step(batch, step) -> metrics: the lr set from lr_fn(step), the
     model's forward on batch['depth'] (B, H, W, 1) as NCHW, the A2J losses
-    (cls + reg x reg_loss_factor), one optimizer step."""
+    (cls + reg x reg_loss_factor; means over the rank's rows, so a rank's
+    share of the global mean is its mean over the world size), the
+    gradients summed over the ranks (run.sync_step), one optimizer
+    step."""
+    from ...parallel.mesh import world_size
+    from ..run import sync_step
     from .anchors import a2j_loss
 
     def step(batch, gstep: int):
@@ -130,12 +147,18 @@ def make_train_step(model, optimizer, lr_fn, anchors, args) -> Callable:
         heads = model(batch["depth"].permute(0, 3, 1, 2))
         cls_l, reg_l = a2j_loss(heads, batch["label"], anchors,
                                 spatial_factor=args.spatial_factor)
+        size = world_size()
+        if size > 1:
+            cls_l, reg_l = cls_l / size, reg_l / size
         loss = cls_l + reg_l * args.reg_loss_factor
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = sync_step(model.parameters(), {
+            "loss": loss.detach(), "cls_loss": cls_l.detach(),
+            "reg_loss": reg_l.detach()})
         optimizer.step()
-        return {"loss": loss.detach(), "cls_loss": cls_l.detach(),
-                "reg_loss": reg_l.detach(), "learning_rate": lr}
+        metrics["learning_rate"] = lr
+        return metrics
 
     return step
 
@@ -187,14 +210,27 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
         from .model import A2JResNet
 
         A2JResNet()  # raises: ROADMAP.md Queue 1 item 11
+    from ..run import join_ranks
+
+    rank, size, device = join_ranks(args, "downstream.a2j.train")
+    try:
+        return _run(args, rank, size, device, on_step)
+    finally:
+        if size > 1 or "WORLD_SIZE" in os.environ:
+            from ...parallel.mesh import destroy
+            destroy()
+
+
+def _run(args, rank: int, size: int, device, on_step):
     from ...data.pipeline import DataSource
     from ...export.transfer import load_hrnet_state, read_state_dict
+    from ...parallel.mesh import broadcast_, local_world_size
     from ...utils.meters import MetricLogger
-    from ..run import DownstreamRun, resolve_device
+    from ..run import DownstreamRun, train_rows
     from .data import KEYPOINTS, ITOPDataset
     from .model import A2JHRNet
 
-    device = resolve_device(args.device, "downstream.a2j.train")
+    say = print if rank == 0 else (lambda *a: None)
     crop = args.crop
     if args.synthetic:
         train_ds = SyntheticITOP(args.synthetic, crop)
@@ -204,7 +240,10 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
 
     steps = max(len(train_ds) // args.batch_size, 1)
     src = DataSource(train_ds, args.batch_size, np.ones(len(train_ds)),
-                     seed=args.seed, num_workers=8)
+                     seed=args.seed,
+                     num_workers=8 if size == 1 else max(
+                         8 // local_world_size(), 1),
+                     rows=train_rows(args.batch_size, rank, size))
     it = iter(src)
     try:
         # the JAX CLI draws one batch to initialise its model; drawing it
@@ -220,7 +259,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
         if args.pretrained_pth:
             n = load_hrnet_state(read_state_dict(args.pretrained_pth),
                                  model.Backbone)
-            print(f"=> loaded {n} conv tensors from {args.pretrained_pth}")
+            say(f"=> loaded {n} conv tensors from {args.pretrained_pth}")
+        broadcast_([*model.parameters(), *model.buffers()])
         run = DownstreamRun(model)
 
         # StepLR(step=10 epochs, gamma=0.2) (A2J/main.py:302)
@@ -240,7 +280,7 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
         if args.eval_first and evaluating:
             acc, _ = evaluate(model, anchors, args, device)
             run.scores.append(float(acc))
-            print(f"epoch 0: PCK@10cm {acc:.4f} (untrained baseline)")
+            say(f"epoch 0: PCK@10cm {acc:.4f} (untrained baseline)")
         for epoch in range(1, args.epochs + 1):
             logger.reset()
             t0 = time.time()
@@ -260,8 +300,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
                 if acc > best_acc:
                     best_acc = acc
                     flag = " (best)"
-                print(f"epoch {epoch}: PCK@10cm {acc:.4f}{flag}")
-            print(f"epoch {epoch}, total time {time.time() - t0:.2f}")
+                say(f"epoch {epoch}: PCK@10cm {acc:.4f}{flag}")
+            say(f"epoch {epoch}, total time {time.time() - t0:.2f}")
             if args.max_steps and gstep >= args.max_steps:
                 break
         return run

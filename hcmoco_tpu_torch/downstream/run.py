@@ -1,11 +1,12 @@
 """What the two downstream trainers (seg/train.py, a2j/train.py) share:
-the device check, the timed fetch-upload-step of one iteration, and the
-record of a run."""
+the device check, joining the ranks, the timed fetch-upload-step of one
+iteration, and the record of a run."""
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Callable, Dict, Iterator, List
 
 import torch
@@ -19,6 +20,38 @@ def resolve_device(name: str, cli: str) -> torch.device:
         raise RuntimeError(f"{cli}: no CUDA device is available; pass "
                            "--device cpu to train on the CPU")
     return device
+
+
+def join_ranks(args, cli: str) -> tuple:
+    """(rank, world size, device) of a trainer's process: resolve_device,
+    then, under torchrun, the process group and cuda:LOCAL_RANK, as the
+    pre-training CLI joins (cli/main_contrast.py::join_ranks); the global
+    --batch_size must split over the ranks."""
+    from ..cli.main_contrast import join_ranks as join
+
+    resolve_device(args.device, cli)
+    return join(args, SimpleNamespace(batch_size=args.batch_size,
+                                      microbatch=1))
+
+
+def train_rows(batch_size: int, rank: int, size: int):
+    """This rank's rows of each global batch, None in a world of one."""
+    from ..parallel.mesh import shard_positions
+
+    return None if size == 1 else shard_positions(batch_size, rank, size)
+
+
+def sync_step(params, metrics: Dict) -> Dict:
+    """Under data parallelism: the gradients summed over the ranks (each
+    rank's loss is its share of the global one) and the tensor metrics
+    made global; nothing in a world of one."""
+    from ..parallel.mesh import all_reduce_grads, world_size
+    from ..train.contrast_step import global_metrics
+
+    if world_size() == 1:
+        return metrics
+    all_reduce_grads([p for p in params if p.grad is not None])
+    return global_metrics(metrics)
 
 
 @dataclass

@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import gather_rows, global_sum
+
 
 def _upsample_logits(logits: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if logits.shape[2] == h and logits.shape[3] == w:
@@ -43,12 +45,14 @@ def _target_logp(logits: torch.Tensor, labels: torch.Tensor,
 def cross_entropy_seg(logits: torch.Tensor, labels: torch.Tensor,
                       class_weights: Optional[torch.Tensor] = None,
                       ignore_label: int = 255) -> torch.Tensor:
-    """Class-weighted mean CE over the pixels not `ignore_label`."""
+    """Class-weighted mean CE over the pixels not `ignore_label`; under
+    data parallelism the weights' sum is the global batch's (this rank's
+    share of the mean)."""
     lp, valid, safe = _target_logp(logits, labels, ignore_label)
     w = valid.float()
     if class_weights is not None:
         w = class_weights[safe] * w
-    return torch.sum(-lp * w) / torch.clamp(w.sum(), min=1e-12)
+    return torch.sum(-lp * w) / torch.clamp(global_sum(w.sum()), min=1e-12)
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -56,7 +60,9 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_label: int = 255, thres: float = 0.7,
                        min_kept: int = 100000) -> torch.Tensor:
     """Mean class-weighted CE over the valid pixels whose label's
-    probability is below max(thres, the (min_kept+1)-th smallest)."""
+    probability is below max(thres, the (min_kept+1)-th smallest).  Under
+    data parallelism the (min_kept+1)-th smallest and the kept count are
+    the global batch's (the ranks' probabilities gathered)."""
     lp, valid, safe = _target_logp(logits, labels, ignore_label)
     ce = -lp
     if class_weights is not None:
@@ -64,11 +70,13 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ce, valid = ce.reshape(-1), valid.reshape(-1)
     prob = torch.where(valid, torch.exp(lp.detach()).reshape(-1),
                        torch.full_like(ce, float("inf")))
-    k = min(min_kept, prob.numel() - 1)
-    kth = torch.kthvalue(prob, k + 1).values
+    every = gather_rows(prob)
+    k = min(min_kept, every.numel() - 1)
+    kth = torch.kthvalue(every, k + 1).values
     threshold = torch.clamp(kth, min=thres)
     keep = (valid & (prob < threshold)).float()
-    return torch.sum(ce * keep) / torch.clamp(keep.sum(), min=1.0)
+    return torch.sum(ce * keep) / torch.clamp(global_sum(keep.sum()),
+                                              min=1.0)
 
 
 def poly_lr(base_lr: float, cur_iter, max_iter: int,

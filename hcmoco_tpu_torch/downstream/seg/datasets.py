@@ -179,6 +179,28 @@ class ParsingDataset:
                 "label": label.astype(np.int32),
                 "size": orig_size, "index": np.int32(index)}
 
+    def skip_draws(self, index) -> None:
+        """Consume a training sample's draws without decoding it (a
+        data-parallel rank skipping another rank's row): they depend on
+        the crop size alone, the label being resized to it first."""
+        if not self.is_train:
+            return
+        rng = self._rng
+        if self.flip:
+            rng.integers(0, 2)
+        if self.multi_scale:
+            rand_scale = 0.5 + int(rng.integers(0, self.scale_factor + 1)) \
+                / 10.0
+            long_size = int(self.base_size * rand_scale + 0.5)
+            cw, ch = self.crop_size  # cv2's (width, height)
+            if ch > cw:
+                nh, nw = long_size, int(cw * long_size / ch + 0.5)
+            else:
+                nw, nh = long_size, int(ch * long_size / cw + 0.5)
+            oh, ow = self.crop_size
+            rng.integers(0, max(nh, oh) - oh + 1)
+            rng.integers(0, max(nw, ow) - ow + 1)
+
     def _rand_crop(self, img, label, rng):
         h, w = label.shape
         ch, cw = self.crop_size

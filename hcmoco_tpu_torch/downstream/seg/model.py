@@ -25,6 +25,7 @@ from torch import nn
 from ...core.config import HRNET_CONFIGS
 from ...export.transfer import load_hrnet_state, read_state_dict
 from ...models.hrnet import HRNet, merge_all_res, stat_dtype
+from ...parallel.batchnorm import GlobalBatchNorm2d
 
 
 def merged_channels(width: int) -> int:
@@ -40,7 +41,7 @@ class SegHRNet(HRNet):
         super().__init__(HRNET_CONFIGS[width], 3, dtype)
         c = merged_channels(width)
         self.last_layer = nn.Sequential(
-            nn.Conv2d(c, c, 1), nn.BatchNorm2d(c, momentum=0.01), nn.ReLU(),
+            nn.Conv2d(c, c, 1), GlobalBatchNorm2d(c, momentum=0.01), nn.ReLU(),
             nn.Conv2d(c, num_classes, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,12 @@ term in the gradient is optax's add_decayed_weights -> trace ->
 scale_by_learning_rate; the lr is set from the poly schedule before each
 step, at the optimizer's step count, as optax evaluates it.  `--restore`
 is a torch file ({'model': state dict}) written at each best validation
-mIoU and read by `--test_only`.  Convs run in bf16 (f32 with
+mIoU and read by `--test_only`.  Under torchrun it trains data-parallel
+as the pre-training CLI does (parallel/mesh.py): `--batch_size` is the
+global batch, each rank decodes its rows, BN and the CE's (or OHEM's)
+denominators are the global batch's, the gradients are summed over the
+ranks, and the validation's confusion counts too; rank 0 prints and
+writes `--restore`.  Convs run in bf16 (f32 with
 `--synthetic`, as the JAX CLI does); HCMOCO_CONVBN_FUSE=1 sends the
 backbone's 1x1 ConvBN sites through K1/K1b in training.
 
@@ -26,6 +31,7 @@ cli/transfer_ckpt.py's export of a stage-2 run's depth encoder):
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Optional
 
@@ -75,6 +81,9 @@ def build_argparser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run; 'cpu' is the one way "
                         "onto the CPU")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel training over torchrun's (multi-node) "
+                        "rendezvous")
     return p
 
 
@@ -86,6 +95,9 @@ class SyntheticParsing:
 
     def __len__(self):
         return self.n
+
+    def skip_draws(self, i) -> None:
+        """Nothing to consume: each sample draws from its own generator."""
 
     def __getitem__(self, i):
         rng = np.random.default_rng(i)
@@ -143,7 +155,9 @@ def poly_lr_fn(base_lr: float, max_iters: int) -> Callable[[int], float]:
 def make_train_step(model, optimizer, lr_fn, loss_fn) -> Callable:
     """step(batch, step) -> metrics: the lr set from lr_fn(step), the
     model's forward on batch['image'] (B, H, W, 3) as NCHW, loss_fn(logits,
-    labels), one optimizer step."""
+    labels), the gradients summed over the ranks (run.sync_step), one
+    optimizer step."""
+    from ..run import sync_step
 
     def step(batch, gstep: int):
         lr = lr_fn(gstep)
@@ -154,8 +168,10 @@ def make_train_step(model, optimizer, lr_fn, loss_fn) -> Callable:
         loss = loss_fn(logits, batch["label"])
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = sync_step(model.parameters(), {"loss": loss.detach()})
         optimizer.step()
-        return {"loss": loss.detach(), "learning_rate": lr}
+        metrics["learning_rate"] = lr
+        return metrics
 
     return step
 
@@ -163,10 +179,12 @@ def make_train_step(model, optimizer, lr_fn, loss_fn) -> Callable:
 def validate(model, source, n_batches: int, device, n_class: int):
     """mIoU over n_batches of `source` (function.py:89-136): eval-mode
     logits upsampled to the label size, argmax, the confusion matrix
-    summed in float64 on the host.  Returns (mIoU, per-class IoU)."""
+    summed in float64 on the host (and over the ranks, each of which
+    validates its rows).  Returns (mIoU, per-class IoU)."""
     import torch.nn.functional as F
 
     from ...data.pipeline import to_device
+    from ...parallel.mesh import global_sum, world_size
     from .criterion import confusion_matrix, miou_from_confusion
 
     model.eval()
@@ -185,16 +203,21 @@ def validate(model, source, n_batches: int, device, n_class: int):
                     .cpu().numpy().astype(np.float64)
     finally:
         it.close()
+    if world_size() > 1:
+        conf = global_sum(torch.as_tensor(conf, device=device)).cpu() \
+            .numpy()
     miou, iou = miou_from_confusion(torch.from_numpy(conf))
     return float(miou), iou
 
 
 def test_val(args, model, val_ds, device) -> float:
     """testval: per-image sliding-window multi-scale (+flip) inference
-    (tools/test.py:51-138, base_dataset.multi_scale_inference); prints and
-    returns the mIoU."""
+    (tools/test.py:51-138, base_dataset.multi_scale_inference), the
+    images dealt over the ranks and their counts summed; prints (rank 0)
+    and returns the mIoU."""
     import cv2
 
+    from ...parallel.mesh import global_sum, world
     from .criterion import confusion_matrix, miou_from_confusion
     from .datasets import mapped_pairs
     from .inference import sliding_window_inference
@@ -203,7 +226,8 @@ def test_val(args, model, val_ds, device) -> float:
     pairs = mapped_pairs() if args.modality == "depth" else None
     model.eval()
     conf = np.zeros((args.num_classes, args.num_classes), np.float64)
-    for i in range(len(val_ds)):
+    rank, size = world()
+    for i in range(rank, len(val_ds), size):
         s = val_ds[i]
         probs = sliding_window_inference(
             model, s["image"], args.num_classes,
@@ -214,10 +238,14 @@ def test_val(args, model, val_ds, device) -> float:
         conf += confusion_matrix(torch.from_numpy(pred)[None],
                                  torch.from_numpy(s["label"])[None],
                                  args.num_classes).numpy().astype(np.float64)
+    if size > 1:
+        conf = global_sum(torch.as_tensor(conf, device=device)).cpu() \
+            .numpy()
     miou, iou = miou_from_confusion(torch.from_numpy(conf))
-    print(f"testval mIoU: {float(miou):.4f}")
-    for ci, v in enumerate(iou.tolist()):
-        print(f"  class {ci}: IoU {v:.4f}")
+    if rank == 0:
+        print(f"testval mIoU: {float(miou):.4f}")
+        for ci, v in enumerate(iou.tolist()):
+            print(f"  class {ci}: IoU {v:.4f}")
     return float(miou)
 
 
@@ -226,13 +254,27 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
     count.  Returns a downstream.run.DownstreamRun (scores: each epoch's
     validation mIoU, or the testval mIoU)."""
     args = build_argparser().parse_args(argv)
+    from ..run import join_ranks
+
+    rank, size, device = join_ranks(args, "downstream.seg.train")
+    try:
+        return _run(args, rank, size, device, on_step)
+    finally:
+        if size > 1 or "WORLD_SIZE" in os.environ:
+            from ...parallel.mesh import destroy
+            destroy()
+
+
+def _run(args, rank: int, size: int, device, on_step):
     from ...data.pipeline import DataSource
+    from ...parallel.mesh import barrier, broadcast_, local_world_size
     from ...utils.meters import MetricLogger
-    from ..run import DownstreamRun, resolve_device
+    from ..run import DownstreamRun, train_rows
     from .criterion import cross_entropy_seg, ohem_cross_entropy
     from .model import SegHRNet, load_pretrained
 
-    device = resolve_device(args.device, "downstream.seg.train")
+    say = print if rank == 0 else (lambda *a: None)
+    threads = 8 if size == 1 else max(8 // local_world_size(), 1)
     train_ds, val_ds, weights = build_datasets(args)
     class_weights = (None if weights is None else
                      torch.as_tensor(weights, dtype=torch.float32,
@@ -241,7 +283,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
     steps = max(len(train_ds) // args.batch_size, 1)
     max_iters = steps * args.epochs
     src = DataSource(train_ds, args.batch_size, np.ones(len(train_ds)),
-                     seed=args.seed, num_workers=8)
+                     seed=args.seed, num_workers=threads,
+                     rows=train_rows(args.batch_size, rank, size))
     it = iter(src)
     try:
         # the JAX CLI draws one batch to initialise its model; drawing it
@@ -254,7 +297,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
             device, memory_format=torch.channels_last)
         if args.pretrained:
             n = load_pretrained(args.pretrained, model)
-            print(f"=> loaded {n} conv tensors from {args.pretrained}")
+            say(f"=> loaded {n} conv tensors from {args.pretrained}")
+        broadcast_([*model.parameters(), *model.buffers()])
         run = DownstreamRun(model)
 
         if args.test_only:
@@ -262,7 +306,7 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
                 model.load_state_dict(torch.load(
                     args.restore, map_location=device,
                     weights_only=True)["model"])
-                print(f"=> restored weights from {args.restore}")
+                say(f"=> restored weights from {args.restore}")
             run.scores.append(test_val(args, model, val_ds, device))
             return run
 
@@ -299,7 +343,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
                     break
 
             vsrc = DataSource(val_ds, args.batch_size, np.ones(len(val_ds)),
-                              seed=args.seed + 1, num_workers=8)
+                              seed=args.seed + 1, num_workers=threads,
+                              rows=train_rows(args.batch_size, rank, size))
             miou, _ = validate(model, vsrc,
                                max(len(val_ds) // args.batch_size, 1),
                                device, args.num_classes)
@@ -308,10 +353,11 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
             if miou > best_miou:
                 best_miou = miou
                 flag = " (best)"
-                if args.restore:
+                if args.restore and rank == 0:
                     torch.save({"model": model.state_dict()}, args.restore)
-            print(f"epoch {epoch}: mIoU {miou:.4f}{flag}, best "
-                  f"{best_miou:.4f}, time {time.time() - t0:.2f}")
+                barrier()
+            say(f"epoch {epoch}: mIoU {miou:.4f}{flag}, best "
+                f"{best_miou:.4f}, time {time.time() - t0:.2f}")
             if args.max_steps and gstep >= args.max_steps:
                 break
         return run

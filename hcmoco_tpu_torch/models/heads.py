@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import batchnorm as global_bn
+
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
@@ -83,7 +85,9 @@ class MaskedBatchNorm(nn.BatchNorm2d):
     rows; the running variance takes the unbiased var * n / max(n - 1, 1)
     (torch momentum 0.1).  With no kept frame n is 1, the batch mean and
     var are 0 and the running statistics still move, as the JAX package's
-    do.  No host sync.  The buffers and keys are nn.BatchNorm2d's."""
+    do.  No host sync.  The buffers and keys are nn.BatchNorm2d's.
+    Under data parallelism the kept rows and their count are the global
+    batch's (one all-reduce of the masked sums, var = E[x^2] - E[x]^2)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -101,9 +105,12 @@ class MaskedBatchNorm(nn.BatchNorm2d):
                 w = torch.ones((x.shape[0], 1, 1, 1), device=x.device)
             else:
                 w = sample_mask.float().view(-1, 1, 1, 1)
-            n = torch.clamp(w.sum() * hw, min=1.0)
-            mean = (xf * w).sum(red) / n
-            var = ((xf - mean[None, :, None, None]) ** 2 * w).sum(red) / n
+            if global_bn.global_stats_active():
+                mean, var, n = global_bn.masked_global_stats(xf, w)
+            else:
+                n = torch.clamp(w.sum() * hw, min=1.0)
+                mean = (xf * w).sum(red) / n
+                var = ((xf - mean[None, :, None, None]) ** 2 * w).sum(red) / n
             with torch.no_grad():
                 unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
                 self.running_mean.mul_(1.0 - self.momentum).add_(

@@ -31,6 +31,8 @@ from torch import nn
 
 from ..core.config import HRNetConfig, HRNetStageSpec
 from ..ops.matmul_bn import bn_apply_stats, conv1x1_bn_stats
+from ..parallel.batchnorm import GlobalBatchNorm2d
+from ..parallel.mesh import all_reduce_sum, world_size
 
 # flax momentum 0.99 (hrnet.py bn_momentum) == torch momentum 0.01
 BN_MOMENTUM = 0.01
@@ -64,16 +66,30 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
             relu: bool, dtype: torch.dtype, fuse: bool = False
             ) -> torch.Tensor:
     """One ConvBN site: conv in `dtype`, BN in f32, output in `dtype`.
-    With `fuse`, a 1x1 stride-1 site in training takes the fused path."""
+    With `fuse`, a 1x1 stride-1 site in training takes the fused path.
+    Under data parallelism BN takes the global batch's statistics: the
+    fused path all-reduces K1's channel sums (one all-reduce of the packed
+    (2C,) sums) before K1b normalises by the global row count, the plain
+    path through GlobalBatchNorm2d."""
     w = conv.weight.to(dtype)
     if fuse and bn.training and _is_fusable(conv):
         b, cin, h, wd = x.shape
         x2d = x.to(dtype).permute(0, 2, 3, 1).reshape(-1, cin)
         y2d, s1, s2 = conv1x1_bn_stats(x2d, w.reshape(w.shape[0], cin))
+        n = None
+        size = world_size()
+        if size > 1:
+            # K1 ran on this rank's rows.  The all-reduce's backward sums
+            # ds1/ds2 over the ranks before K1's dyt prologue takes them,
+            # which makes each rank's dyt its share of the global loss's.
+            c = s1.shape[0]
+            sums = all_reduce_sum(torch.cat([s1, s2]))
+            s1, s2 = sums[:c], sums[c:]
+            n = y2d.shape[0] * size
         out2d, _, _ = bn_apply_stats(
             y2d, s1, s2, bn.weight, bn.bias, bn.eps,
             running=(bn.running_mean, bn.running_var, bn.num_batches_tracked,
-                     bn.momentum))
+                     bn.momentum), n=n)
         y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
     else:
         y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding)
@@ -91,7 +107,7 @@ class ConvBN(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  relu: bool, dtype: torch.dtype):
         super().__init__(_conv(cin, cout, kernel, stride),
-                         nn.BatchNorm2d(cout, momentum=BN_MOMENTUM))
+                         GlobalBatchNorm2d(cout, momentum=BN_MOMENTUM))
         self.relu = relu
         self.compute_dtype = dtype
         self.convbn_fuse = convbn_fuse_enabled()
@@ -110,9 +126,9 @@ class BasicBlock(nn.Module):
                  downsample: bool, dtype: torch.dtype):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.bn1 = GlobalBatchNorm2d(planes, momentum=BN_MOMENTUM)
         self.conv2 = _conv(planes, planes, 3, 1)
-        self.bn2 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.bn2 = GlobalBatchNorm2d(planes, momentum=BN_MOMENTUM)
         self.downsample = (ConvBN(inplanes, planes, 1, stride, False, dtype)
                            if downsample else None)
         self.compute_dtype = dtype
@@ -135,11 +151,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = planes * self.expansion
         self.conv1 = _conv(inplanes, planes, 1, 1)
-        self.bn1 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.bn1 = GlobalBatchNorm2d(planes, momentum=BN_MOMENTUM)
         self.conv2 = _conv(planes, planes, 3, stride)
-        self.bn2 = nn.BatchNorm2d(planes, momentum=BN_MOMENTUM)
+        self.bn2 = GlobalBatchNorm2d(planes, momentum=BN_MOMENTUM)
         self.conv3 = _conv(planes, out, 1, 1)
-        self.bn3 = nn.BatchNorm2d(out, momentum=BN_MOMENTUM)
+        self.bn3 = GlobalBatchNorm2d(out, momentum=BN_MOMENTUM)
         self.downsample = (ConvBN(inplanes, out, 1, stride, False, dtype)
                            if downsample else None)
         self.compute_dtype = dtype
@@ -270,9 +286,9 @@ class HRNet(nn.Module):
         self.compute_dtype = dtype
         stem = config.stem_channels
         self.conv1 = _conv(in_channels, stem, 3, 2)
-        self.bn1 = nn.BatchNorm2d(stem, momentum=BN_MOMENTUM)
+        self.bn1 = GlobalBatchNorm2d(stem, momentum=BN_MOMENTUM)
         self.conv2 = _conv(stem, stem, 3, 2)
-        self.bn2 = nn.BatchNorm2d(stem, momentum=BN_MOMENTUM)
+        self.bn2 = GlobalBatchNorm2d(stem, momentum=BN_MOMENTUM)
 
         s1 = config.stage1
         self.layer1 = _make_blocks(s1.block, stem, s1.num_channels[0],

@@ -38,6 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import HRNET_CONFIGS
+from ..parallel.batchnorm import GlobalBatchNorm1d
+from ..parallel.mesh import my_rows, world_size
 from ..ops.point_ops import (ball_query, furthest_point_sample, gather_points,
                              group_points, interpolation_weights,
                              three_interpolate, three_nn)
@@ -65,7 +67,7 @@ class ConvBNReLU(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 1, bias=False)
         self.bn = nn.Sequential(OrderedDict(
-            bn=nn.BatchNorm1d(cout, momentum=BN_MOMENTUM)))
+            bn=GlobalBatchNorm1d(cout, momentum=BN_MOMENTUM)))
 
     def matrix(self, dtype: torch.dtype) -> torch.Tensor:
         """The (Fout, Fin) weight in `dtype`."""
@@ -223,7 +225,8 @@ def depth2pts(depth: torch.Tensor, depth_mask: torch.Tensor,
     per-sample depth mean.  The n_points samples are drawn uniformly over
     the valid pixels with replacement, by inverse CDF from uniforms in
     [0, 1): `u` (B, n_points) when given (pins the draw), else drawn from
-    `generator`.  The uniforms are sorted, so the samples come out in
+    `generator` (for the global batch under data parallelism, this rank
+    keeping its rows).  The uniforms are sorted, so the samples come out in
     raster order, as in the JAX package.  Returns (sampled (B, n, 3),
     all_pts (B, H*W, 3), sample_ind (B, n) int32, valid (B,) bool); a
     sample with no valid pixel gives all-zero points and valid False."""
@@ -240,8 +243,9 @@ def depth2pts(depth: torch.Tensor, depth_mask: torch.Tensor,
     cdf = torch.cumsum(mask, dim=-1)  # steps of 1 at valid pixels
     total = cdf[:, -1]
     if u is None:
-        u = torch.rand((b, n_points), generator=generator,
-                       device=depth.device)
+        rows = b * world_size()
+        u = torch.rand((rows, n_points), generator=generator,
+                       device=depth.device)[my_rows(rows)]
     u = torch.sort(u.float() * torch.clamp(total, min=1.0)[:, None],
                    dim=-1).values
     sample_ind = torch.searchsorted(cdf, u, right=True)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.batchnorm import GlobalBatchNorm1d
+
 # parent lists (skeleton_meta.py:3-23)
 SKELETON_PARENTS = {
     "mpii": [1, 2, 6, 6, 3, 4, -1, 6, 7, 8, 11, 12, 8, 8, 13, 14],
@@ -86,7 +88,7 @@ class GraphConvBlock(nn.Module):
     def __init__(self, in_features: int, out_features: int, adj: np.ndarray):
         super().__init__()
         self.gconv = SemGraphConv(in_features, out_features, adj)
-        self.bn = nn.BatchNorm1d(out_features, momentum=BN_MOMENTUM)
+        self.bn = GlobalBatchNorm1d(out_features, momentum=BN_MOMENTUM)
 
     def forward(self, x):
         x = self.gconv(x)

@@ -238,10 +238,18 @@ def _update_running(running, mean: torch.Tensor, var: torch.Tensor,
         n_tracked.add_(1)
 
 
-def bn_apply_fwd_plain(y, s1, s2, scale, bias, eps: float, running=None):
+def _normaliser(y: torch.Tensor, n) -> int:
+    """The rows that the channel sums cover: y's own, or `n` when they
+    were all-reduced over the ranks of a global batch."""
+    return y.shape[0] if n is None else int(n)
+
+
+def bn_apply_fwd_plain(y, s1, s2, scale, bias, eps: float, running=None,
+                       n=None):
     """Plain version of K1b's forward: (out in y's dtype, mean, var, rstd);
-    with `running`, also the running-stat update."""
-    r = y.shape[0]
+    with `running`, also the running-stat update.  `n`: the rows that s1
+    and s2 sum over, y's by default."""
+    r = _normaliser(y, n)
     mean = s1 / r
     var = torch.clamp(s2 / r - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
@@ -251,11 +259,16 @@ def bn_apply_fwd_plain(y, s1, s2, scale, bias, eps: float, running=None):
     return out, mean, var, rstd
 
 
-def bn_apply_fwd_cuda(y, s1, s2, scale, bias, eps: float, running=None):
-    """Launch K1b's forward kernel on y's device and current stream."""
+def bn_apply_fwd_cuda(y, s1, s2, scale, bias, eps: float, running=None,
+                      n=None):
+    """Launch K1b's forward kernel on y's device and current stream: it
+    walks y's rows and normalises by `n` rows' sums (y's by default)."""
     fn = "bn_apply_fwd_cuda"
-    r, c = _rows_cols(fn, "y", y)
-    specs = [("y", y, BF16, (r, c)), ("s1", s1, F32, (c,)),
+    rows, c = _rows_cols(fn, "y", y)
+    r = _normaliser(y, n)
+    if r <= 0 or r >= 2 ** 31:
+        raise ValueError(f"{fn}: normaliser rows {r} out of range")
+    specs = [("y", y, BF16, (rows, c)), ("s1", s1, F32, (c,)),
              ("s2", s2, F32, (c,)), ("scale", scale, F32, (c,)),
              ("bias", bias, F32, (c,))]
     ptrs, momentum = [0, 0, 0], 0.0
@@ -276,7 +289,7 @@ def bn_apply_fwd_cuda(y, s1, s2, scale, bias, eps: float, running=None):
     rc = lib.hcmoco_bn_fwd(
         dev, y.data_ptr(), s1.data_ptr(), s2.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), out.data_ptr(), mean.data_ptr(), var.data_ptr(),
-        rstd.data_ptr(), *ptrs, r, c, eps, momentum, 1.0 - momentum,
+        rstd.data_ptr(), *ptrs, rows, c, r, eps, momentum, 1.0 - momentum,
         r / (r - 1) if r > 1 else 1.0, _stream(dev))
     _build.check(lib, rc, fn)
     bn_apply_fwd_cuda.launches += 1
@@ -286,16 +299,17 @@ def bn_apply_fwd_cuda(y, s1, s2, scale, bias, eps: float, running=None):
 bn_apply_fwd_cuda.launches = 0
 
 
-def bn_apply_fwd(y, s1, s2, scale, bias, eps: float, running=None):
+def bn_apply_fwd(y, s1, s2, scale, bias, eps: float, running=None, n=None):
     if y.is_cuda:
-        return bn_apply_fwd_cuda(y, s1, s2, scale, bias, eps, running)
-    return bn_apply_fwd_plain(y, s1, s2, scale, bias, eps, running)
+        return bn_apply_fwd_cuda(y, s1, s2, scale, bias, eps, running, n)
+    return bn_apply_fwd_plain(y, s1, s2, scale, bias, eps, running, n)
 
 
 def bn_apply_bwd_stats_plain(dout, y, s1, mean, var, rstd, scale, dmean_ct,
-                             dvar_ct):
+                             dvar_ct, n=None):
     """Plain version of K1b's backward pass 1: the column sums dscale,
-    dbias and the cotangents ds1, ds2 of the channel sums."""
+    dbias over y's rows and the cotangents ds1, ds2 of the channel sums
+    of `n` rows (y's by default)."""
     dof = dout.float()
     yhat = (y.float() - mean) * rstd
     dbias = dof.sum(0)
@@ -306,18 +320,22 @@ def bn_apply_bwd_stats_plain(dout, y, s1, mean, var, rstd, scale, dmean_ct,
     # through var (matches autodiff of the unfused path)
     dvar = (-0.5 * rstd * rstd * scale * dscale + dvar_ct) * (var > 0)
     # R as a Python float: R*R overflows 32-bit ints at real shapes
-    rf = float(y.shape[0])
+    rf = float(_normaliser(y, n))
     ds1 = dmean / rf + dvar * (-2.0 * s1 / rf / rf)
     ds2 = dvar / rf
     return dscale, dbias, ds1, ds2
 
 
 def bn_apply_bwd_stats_cuda(dout, y, s1, mean, var, rstd, scale, dmean_ct,
-                            dvar_ct):
-    """Launch K1b's backward pass 1 (per-CTA column sums, then the
-    per-channel tail) on y's device and current stream."""
+                            dvar_ct, n=None):
+    """Launch K1b's backward pass 1 (per-CTA column sums over y's rows,
+    then the per-channel tail, normalised by `n` rows, y's by default) on
+    y's device and current stream."""
     fn = "bn_apply_bwd_stats_cuda"
     r, c = _rows_cols(fn, "y", y)
+    norm = _normaliser(y, n)
+    if norm <= 0 or norm >= 2 ** 31:
+        raise ValueError(f"{fn}: normaliser rows {norm} out of range")
     vec = [(name, t, F32, (c,)) for name, t in (
         ("s1", s1), ("mean", mean), ("var", var), ("rstd", rstd),
         ("scale", scale), ("dmean_ct", dmean_ct), ("dvar_ct", dvar_ct))]
@@ -333,7 +351,7 @@ def bn_apply_bwd_stats_cuda(dout, y, s1, mean, var, rstd, scale, dmean_ct,
         var.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
         dmean_ct.data_ptr(), dvar_ct.data_ptr(), partials.data_ptr(),
         dscale.data_ptr(), dbias.data_ptr(), ds1.data_ptr(),
-        ds2.data_ptr(), r, c, _stream(dev))
+        ds2.data_ptr(), r, c, norm, _stream(dev))
     _build.check(lib, rc, fn)
     bn_apply_bwd_stats_cuda.launches += 1
     return dscale, dbias, ds1, ds2
@@ -343,8 +361,8 @@ bn_apply_bwd_stats_cuda.launches = 0
 
 
 def bn_apply_bwd_stats(dout, y, s1, mean, var, rstd, scale, dmean_ct,
-                       dvar_ct):
-    args = (dout, y, s1, mean, var, rstd, scale, dmean_ct, dvar_ct)
+                       dvar_ct, n=None):
+    args = (dout, y, s1, mean, var, rstd, scale, dmean_ct, dvar_ct, n)
     if y.is_cuda:
         return bn_apply_bwd_stats_cuda(*args)
     return bn_apply_bwd_stats_plain(*args)
@@ -386,10 +404,11 @@ class _BNApplyStats(torch.autograd.Function):
     _bn_apply_bwd)."""
 
     @staticmethod
-    def forward(ctx, y, s1, s2, scale, bias, eps, running):
+    def forward(ctx, y, s1, s2, scale, bias, eps, running, n):
         out, mean, var, rstd = bn_apply_fwd(y, s1, s2, scale, bias, eps,
-                                            running)
+                                            running, n)
         ctx.save_for_backward(y, s1, mean, var, rstd, scale)
+        ctx.n = n
         return out, mean, var
 
     @staticmethod
@@ -398,19 +417,20 @@ class _BNApplyStats(torch.autograd.Function):
         dout = dout.contiguous()
         dscale, dbias, ds1, ds2 = bn_apply_bwd_stats(
             dout, y, s1, mean, var, rstd, scale, dmean_ct.contiguous(),
-            dvar_ct.contiguous())
+            dvar_ct.contiguous(), ctx.n)
         dy = bn_apply_bwd_dy(dout, rstd, scale)
-        return dy, ds1, ds2, dscale, dbias, None, None
+        return dy, ds1, ds2, dscale, dbias, None, None, None
 
 
 def bn_apply_stats(y: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
                    scale: torch.Tensor, bias: torch.Tensor, eps: float,
-                   running=None):
+                   running=None, n=None):
     """Train-mode BN of y (R, C) from precomputed channel sums.
 
-    mean = s1/R, var = max(0, s2/R - mean^2) (biased).  Returns
-    (out in y's dtype, mean, var).  `running`, if given, is
-    (running_mean, running_var, num_batches_tracked, momentum) of an
-    nn.BatchNorm, updated in place with torch semantics (unbiased running
-    variance, var * R/(R-1))."""
-    return _BNApplyStats.apply(y, s1, s2, scale, bias, eps, running)
+    mean = s1/N, var = max(0, s2/N - mean^2) (biased), N = `n`, the rows
+    that s1 and s2 sum over: R by default, the global batch's rows when
+    the sums were all-reduced over the ranks.  Returns (out in y's dtype,
+    mean, var).  `running`, if given, is (running_mean, running_var,
+    num_batches_tracked, momentum) of an nn.BatchNorm, updated in place
+    with torch semantics (unbiased running variance, var * N/(N-1))."""
+    return _BNApplyStats.apply(y, s1, s2, scale, bias, eps, running, n)

@@ -11,6 +11,11 @@ the optimizer's state_dict (SGD's momentum buffers), the banks, `step` and
 (`classifier`, the reference FCN names).  The reference BN names and buffers are the same with
 HCMOCO_CONVBN_FUSE on or off, so a checkpoint of one path restores into
 the other.
+
+Under data parallelism the ranks' states are replicas: rank 0 writes, every
+rank waits for the write (a barrier), and every rank restores from the same
+file, so the banks and parameters come back identical on every rank.  A
+checkpoint does not depend on the world size it was written at.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import barrier, world
 from .state import TrainState
 
 _CKPT = re.compile(r"epoch_(\d+)\.pt")
@@ -39,6 +45,8 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.save_freq = save_freq
         self.max_to_keep = max_to_keep
+        # rank 0 writes (and reports) under data parallelism
+        self.is_writer = world()[0] == 0
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, epoch: int) -> str:
@@ -52,7 +60,11 @@ class CheckpointManager:
     def save(self, epoch: int, state: TrainState):
         """Write epoch `epoch` (replacing one of that number), then drop
         all but the newest max_to_keep.  The file is written under a
-        temporary name and renamed, so a reader never sees a partial one."""
+        temporary name and renamed, so a reader never sees a partial one.
+        Rank 0 writes; every rank returns once it has."""
+        if not self.is_writer:
+            barrier()
+            return
         path = self.path(epoch)
         tmp = f"{path}.{os.getpid()}.tmp"
         ckpt = {"model": state.model.state_dict(),
@@ -65,6 +77,7 @@ class CheckpointManager:
         os.replace(tmp, path)
         for old in self.epochs()[:-self.max_to_keep]:
             os.remove(self.path(old))
+        barrier()
 
     def restore(self, state: TrainState,
                 epoch: Optional[int] = None) -> Tuple[TrainState, int]:
@@ -116,7 +129,7 @@ def graft_pretrain(pretrain_path: str, state: TrainState) -> TrainState:
     initialisation.  pretrain_path is a checkpoint file or a run
     directory.
     Prints the JAX package's counts: parameters, and BN running means and
-    variances as its batch statistics."""
+    variances as its batch statistics (rank 0 prints)."""
     path = resolve_checkpoint(pretrain_path)
     ckpt = torch.load(path, map_location=_device(state), weights_only=True)
     src = ckpt["model"]
@@ -132,10 +145,11 @@ def graft_pretrain(pretrain_path: str, state: TrainState) -> TrainState:
                 n_param += 1
             elif name.endswith(("running_mean", "running_var")):
                 n_stat += 1
-        print(f"=> grafted {n_param} param tensors from {path}")
-        print(f"=> grafted {n_stat} batch-stat tensors from {path}")
+        say = print if world()[0] == 0 else (lambda *a: None)
+        say(f"=> grafted {n_param} param tensors from {path}")
+        say(f"=> grafted {n_stat} batch-stat tensors from {path}")
         banks = ckpt.get("banks")
         if banks is not None and banks.shape == state.banks.shape:
             state.banks.copy_(banks)
-            print("=> grafted memory banks")
+            say("=> grafted memory banks")
     return state

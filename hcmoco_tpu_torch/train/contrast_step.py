@@ -7,8 +7,18 @@ Behavioural spec: pycontrast/learning/contrast_trainer.py
 six-way NCE against three memory banks, SGD step, bank EMA update; and
 `_train_bank_joints_pri3d_cmc3` (:894-1039, stage 2), which adds the dense
 soft-Pri3D, joint and cross-subject (SCL) losses over the stage-2 maps at
-unit weight.  One process, one device; BN statistics are those of the
-whole batch, and SCL's group is the whole batch (`scl_groups` 0 or 1).
+unit weight.
+
+One process a device.  Under data parallelism (torch.distributed, see
+parallel/mesh.py) rank r holds rows of the global batch and the step is
+the JAX package's global step, held to a one-process step on the same
+rows and draws: BN statistics are those of the global batch, the losses'
+denominators are global (contrast/losses.py), negatives and pixels are
+drawn for the global batch, the bank update takes every rank's features,
+each rank's loss is its share of the global loss and the gradients are
+summed over the ranks (one flattened all-reduce) before SGD, and the
+metrics are the global ones.  `scl_groups` 0 takes one SCL group a rank
+(the reference's per-GPU SCL; one group in a world of one).
 
 Batch dict (the JAX package's field names; tensors on the model's device):
   rgbd (B, H, W, 6) f32 NHWC | index (B,) int | skeleton (B, J, 2) f32 |
@@ -35,10 +45,12 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..contrast.losses import (cross_subject_scl_loss, joints_pri3d_loss,
-                               masked_six_way, per_sample_nce,
-                               soft_pri3d_loss)
+                               masked_six_way, per_sample_nce, scl_loss,
+                               scl_joint_features, soft_pri3d_loss)
 from ..contrast.memory import cmc3_forward, cmc3_losses_counts, update_memory
 from ..core.config import TrainConfig
+from ..parallel.mesh import (all_reduce_grads, gather_rows, gather_rows_grad,
+                             global_sum, world_size)
 from .schedules import learning_rate_fn
 from .state import TrainState
 
@@ -70,18 +82,58 @@ def _scl_grouped(lm1: torch.Tensor, lm2: torch.Tensor,
                  joints2d: torch.Tensor, use_depth: torch.Tensor,
                  use_rgb: torch.Tensor, temperature: float,
                  groups: int) -> torch.Tensor:
-    """Cross-subject SCL, averaged over `groups` equal slices of the batch
-    (the reference computes it on each GPU's local batch)."""
+    """Cross-subject SCL, averaged over `groups` equal slices of the
+    global batch (the reference computes it on each GPU's local batch);
+    0 takes one group a rank.  Under data parallelism this is the rank's
+    share of the mean: its own groups' losses over `groups` when each
+    group lies on one rank, else (a group that spans ranks) the mean over
+    every group of the gathered joint features, with their gradient, over
+    the world size."""
+    size = world_size()
+    groups = groups or size
+    if size > 1:
+        if groups % size == 0:
+            return _scl_sum(lm1, lm2, joints2d, use_depth, use_rgb,
+                            temperature, groups // size) / groups
+        rgb_j, d_j = (gather_rows_grad(t) for t in scl_joint_features(
+            lm1, lm2, joints2d))
+        ud, ur = gather_rows(use_depth), gather_rows(use_rgb)
+        if rgb_j.shape[0] % groups:
+            raise ValueError(f"scl_groups={groups} does not divide the "
+                             f"batch of {rgb_j.shape[0]}")
+        parts = zip(*(x.chunk(groups) for x in (rgb_j, d_j, ud, ur)))
+        return torch.stack([scl_loss(*p, temperature)
+                            for p in parts]).mean() / size
     if groups <= 1:
         return cross_subject_scl_loss(lm1, lm2, joints2d, use_depth, use_rgb,
                                       temperature)
+    return _scl_sum(lm1, lm2, joints2d, use_depth, use_rgb, temperature,
+                    groups, mean=True)
+
+
+def _scl_sum(lm1, lm2, joints2d, use_depth, use_rgb, temperature: float,
+             groups: int, mean: bool = False) -> torch.Tensor:
+    """The sum (or mean) of the SCL losses of `groups` equal slices."""
     if lm1.shape[0] % groups:
         raise ValueError(f"scl_groups={groups} does not divide the batch of "
                          f"{lm1.shape[0]}")
     parts = zip(*(x.chunk(groups) for x in (lm1, lm2, joints2d, use_depth,
                                             use_rgb)))
-    return torch.stack([cross_subject_scl_loss(*p, temperature)
-                        for p in parts]).mean()
+    losses = torch.stack([cross_subject_scl_loss(*p, temperature)
+                          for p in parts])
+    return losses.mean() if mean else losses.sum()
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """Each rank's metrics are its shares of the global ones: their sum
+    over the ranks, in one all-reduce; the metrics themselves in a world
+    of one."""
+    if world_size() == 1:
+        return metrics
+    names = list(metrics)
+    total = global_sum(torch.stack([metrics[k].float() for k in names]))
+    return dict(zip(names, total.unbind(0)))
 
 
 def nce_mode(cfg: TrainConfig, n_data: int, pinned_idx: bool) -> str:
@@ -120,6 +172,14 @@ def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+def sync_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Sum every parameter's gradient over the ranks (one flattened
+    all-reduce; nothing in a world of one).  Run after fill_missing_grads,
+    so that every rank sends the same tensors."""
+    all_reduce_grads([p for group in optimizer.param_groups
+                      for p in group["params"]])
+
+
 def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
                           ) -> Callable[..., tuple]:
     """Build loss_fn(state, batch, generator=None) -> (loss, metrics,
@@ -135,7 +195,6 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
     if stage2 and not cfg.linear_feat_map:
         raise ValueError("mem='bank+jointspri3d' needs linear_feat_map: its "
                          "losses read the linear_merge maps")
-    scl_groups = max(cfg.scl_groups, 1)  # 0: one group a process
     if cfg.remat or cfg.pn_remat:
         raise NotImplementedError(
             "remat and pn_remat are not ported: ROADMAP.md Queue 1 item 15")
@@ -162,6 +221,10 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
         # stage 2 masks the six directions by use_depth only
         use_rgb = None if stage2 else batch.get("use_rgb")
         mode = nce_mode(cfg, state.banks.shape[1], "neg_idx" in batch)
+        # the replicated bank update takes every rank's rows (feats is
+        # (3, B, dim): its rows are along dim 1)
+        all_feats = gather_rows(feats.transpose(0, 1)).transpose(0, 1)
+        all_y = gather_rows(y)
         if mode == "counts":
             per_sample = cmc3_losses_counts(
                 feats, state.banks, y, k=cfg.nce_k, temperature=cfg.nce_t,
@@ -169,13 +232,14 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
 
             def commit() -> None:
                 for i in range(state.banks.shape[0]):
-                    update_memory(state.banks[i], feats[i], y, cfg.nce_m)
+                    update_memory(state.banks[i], all_feats[i], all_y,
+                                  cfg.nce_m)
         else:
             if "counts" in batch:
                 raise ValueError(f"NCE mode {mode!r} draws indices: pin them "
                                  "with neg_idx, not counts")
             logits, commit = cmc3_forward(
-                state.banks, feats, y, feats, y, k=cfg.nce_k,
+                state.banks, feats, y, all_feats, all_y, k=cfg.nce_k,
                 temperature=cfg.nce_t, m=cfg.nce_m, generator=generator,
                 neg_idx=batch.get("neg_idx"), mode=mode)
             per_sample = [per_sample_nce(lg) for lg in logits]
@@ -198,7 +262,7 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
                 lm1, lm2, batch["joints2d"],
                 ones if use_depth is None else use_depth,
                 ones if batch.get("use_rgb") is None else batch["use_rgb"],
-                cfg.temperature, scl_groups)
+                cfg.temperature, cfg.scl_groups)
             # unit weights (contrast_trainer.py:980)
             loss = loss + sum(sp_losses) + sum(j_losses) + scl
             values = (*sp_losses, *sp_accs, *j_losses, *j_accs, scl)
@@ -229,7 +293,10 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
     package): the grads are averaged over n, BN running statistics and
     the banks chain through the microbatches (each sees the previous
     one's update), one optimizer step at the end, and each metric is the
-    mean over the microbatches.
+    mean over the microbatches.  Under data parallelism `batch` holds this
+    rank's rows (mesh.shard_rows with the same microbatch count, so its
+    i-th chunk is its share of the global microbatch i) and `generator`
+    is seeded alike on every rank.
     Metrics: nce_loss_*/nce_acc_* for the six directions, loss and
     learning_rate, and in stage 2 STAGE2_METRICS, as 0-d tensors
     (learning_rate a float)."""
@@ -252,8 +319,10 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
             commit()
             per_part.append(metrics)
         fill_missing_grads(state.optimizer)
+        sync_grads(state.optimizer)
         state.optimizer.step()
         state.step += 1
+        per_part = [global_metrics(m) for m in per_part]
         if n_micro == 1:
             metrics = per_part[0]
         else:

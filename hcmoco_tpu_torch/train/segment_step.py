@@ -22,6 +22,11 @@ index, skeleton, use_depth, use_rgb, depth_mask, joints2d, joints_vis),
 label (B, H, W) int (255 = ignore) and true_label (B,) int (1 = a labelled
 frame); optional neg_idx (B, K+1) and pix_idx (B, S) pin the draws.
 NTU-RGBD-Parsing-4K class weights from main_segmentor.py:76-79.
+
+Under data parallelism the step is the global one, as the pre-training
+step's (train/contrast_step.py): the classifier's masked BN, the
+segmentation CE's weight sum and its labelled-frame gate are global too,
+and the validator's counts are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ from ..contrast.losses import (joints_pri3d_loss, masked_six_way,
                                per_sample_nce, soft_pri3d_loss)
 from ..contrast.memory import cmc3_forward
 from ..core.config import TrainConfig
+from ..parallel.mesh import gather_rows, global_sum
 from .contrast_step import (_DIRECTIONS, _scl_grouped, device_normalize,
-                            fill_missing_grads)
+                            fill_missing_grads, global_metrics, sync_grads)
 from .schedules import learning_rate_fn
 from .state import TrainState
 
@@ -64,7 +70,8 @@ def weighted_seg_ce(logits: torch.Tensor, labels: torch.Tensor,
                     ignore_index: int = 255) -> torch.Tensor:
     """torch CrossEntropyLoss(weight=w, ignore_index=255) of (B, C, H, W)
     logits: sum(w[t] * ce) / sum(w[t]) over the pixels that are not
-    ignored (and, with sample_mask, of the kept frames); 0 when none."""
+    ignored (and, with sample_mask, of the kept frames); 0 when none.
+    The weight sum is the global batch's (this rank's share of the CE)."""
     labels = labels.long()
     valid = labels != ignore_index
     if sample_mask is not None:
@@ -73,7 +80,8 @@ def weighted_seg_ce(logits: torch.Tensor, labels: torch.Tensor,
     logp = F.log_softmax(logits.float(), dim=1)
     ce = -logp.gather(1, safe[:, None])[:, 0]
     w = class_weights[safe] * valid.float()
-    return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1e-12)
+    return torch.sum(ce * w) / torch.clamp(global_sum(torch.sum(w)),
+                                           min=1e-12)
 
 
 def seg_logits(classifier: torch.nn.Module, lm1: torch.Tensor,
@@ -105,7 +113,6 @@ def make_segment_train_step(cfg: TrainConfig, model: torch.nn.Module,
             or cfg.arch != "HRNet":
         raise ValueError("the versatility segmentor is the HRNet stage-2 "
                          "model: mem='bank+jointspri3d', linear_feat_map")
-    scl_groups = max(cfg.scl_groups, 1)  # 0: one group a process
     lr_fn = learning_rate_fn(cfg, steps_per_epoch)
     sup_mode = SUPERVISED_HEAD[cfg.supervise_type]
     class_weights = torch.tensor(NTU_SEG_CLASS_WEIGHTS[:cfg.n_class],
@@ -124,7 +131,9 @@ def make_segment_train_step(cfg: TrainConfig, model: torch.nn.Module,
                     return_fm=True)
         feats = torch.stack([out["feat1"], out["feat2"], out["feat3"]])
         logits, commit = cmc3_forward(
-            state.banks, feats, y, feats, y, k=cfg.nce_k,
+            state.banks, feats, y,
+            gather_rows(feats.transpose(0, 1)).transpose(0, 1),
+            gather_rows(y), k=cfg.nce_k,
             temperature=cfg.nce_t, m=cfg.nce_m, generator=generator,
             neg_idx=batch.get("neg_idx"))
         losses, accs = masked_six_way([per_sample_nce(lg) for lg in logits],
@@ -138,7 +147,7 @@ def make_segment_train_step(cfg: TrainConfig, model: torch.nn.Module,
             lm1, lm2, out["fm3"], batch["joints2d"], batch["joints_vis"],
             cfg.temperature, use_depth=use_depth)
         scl = _scl_grouped(lm1, lm2, batch["joints2d"], use_depth, use_rgb,
-                           cfg.temperature, scl_groups)
+                           cfg.temperature, cfg.scl_groups)
         loss = (sum(losses) * cfg.cmc_loss_weights
                 + (sum(sp_losses) + sum(j_losses) + scl)
                 * cfg.other_loss_weights)
@@ -150,7 +159,7 @@ def make_segment_train_step(cfg: TrainConfig, model: torch.nn.Module,
             loss_seg = weighted_seg_ce(seg, batch["label"], class_weights,
                                        sample_mask=true_label)
             # zero when the batch has no labelled frame (:750-752)
-            loss_seg = torch.where(true_label.sum() > 0, loss_seg,
+            loss_seg = torch.where(global_sum(true_label.sum()) > 0, loss_seg,
                                    torch.zeros_like(loss_seg))
             loss = loss + loss_seg * 10.0
             metrics["loss_seg"] = loss_seg.detach()
@@ -162,6 +171,7 @@ def make_segment_train_step(cfg: TrainConfig, model: torch.nn.Module,
         loss.backward()
         commit()
         fill_missing_grads(state.optimizer)
+        sync_grads(state.optimizer)
         state.optimizer.step()
         state.step += 1
 
@@ -172,6 +182,7 @@ def make_segment_train_step(cfg: TrainConfig, model: torch.nn.Module,
             metrics[f"nce_loss_{name}"] = l.detach()
             metrics[f"nce_acc_{name}"] = a.detach()
         metrics["loss"] = loss.detach()
+        metrics = global_metrics(metrics)
         metrics["learning_rate"] = lr
         return metrics
 

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..contrast.memory import init_memory
 from ..core.config import TrainConfig
+from ..parallel.mesh import broadcast_
 from .schedules import learning_rate_fn
 
 
@@ -48,7 +49,8 @@ def create_train_state(cfg: TrainConfig, model: nn.Module,
                        classifier: Optional[nn.Module] = None) -> TrainState:
     """One optimizer over all of model's params (and the classifier's,
     after them) and randomly initialised banks drawn from `generator`, on
-    the model's device."""
+    the model's device.  Under data parallelism every rank then takes rank
+    0's parameters, BN statistics and banks, so the replicas start equal."""
     if not cfg.mem.startswith("bank"):
         raise NotImplementedError(
             f"mem {cfg.mem} is not ported yet: ROADMAP.md Queue 1 item 11")
@@ -60,5 +62,8 @@ def create_train_state(cfg: TrainConfig, model: nn.Module,
     n_modal = {"RGB": 1, "CMC": 2, "RGBD2S": 3}[cfg.modal]
     banks = init_memory(generator, n_modal, n_data, cfg.feat_dim,
                         device=device)
+    modules = [model] + ([classifier] if classifier is not None else [])
+    broadcast_([t for m in modules for t in (*m.parameters(), *m.buffers())]
+               + [banks])
     return TrainState(model=model, optimizer=opt, banks=banks,
                       classifier=classifier)

@@ -7,13 +7,17 @@ HRNet-Semantic-Segmentation lib/utils/utils.py:83-115).  MetricLogger writes
 machine-readable TSV next to the checkpoints plus the familiar formatted
 stdout lines, and — when tensorboardX or torch.utils.tensorboard imports —
 browsable tensorboard event files under <log_dir>/tb, matching the
-reference's per-epoch scalar logging."""
+reference's per-epoch scalar logging.  Under data parallelism the metrics
+are global and rank 0 alone prints and writes, as the reference's rank 0
+does."""
 
 from __future__ import annotations
 
 import os
 import sys
 from typing import Dict, Optional
+
+from ..parallel.mesh import world
 
 
 class AverageMeter:
@@ -63,7 +67,9 @@ class MetricLogger:
         self._tsv = None
         self._tsv_keys = None
         self._tb = None
-        if log_dir:
+        # only rank 0 prints and writes
+        self.quiet = world()[0] != 0
+        if log_dir and not self.quiet:
             os.makedirs(log_dir, exist_ok=True)
             self._tsv_path = os.path.join(log_dir, "metrics.tsv")
             if tensorboard:
@@ -76,7 +82,7 @@ class MetricLogger:
     def log_step(self, epoch: int, it: int, total: int,
                  metrics: Dict[str, float], n: int = 1):
         self.update(metrics, n)
-        if (it + 1) % self.print_freq == 0:
+        if (it + 1) % self.print_freq == 0 and not self.quiet:
             parts = " ".join(
                 f"{k} {m.val:.4f} ({m.avg:.4f})"
                 for k, m in sorted(self.meters.items()))
