@@ -44,7 +44,17 @@ shapes, and drives the train steps the port has through its entry points:
     320^2 bs32 fused (K1 and K1b on each rank's rows, K1's sums
     all-reduced), stage 2 and HRNetPN (K2-K6) at bs16 in f32; the ranks
     equal bit for bit after every step, the collectives a step and their
-    host time.  Both ranks' launches add to the kernels'.
+    host time.  Both ranks' launches add to the kernels';
+  * the baseline methods (ResNet encoders; no kernel of the port lies on
+    their path, and the phase checks that it launches none): one float64
+    step each of InsDis, PIRL, CMC (dual and the shared trunk), MoCo and
+    CMCv2 on the card against the CPU; MoCov2 (K 65536), CMC on
+    ImageNet-size banks (1281167 rows, the 'gather' NCE) and PIRL with
+    its 9x64^2 patches at ResNet-50 224^2 bf16, each step's device ms,
+    busy share, launches and peak memory; main_contrast MoCov2 on an
+    ImageFolder tree of JPEGs, its --resume (the queue and pointer
+    restored) and main_linear --pretrain; and MoCo and CMC-jigsaw on two
+    `--dp-baseline-rank` ranks against one process.
 
     python3 chip_smoke.py
 
@@ -76,6 +86,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -3135,6 +3146,47 @@ def free_port() -> int:
     return port
 
 
+def spawn_ranks(flag: str) -> list:
+    """DP_WORLD processes `chip_smoke.py <flag> OUT` on cuda:0, joined
+    over gloo (RANK, WORLD_SIZE and MASTER_PORT in their environment);
+    returns each rank's torch.save'd result, rank order.  A rank that
+    fails, or does not finish in DP_TIMEOUT_S, raises; every process is
+    stopped on the way out."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_dp_", dir=build)
+    procs = []
+    try:
+        port = str(free_port())
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        for r in range(DP_WORLD):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
+                       LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(DP_WORLD),
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, outs[r]],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                log, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"DP rank {r} did not finish in "
+                                     f"{DP_TIMEOUT_S} s")
+            if p.returncode != 0:
+                raise AssertionError(f"DP rank {r} failed "
+                                     f"({p.returncode}):\n{log[-4000:]}")
+        return [torch.load(o, weights_only=False) for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_data_parallel(card: str) -> tuple:
     """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
     device) against one process on the same card: for each DP_CASES case,
@@ -3169,43 +3221,9 @@ def check_data_parallel(card: str) -> tuple:
              for case in DP_CASES if case[6] == "float32"}
     os.environ.pop("HCMOCO_CONVBN_FUSE", None)
     torch.cuda.empty_cache()
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="smoke_dp_", dir=build)
-    procs = []
-    try:
-        port = str(free_port())
-        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
-        t1 = time.perf_counter()
-        for r in range(DP_WORLD):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
-                       LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(DP_WORLD),
-                       MASTER_ADDR="localhost", MASTER_PORT=port)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-rank",
-                 outs[r]], env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        logs = []
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        for r, p in enumerate(procs):
-            try:
-                log, _ = p.communicate(
-                    timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"DP rank {r} did not finish in "
-                                     f"{DP_TIMEOUT_S} s")
-            logs.append(log)
-            if p.returncode != 0:
-                raise AssertionError(f"DP rank {r} failed "
-                                     f"({p.returncode}):\n{log[-4000:]}")
-        ranks = [torch.load(o, weights_only=False) for o in outs]
-        t2 = time.perf_counter()
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    ranks = spawn_ranks("--dp-rank")
+    t2 = time.perf_counter()
     k1_total, pn_total = {}, {}
     for case in DP_CASES:
         label, _, _, bsz, steps, fuse, dtype = case
@@ -3272,11 +3290,739 @@ def check_data_parallel(card: str) -> tuple:
     return k1_total, pn_total
 
 
+# ---- the baseline methods (ROADMAP item 11a) -------------------------------
+
+# InsDis/PIRL/CMC on banks and MoCo/MoCov2/CMCv2/InfoMin on the queue with
+# the EMA key encoder (models/resnet.py, models/build.py's baseline models,
+# train/contrast_step.py's baseline branches).  No kernel of the port lies
+# on this path: the ResNets are cuDNN convs and the port's BN modules.
+IMAGENET_N_DATA = 1281167  # ImageNet-1k's train images: the banks' rows
+MOCO_K = 65536             # MoCo's published queue length
+BASELINE_SMALL_N_DATA = 256
+# card vs CPU, one step in float64 (model and heads): in f32 a train-mode
+# ResNet at 64^2 amplifies two sound implementations' rounding through BN
+# over a few values a channel (1.4e-2 of the pooled feature between the
+# port and the JAX package at 32^2 bs4, tests/torch_baseline_common.py);
+# in float64 two orders of summation part by ~1e-12
+BASELINE_SMALL_TOL = dict(rtol=1e-6, atol=1e-9)
+BASELINE_SMALL = (
+    ("InsDis", dict(method="InsDis")),
+    ("PIRL", dict(method="PIRL")),
+    ("CMC", dict(method="CMC")),
+    ("CMC shared trunk", dict(method="CMC", arch="resnet50cmc",
+                              batch_size=4)),
+    ("MoCo", dict(method="MoCo")),
+    ("CMCv2", dict(method="CMCv2")),
+)
+# card vs CPU in the dtypes the full-width cells run (baseline_dtype_check),
+# at a size where BN is well conditioned: ResNet-18 at 224^2 bs8, whose
+# layer4 BN sees 8 * 4 * 4 = 128 values a channel after the double max-pool
+BASELINE_DTYPE = (("MoCov2", dict(method="MoCov2")),
+                  ("CMC", dict(method="CMC")))
+BASELINE_DTYPE_SIZE = dict(arch="resnet18", crop_size=224, batch_size=8,
+                           nce_k=256)
+# The tolerances, from readings of sound runs and of broken controls on an
+# H100 (PERF.md, PR 14: MoCov2 and CMC, the largest sound reading against
+# the smallest control's).
+# f32: each group of the card's state, and its loss, no further from the
+# float64 step than 3x the CPU f32 step is, + 2^-20 (8 f32 roundings) of
+# the group's norm (sound: 0.38 of that; BN eps 1e-3: 204-289 of it)
+BASELINE_F32_RATIO = 3.0
+BASELINE_F32_FLOOR = 2.0 ** -20
+# bf16 card step vs the f32 CPU step, largest abs difference of the
+# features (unit vectors) and of the loss (sound: 0.0205 and 0.027; the
+# stems' channels reversed: features 0.099-0.119)
+BASELINE_BF16_TOL = dict(feat=0.05, loss=0.06)
+# the f32 glue of the bf16 card step vs its CPU replay, largest abs
+# difference (sound: 1.04e-7; heads in bf16: 1.34e-3-1.43e-3)
+BASELINE_GLUE_TOL = 1e-5
+# (label, TrainConfig fields, n_data) at full width: ResNet-50, 224^2, bf16
+BASELINE_FULL = (
+    ("MoCov2 ResNet-50", dict(method="MoCov2", batch_size=256,
+                              nce_k=MOCO_K), IMAGENET_N_DATA),
+    ("CMC dual ResNet-50", dict(method="CMC", batch_size=256,
+                                nce_k=16384), IMAGENET_N_DATA),
+    ("PIRL ResNet-50", dict(method="PIRL", batch_size=128, nce_k=16384),
+     IMAGENET_N_DATA),
+)
+BASELINE_DP = (("MoCo", dict(method="MoCo")),
+               ("CMC-jigsaw", dict(method="Customize", modal="CMC",
+                                   mem="bank", jigsaw=True)))
+
+
+def baseline_cfg(**kw):
+    from hcmoco_tpu_torch.core.config import TrainConfig, resolve_config
+
+    base = dict(arch="resnet18", crop_size=64, batch_size=8, epochs=100,
+                nce_k=64, compute_dtype="float32")
+    base.update(kw)
+    return resolve_config(TrainConfig(**base))
+
+
+def baseline_batch(cfg, rng: np.random.Generator, n_data: int,
+                   pins: bool = True) -> dict:
+    """A baseline batch from seeded numpy: rgbd (two crops on channels for
+    moco), distinct indices, PIRL's (B, 9, 64, 64, 3) patch stack, and
+    with `pins` the step's draws (negatives, patch orders)."""
+    bsz, crop = cfg.batch_size, cfg.crop_size
+    moco = cfg.mem == "moco"
+    b = {"rgbd": rng.standard_normal((bsz, crop, crop, 6 if moco else 3),
+                                     dtype=np.float32),
+         "index": rng.choice(n_data, bsz, replace=False).astype(np.int64)}
+    if cfg.jigsaw:
+        b["rgbd_jig"] = rng.standard_normal((bsz, 9, 64, 64, 3),
+                                            dtype=np.float32)
+    if pins:
+        if not moco:
+            idx = rng.integers(0, n_data, (bsz, cfg.nce_k + 1))
+            idx[:, 0] = b["index"]
+            b["neg_idx"] = idx
+        if cfg.jigsaw:
+            b["jig_perm"] = np.argsort(rng.random((bsz, 9)), axis=1)
+    return b
+
+
+def with_compute_dtype(model: torch.nn.Module,
+                       dtype: torch.dtype) -> torch.nn.Module:
+    """The encoders' convs in `dtype` (what build_model's compute_dtype
+    sets); parameters and heads stay as they are."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return model
+
+
+def model_f64(model: torch.nn.Module) -> torch.nn.Module:
+    """The whole model in float64: parameters, BN statistics, compute."""
+    return with_compute_dtype(model.double(), torch.float64)
+
+
+def baseline_state_parts(state) -> dict:
+    """The state a baseline step changes: parameters and BN statistics,
+    and the banks, or the queue, its pointer and the key encoder."""
+    parts = {f"model {k}": v for k, v in state.model.state_dict().items()
+             if v.is_floating_point()}
+    if state.moco is not None:
+        parts["queues"] = state.moco.queues
+        parts["ptr"] = torch.tensor(state.moco.ptr)
+        parts.update({f"key {k}": v for k, v in
+                      state.key_model.named_parameters()})
+    else:
+        parts["banks"] = state.banks
+    return {k: v.detach().cpu().clone() for k, v in parts.items()}
+
+
+def run_baseline_step(cfg, model: torch.nn.Module, dev: str, batch: dict,
+                      n_data: int, mem: Optional[torch.Tensor] = None,
+                      control: Optional[Callable] = None,
+                      capture: bool = False) -> dict:
+    """One step of a copy of `model` on `dev` through create_train_state
+    and make_contrast_train_step, its banks or queue set to `mem` (None:
+    as drawn), the batch's images in the model's parameter dtype;
+    `control(model)` alters the copy first.  Returns, on the CPU: the
+    metrics, the banks or queue before the step (`before`), the state
+    after (baseline_state_parts) and, with `capture`, the output dicts of
+    the query and the key pass and each encoder's layer4 map (`maps`)."""
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    m = copy.deepcopy(model).to(dev)
+    if control is not None:
+        control(m)
+    st = create_train_state(cfg, m, torch.Generator(dev).manual_seed(3),
+                            n_data=n_data, steps_per_epoch=10)
+    bank = st.moco.queues if st.moco is not None else st.banks
+    if mem is not None:
+        with torch.no_grad():
+            bank.copy_(mem)
+    before = bank.detach().cpu().clone()
+    dtype = next(m.parameters()).dtype
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    for k in ("rgbd", "rgbd_jig"):
+        if k in b:
+            b[k] = b[k].to(dtype)
+    seen = {"query": None, "key": None, "maps": {}}
+    hooks = []
+    if capture:
+        def keep(where):
+            def hook(mod, args, out):
+                seen[where] = {k: v.detach().cpu().clone()
+                               for k, v in out.items()}
+            return hook
+
+        def keep_map(name):
+            def hook(mod, args, out):
+                seen["maps"][name] = out.detach().cpu().clone()
+            return hook
+
+        hooks.append(m.register_forward_hook(keep("query")))
+        if st.key_model is not None:
+            hooks.append(st.key_model.register_forward_hook(keep("key")))
+        hooks += [mod.register_forward_hook(keep_map(name))
+                  for name, mod in m.named_modules()
+                  if name.endswith("layer4")]
+    metrics = make_contrast_train_step(cfg, m, steps_per_epoch=10)(st, b)
+    for h in hooks:
+        h.remove()
+    return dict(seen, metrics={k: float(v) for k, v in metrics.items()},
+                before=before, state=baseline_state_parts(st))
+
+
+def small_baseline_check(card: str, label: str, kw: dict) -> None:
+    """One step of a baseline on the card and on the CPU (the CPU path is
+    held against the JAX package by tests/test_torch_baseline_step.py and
+    test_torch_moco.py) from the same weights, banks or queue and pinned
+    draws, the model in float64: metrics, parameters, BN statistics,
+    banks or queue and pointer, and the EMA within BASELINE_SMALL_TOL."""
+    from hcmoco_tpu_torch.models.build import build_model
+
+    cfg = baseline_cfg(**kw)
+    n = BASELINE_SMALL_N_DATA
+    batch = baseline_batch(cfg, np.random.default_rng(5), n)
+    torch.manual_seed(0)
+    model = model_f64(build_model(cfg, device="cpu"))
+    ref = run_baseline_step(cfg, model, "cpu", batch, n)
+    got = run_baseline_step(cfg, model, "cuda", batch, n, mem=ref["before"])
+    (m_ref, s_ref), (m_got, s_got) = ((r["metrics"], r["state"])
+                                      for r in (ref, got))
+    for k, ref in m_ref.items():
+        tol = BASELINE_SMALL_TOL
+        if not abs(m_got[k] - ref) <= tol["atol"] + tol["rtol"] * abs(ref):
+            raise AssertionError(f"{label} f64 step {k}: card {m_got[k]} vs "
+                                 f"cpu {ref}")
+    worst = 0.0
+    for k, ref in s_ref.items():
+        torch.testing.assert_close(s_got[k], ref, **BASELINE_SMALL_TOL,
+                                   msg=lambda msg, k=k: f"{label} {k}: {msg}")
+        if ref.is_floating_point():
+            worst = max(worst, float((s_got[k] - ref).abs().max()))
+    print(f"baseline {label} ({cfg.arch} {cfg.crop_size}^2 bs{cfg.batch_size}"
+          f", {cfg.mem}) float64 step, card vs cpu: loss {m_got['loss']:.10f}"
+          f" vs {m_ref['loss']:.10f}; state max abs diff {worst:.3g} "
+          f"(tolerance {BASELINE_SMALL_TOL}) [{card}]")
+
+
+def bn_eps_control(model: torch.nn.Module) -> None:
+    """A broken control: every BN at eps 1e-3 (Keras's default) instead of
+    the reference's 1e-5."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.eps = 1e-3
+
+
+def stem_bgr_control(model: torch.nn.Module) -> None:
+    """A broken control: each encoder's input channels in reverse order
+    (BGR for RGB, ba for CMC's ab), by its stem's weights."""
+    with torch.no_grad():
+        for name, m in model.named_children():
+            if name.startswith("encoder"):
+                m.conv1.weight.copy_(m.conv1.weight.flip(1))
+
+
+def head_bf16_control(model: torch.nn.Module) -> None:
+    """A broken control: the projection heads in bf16, the dtype error the
+    f32 glue after a bf16 encoder must not make."""
+    for name, m in model.named_children():
+        if name.startswith("head"):
+            m.to(torch.bfloat16)
+
+
+def f32_margins(run: dict, cpu: dict, ref: dict) -> dict:
+    """{group: d(run) / (BASELINE_F32_RATIO d(cpu) + BASELINE_F32_FLOOR
+    |ref|)}, d the L2 distance from the float64 step `ref` over the
+    group's tensors (params, bn: the running statistics, memory: the
+    banks or queue, key: the key encoder) or of the loss: a group passes
+    at <= 1, the card no further from float64 than the CPU's f32 allows."""
+    def dist(r, keys):
+        return sum(float(((r["state"][k].double() - ref["state"][k].double())
+                          ** 2).sum()) for k in keys) ** 0.5
+
+    groups = {}
+    for k, v in ref["state"].items():
+        if v.is_floating_point():
+            g = ("memory" if k in ("queues", "banks") else
+                 "key" if k.startswith("key ") else
+                 "bn" if "running_" in k else "params")
+            groups.setdefault(g, []).append(k)
+    out = {}
+    for g, keys in groups.items():
+        norm = sum(float((ref["state"][k].double() ** 2).sum())
+                   for k in keys) ** 0.5
+        out[g] = dist(run, keys) / (BASELINE_F32_RATIO * dist(cpu, keys)
+                                    + BASELINE_F32_FLOOR * norm)
+    loss = ref["metrics"]["loss"]
+    out["loss"] = abs(run["metrics"]["loss"] - loss) / (
+        BASELINE_F32_RATIO * abs(cpu["metrics"]["loss"] - loss)
+        + BASELINE_F32_FLOOR * abs(loss))
+    return out
+
+
+def bf16_gaps(run: dict, cpu: dict) -> dict:
+    """The bf16 card step against the f32 CPU step: the largest abs
+    difference of the features (every feat* of the query and key passes,
+    unit vectors) and the loss's abs difference."""
+    feat = 0.0
+    for where in ("query", "key"):
+        for k, v in (cpu[where] or {}).items():
+            if k.startswith("feat"):
+                feat = max(feat, float((run[where][k].float() - v).abs()
+                                       .max()))
+    return {"feat": feat,
+            "loss": abs(run["metrics"]["loss"] - cpu["metrics"]["loss"])}
+
+
+def glue_gaps(cfg, model: torch.nn.Module, batch: dict, run: dict) -> dict:
+    """The f32 glue after the encoders of the card step `run`, replayed on
+    the CPU from its captured encoder outputs: _pool of each layer4 map,
+    the heads at `model`'s weights (the key encoder's equal them before the
+    step) on the pooled features, the loss from the features and the
+    banks or queue before the step, and the banks or queue after.  ->
+    {part: largest abs difference from the card's}.  MoCo (modal RGB) on
+    the queue and CMC on banks."""
+    from hcmoco_tpu_torch.contrast.losses import (compute_loss_accuracy,
+                                                  nce_loss_and_acc)
+    from hcmoco_tpu_torch.contrast.memory import (memory_logits, moco_logits,
+                                                  update_memory)
+    from hcmoco_tpu_torch.models.resnet import _pool
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    q, k = run["query"], run["key"]
+    suffixes = sorted(n[len("pooled"):] for n in q if n.startswith("pooled"))
+    maps = [run["maps"][n] for n in sorted(run["maps"])]
+    out = {"pool": max(gap(_pool(fm), q[f"pooled{s}"])
+                       for fm, s in zip(maps, suffixes))}
+    head = 0.0
+    with torch.no_grad():
+        for s in suffixes:
+            h = getattr(model, f"head{s}")
+            for o in ((q, k) if k is not None else (q,)):
+                head = max(head, gap(h(o[f"pooled{s}"]), o[f"feat{s}"]))
+        mem, t = run["before"], cfg.nce_t
+        after = mem.clone()
+        if cfg.mem == "moco":
+            loss = nce_loss_and_acc(moco_logits(q["feat"], k["feat"],
+                                                mem[0], t))[0]
+            after[0, :k["feat"].shape[0]] = k["feat"].float()
+        else:
+            idx = torch.from_numpy(batch["neg_idx"]).long()
+            y = torch.from_numpy(batch["index"]).long()
+            dense = ((cfg.dense_scores or cfg.bank_logits != "gather")
+                     and mem.shape[1] <= cfg.counts_max_n_data)
+            losses = compute_loss_accuracy(
+                [memory_logits(q["feat1"], mem[1], idx, t, dense),
+                 memory_logits(q["feat2"], mem[0], idx, t, dense)])[0]
+            loss = sum(losses)
+            for i in range(2):
+                update_memory(after[i], q[f"feat{i + 1}"], y, cfg.nce_m)
+    out.update(head=head,
+               loss=abs(float(loss) - run["metrics"]["loss"]),
+               memory=gap(after, run["state"]["queues" if k is not None
+                                              else "banks"]))
+    return out
+
+
+def baseline_dtype_readings(label: str, kw: dict) -> dict:
+    """One step of `label` at BASELINE_DTYPE_SIZE on the CPU in float64
+    and f32 and on the card in f32 and bf16 (convs; heads, logits and
+    memory f32), each card step also with its broken control, from the
+    same weights, memory and pinned draws.  -> the readings the checks
+    hold: f32_margins of the card's f32 step and of its BN-eps control;
+    bf16_gaps of the bf16 step and of its BGR control; glue_gaps of the
+    bf16 step and of its bf16-heads control."""
+    from hcmoco_tpu_torch.models.build import build_model
+
+    cfg = baseline_cfg(**kw, **BASELINE_DTYPE_SIZE)
+    n = BASELINE_SMALL_N_DATA
+    batch = baseline_batch(cfg, np.random.default_rng(7), n)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    bf16 = with_compute_dtype(copy.deepcopy(model), torch.bfloat16)
+    ref = run_baseline_step(cfg, model_f64(copy.deepcopy(model)), "cpu",
+                            batch, n)
+    mem = ref["before"]
+
+    def step(m, dev, control=None):
+        return run_baseline_step(cfg, m, dev, batch, n, mem=mem,
+                                 control=control, capture=True)
+
+    cpu = step(model, "cpu")
+    runs = {"f32": step(model, "cuda"),
+            "f32 eps control": step(model, "cuda", bn_eps_control),
+            "bf16": step(bf16, "cuda"),
+            "bf16 bgr control": step(bf16, "cuda", stem_bgr_control),
+            "bf16 heads control": step(bf16, "cuda", head_bf16_control)}
+    for name, r in runs.items():
+        if "ptr" in cpu["state"] and not torch.equal(r["state"]["ptr"],
+                                                     cpu["state"]["ptr"]):
+            raise AssertionError(f"{label} {name}: queue pointer "
+                                 f"{r['state']['ptr']} vs the CPU's")
+    return {"cfg": cfg,
+            "f32": {name: f32_margins(runs[name], cpu, ref)
+                    for name in ("f32", "f32 eps control")},
+            "bf16": {name: bf16_gaps(runs[name], cpu)
+                     for name in ("bf16", "bf16 bgr control")},
+            "glue": {name: glue_gaps(cfg, model, batch, runs[name])
+                     for name in ("bf16", "bf16 heads control")},
+            "loss": {"cpu f64": ref["metrics"]["loss"],
+                     "cpu f32": cpu["metrics"]["loss"],
+                     **{name: r["metrics"]["loss"]
+                        for name, r in runs.items()}}}
+
+
+def baseline_dtype_check(card: str, label: str, kw: dict) -> None:
+    """The baseline step in the dtypes users run, card vs CPU, at a size
+    where BN is well conditioned (baseline_dtype_readings): the card's
+    f32 step within f32_margins <= 1 of the float64 step in every group
+    and the loss; its bf16 step within BASELINE_BF16_TOL of the f32 CPU
+    step (features and loss); the bf16 step's glue within
+    BASELINE_GLUE_TOL of its CPU replay.  Each check must fail its broken
+    control, or it has no teeth."""
+    r = baseline_dtype_readings(label, kw)
+    cfg = r["cfg"]
+    head = (f"baseline {label} ({cfg.arch} {cfg.crop_size}^2 "
+            f"bs{cfg.batch_size}, {cfg.mem})")
+    f32 = {name: max(v.values()) for name, v in r["f32"].items()}
+    bf16 = {name: max(v[k] / BASELINE_BF16_TOL[k] for k in v)
+            for name, v in r["bf16"].items()}
+    glue = {name: max(v.values()) / BASELINE_GLUE_TOL
+            for name, v in r["glue"].items()}
+    print(f"{head} f32 card step vs the float64 CPU step, over "
+          f"{BASELINE_F32_RATIO} x the f32 CPU step's distance + "
+          f"{BASELINE_F32_FLOOR:.3g} of the norm: {r['f32']} [{card}]")
+    print(f"{head} bf16 card step vs the f32 CPU step (max abs; tolerance "
+          f"{BASELINE_BF16_TOL}): {r['bf16']} [{card}]")
+    print(f"{head} f32 glue of the bf16 card step vs its CPU replay (max "
+          f"abs; tolerance {BASELINE_GLUE_TOL}): {r['glue']}; losses "
+          f"{r['loss']} [{card}]")
+    for check, worst, sound, control in (
+            ("f32", f32, "f32", "f32 eps control"),
+            ("bf16", bf16, "bf16", "bf16 bgr control"),
+            ("glue", glue, "bf16", "bf16 heads control")):
+        if not worst[sound] <= 1.0:
+            raise AssertionError(f"{head} {check} check failed: "
+                                 f"{worst[sound]:.3g} of its tolerance")
+        if not worst[control] > 1.0:
+            raise AssertionError(f"{head} {check} check passed its broken "
+                                 f"control ({control}: {worst[control]:.3g}"
+                                 " of its tolerance)")
+
+
+def drive_baseline(card: str, label: str, kw: dict, n_data: int,
+                   warmup: int = 2, steps: int = 5) -> None:
+    """`warmup` + `steps` full-width steps (ResNet-50, 224^2, bf16) through
+    build_model, create_train_state and make_contrast_train_step on one
+    batch built from seeded numpy; the draws from the step's generator.
+    Prints device ms a step (CUDA events), the host median, the busy share
+    and launches a step (torch.profiler over one more step), and the peak
+    memory.  Raises on a non-finite metric, bank or queue row, or a queue
+    pointer that did not advance by the batch each step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    cfg = baseline_cfg(arch="resnet50", crop_size=224,
+                       compute_dtype="bfloat16", **kw)
+    torch.manual_seed(0)
+    model = build_model(cfg, device=dev).to(memory_format=torch.channels_last)
+    spe = n_data // cfg.batch_size
+    state = create_train_state(cfg, model, torch.Generator(dev).manual_seed(0),
+                               n_data=n_data, steps_per_epoch=spe)
+    step = make_contrast_train_step(cfg, model, steps_per_epoch=spe)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in baseline_batch(
+        cfg, np.random.default_rng(9), n_data, pins=False).items()}
+    gen = torch.Generator(dev).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host, dev_ms, metrics = [], [], []
+    for i in range(warmup + steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        m = step(state, batch, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            host.append(time.perf_counter() - t0)
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    kernels = [us for name, us in rows
+               if not name.startswith(("Memcpy", "Memset"))]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, mm in enumerate(metrics):
+        if not all(np.isfinite(v) for v in mm.values()):
+            raise AssertionError(f"{label} step {i}: non-finite {mm}")
+    n_steps = warmup + steps + 1
+    if state.moco is not None:
+        if not bool(torch.isfinite(state.moco.queues).all()):
+            raise AssertionError(f"{label}: non-finite queue rows")
+        want = n_steps * cfg.batch_size % cfg.nce_k
+        if state.moco.ptr != want:
+            raise AssertionError(f"{label}: queue pointer {state.moco.ptr} "
+                                 f"after {n_steps} steps, expected {want}")
+        mem = (f"queue {tuple(state.moco.queues.shape)} "
+               f"{state.moco.queues.numel() * 4 / 1e6:.1f} MB, pointer "
+               f"{state.moco.ptr} = {n_steps} x {cfg.batch_size} mod "
+               f"{cfg.nce_k}")
+    else:
+        if not bool(torch.isfinite(state.banks).all()):
+            raise AssertionError(f"{label}: non-finite bank rows")
+        mem = (f"banks {tuple(state.banks.shape)} "
+               f"{state.banks.numel() * 4 / 1e9:.2f} GB, NCE form "
+               + ("gather" if n_data > cfg.counts_max_n_data else "dense"))
+    med_ms = statistics.median(host) * 1e3
+    kernel_ms = sum(kernels) / 1e3
+    print(f"baseline {label} 224^2 bs{cfg.batch_size} bf16 ({cfg.mem}, "
+          f"{cfg.modal}, jigsaw {cfg.jigsaw}, nce_k {cfg.nce_k}): device "
+          f"{statistics.median(dev_ms):.2f} ms a step (CUDA events, median "
+          f"of {steps}: " + ", ".join(f"{t:.2f}" for t in dev_ms)
+          + f"), host median {med_ms:.2f} ms = "
+          f"{cfg.batch_size / med_ms * 1e3:.1f} samples/s, busy share "
+          f"{kernel_ms / med_ms:.3f} (profiled step's kernels "
+          f"{kernel_ms:.2f} ms), {len(kernels)} launches a step, peak "
+          f"memory {peak:.2f} GiB; {mem}; losses "
+          + ", ".join(f"{mm['loss']:.4f}" for mm in metrics) + f" [{card}]")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def baseline_cli(card: str, tmp: str) -> None:
+    """The baselines' user journey on a fixture ImageFolder tree of
+    Kinect-free JPEGs (8 classes x 32 train and 16 val images, 192-320
+    px): the folder DataSource's rate alone; main_contrast MoCov2
+    ResNet-50 224^2 bs64 (K 65536) for an epoch of 4 steps and its rank-0
+    checkpoint; --resume for 2 more steps (the restored queue and pointer
+    equal the saved ones); then main_linear --pretrain of that run for 4
+    steps with its validation's top-1/top-5."""
+    from hcmoco_tpu_torch.cli import main_contrast, main_linear
+    from hcmoco_tpu_torch.data.fixtures import make_image_folder_fixture
+
+    root = make_image_folder_fixture(os.path.join(tmp, "imgs"), n_classes=8,
+                                     n_per_class=32, seed=0,
+                                     size=(192, 320))
+    save = os.path.join(tmp, "save")
+    argv = ["--method", "MoCov2", "--arch", "resnet50", "--crop_size", "224",
+            "--batch_size", "64", "--nce_k", str(MOCO_K), "--dataset",
+            "folder", "--data_folder", os.path.join(root, "train"),
+            "--epochs", "1", "--print_freq", "1", "--model_path", save]
+    rate = cli_input_rate(argv)
+    print(f"baseline CLI: folder DataSource alone {rate:.1f} samples/s "
+          f"(MoCov2's two crops of policy B + index, bs64, 8 threads) "
+          f"[{card}]")
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    t0 = time.perf_counter()
+    # torch.profiler over the epoch's last two steps
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=2,
+                                   repeat=1)) as prof:
+        r1 = main_contrast.main(argv, on_step=lambda _: prof.step())
+    t1 = time.perf_counter()
+    kernel_ms = sum(us for name, us in device_rows(prof)
+                    if not name.startswith(("Memcpy", "Memset"))) / 1e3 / 2
+    saved = torch.load(os.path.join(r1.ckpt_dir, "epoch_1.pt"),
+                       map_location="cpu", weights_only=True)
+    seen = {}
+    r2 = main_contrast.main(
+        argv[:argv.index("--epochs")] + ["--epochs", "2", "--resume", "auto",
+                                         "--max_steps", "6"]
+        + argv[argv.index("--epochs") + 2:],
+        on_ready=lambda st: seen.update(
+            queues=st.moco.queues.cpu().clone(), ptr=st.moco.ptr,
+            step=st.step))
+    t2 = time.perf_counter()
+    if not (r1.state.step == 4 and seen["step"] == 4 == saved["step"]
+            and seen["ptr"] == saved["ptr"] == 4 * 64
+            and torch.equal(seen["queues"], saved["queues"])):
+        raise AssertionError(
+            f"baseline CLI resume: restored step {seen['step']} ptr "
+            f"{seen['ptr']} against saved {saved['step']}, {saved['ptr']}; "
+            "queues equal: "
+            + str(torch.equal(seen["queues"], saved["queues"])))
+    if not (r2.state.step == 6 and r2.state.moco.ptr == 6 * 64
+            and len(r2.step_s) == 2):
+        raise AssertionError(f"baseline CLI resume ran to step "
+                             f"{r2.state.step}, pointer {r2.state.moco.ptr}")
+    for label, r, t in (("MoCov2 CLI", r1, t1 - t0),
+                        ("MoCov2 CLI --resume", r2, t2 - t1)):
+        it_s = [a + b + c for a, b, c in zip(r.wait_s, r.upload_s, r.step_s)]
+        print(f"baseline {label}: {len(r.step_s)} steps, iteration median "
+              f"{statistics.median(it_s[1:] or it_s) * 1e3:.1f} ms (data "
+              f"wait {statistics.median(r.wait_s) * 1e3:.1f} ms, step "
+              f"{statistics.median(r.step_s) * 1e3:.1f} ms), wall {t:.1f} s "
+              f"[{card}]")
+    it_s = [a + b + c for a, b, c in zip(r1.wait_s, r1.upload_s, r1.step_s)]
+    print(f"baseline MoCov2 CLI: device kernel time {kernel_ms:.2f} ms a "
+          f"step over steps 3-4, busy share "
+          f"{kernel_ms / (statistics.median(it_s[2:]) * 1e3):.3f} of their "
+          f"iteration median; the DataSource alone delivers a batch of 64 "
+          f"in {64 / rate * 1e3:.1f} ms [{card}]")
+    print(f"baseline CLI resume: restored step 4, queue pointer 256 and the "
+          f"queue equal to epoch_1.pt's; ran to step 6, pointer 384 [{card}]")
+    t3 = time.perf_counter()
+    # the pre-training's method: the probe loads its model whole
+    run, out = capture_stdout(lambda: main_linear.main([
+        "--method", "MoCov2", "--arch", "resnet50", "--data_folder", root,
+        "--crop_size", "224", "--batch_size", "64", "--n_class", "8",
+        "--epochs", "1", "--max_steps", "4", "--print_freq", "1",
+        "--pretrain", r2.ckpt_dir]))
+    top1, top5 = run.val[-1]
+    if not ("=> loaded encoder" in out and len(run.metrics) == 4
+            and 0 <= top1 <= top5 <= 1
+            and all(np.isfinite(m["loss"]) for m in run.metrics)):
+        raise AssertionError(f"main_linear: {run.metrics}, val {run.val}")
+    print(f"baseline main_linear --pretrain: 4 steps, loss "
+          f"{run.metrics[-1]['loss']:.4f}, val top-1 {top1:.4f} top-5 "
+          f"{top5:.4f} (128 images, 8 classes), wall "
+          f"{time.perf_counter() - t3:.1f} s [{card}]")
+
+
+def dp_baseline_run(label: str, kw: dict, rank: int, size: int) -> dict:
+    """Two steps of a baseline (resnet18 64^2, global batch 8, the model
+    in float64) on this rank's rows, the draws from a generator seeded
+    alike on every rank; in a world of two the ranks' state is gathered
+    after every step and must be equal bit for bit.  Returns each step's
+    metrics and state (baseline_state_parts)."""
+    import torch.distributed as dist
+
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.parallel import mesh
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    cfg = baseline_cfg(**kw)
+    n = BASELINE_SMALL_N_DATA
+    torch.manual_seed(0)
+    model = model_f64(build_model(cfg, device=dev))
+    state = create_train_state(cfg, model, torch.Generator(dev).manual_seed(0),
+                               n_data=n, steps_per_epoch=10)
+    step = make_contrast_train_step(cfg, model, steps_per_epoch=10)
+    out = {"metrics": [], "state": []}
+    rng = np.random.default_rng(11)
+    for i in range(2):
+        b = baseline_batch(cfg, rng, n, pins=False)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             mesh.shard_rows(b, rank, size).items()}
+        b["rgbd"] = b["rgbd"].double()
+        if "rgbd_jig" in b:
+            b["rgbd_jig"] = b["rgbd_jig"].double()
+        m = step(state, b, torch.Generator(dev).manual_seed(200 + i))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        parts = baseline_state_parts(state)
+        out["state"].append(parts)
+        if size > 1:
+            flat = torch.cat([v.double().reshape(-1) for v in
+                              parts.values()]).to(dev)
+            got = [torch.empty_like(flat) for _ in range(size)]
+            dist.all_gather(got, flat)
+            if not all(torch.equal(g, got[0]) for g in got):
+                raise AssertionError(f"DP {label} step {i}: the ranks' "
+                                     "state differs")
+    return out
+
+
+def dp_baseline_worker(out_path: str) -> int:
+    """A rank of check_baseline_dp: joins the gloo group, runs every
+    BASELINE_DP case and writes its results to out_path."""
+    from hcmoco_tpu_torch.parallel import mesh
+
+    mesh.init_distributed(backend="gloo", timeout_s=DP_TIMEOUT_S)
+    try:
+        rank, size = mesh.world()
+        torch.save({label: dp_baseline_run(label, kw, rank, size)
+                    for label, kw in BASELINE_DP}, out_path)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def check_baseline_dp(card: str) -> None:
+    """MoCo and CMC with jigsaw (BASELINE_DP) on two `chip_smoke.py
+    --dp-baseline-rank` processes on cuda:0 over gloo against one process
+    with the ranks' BN formula: the ranks equal bit for bit after every
+    step (in the ranks); metrics and state within BASELINE_SMALL_TOL of
+    one process's (float64: the ranks differ by the order of their BN
+    sums)."""
+    t0 = time.perf_counter()
+    with ranks_formula():
+        one = {label: dp_baseline_run(label, kw, 0, 1)
+               for label, kw in BASELINE_DP}
+    t1 = time.perf_counter()
+    ranks = spawn_ranks("--dp-baseline-rank")
+    t2 = time.perf_counter()
+    for label, _ in BASELINE_DP:
+        a, b = one[label], ranks[0][label]
+        worst = 0.0
+        for i in range(2):
+            if b["metrics"][i] != ranks[1][label]["metrics"][i]:
+                raise AssertionError(f"DP {label} step {i}: the ranks' "
+                                     "metrics differ")
+            for k, va in a["metrics"][i].items():
+                vb = b["metrics"][i][k]
+                tol = BASELINE_SMALL_TOL
+                if not abs(vb - va) <= tol["atol"] + tol["rtol"] * abs(va):
+                    raise AssertionError(f"DP {label} step {i}: {k} {vb} on "
+                                         f"2 ranks, {va} on one process")
+            for k, va in a["state"][i].items():
+                torch.testing.assert_close(
+                    b["state"][i][k], va, **BASELINE_SMALL_TOL,
+                    msg=lambda msg, k=k: f"DP {label} {k}: {msg}")
+                if va.is_floating_point():
+                    worst = max(worst, float((b["state"][i][k] - va).abs()
+                                             .max()))
+        print(f"baseline DP {label}: 2 ranks x 4 rows on cuda:0 over gloo "
+              "against one process, 2 steps, float64: losses "
+              + ", ".join(f"{mb['loss']:.8f}/{ma['loss']:.8f}" for ma, mb in
+                          zip(a["metrics"], b["metrics"]))
+              + f"; state max abs diff {worst:.3g} (tolerance "
+              f"{BASELINE_SMALL_TOL}); ranks equal bit for bit after every "
+              f"step [{card}]")
+    print(f"baseline DP: one process {t1 - t0:.1f} s, two ranks "
+          f"{t2 - t1:.1f} s [{card}]")
+
+
+def baseline_phase(card: str, tmp: str) -> None:
+    """The baselines on the card: the float64 card-vs-CPU steps
+    (BASELINE_SMALL), the full-width steps (BASELINE_FULL), the CLI
+    journey (baseline_cli) and data parallelism (check_baseline_dp).
+    None of the port's kernels lies on this path: their counts must stay
+    0 throughout."""
+    wrappers = {**k1_wrappers(),
+                **{name: fn for name, (fn, _) in point_wrappers().items()}}
+    for fn in wrappers.values():
+        fn.launches = 0
+    # f64 means f64 and f32 f32 (TF32 off, as the rest of the smoke)
+    for label, kw in BASELINE_SMALL:
+        small_baseline_check(card, label, kw)
+    for label, kw in BASELINE_DTYPE:
+        baseline_dtype_check(card, label, kw)
+    for label, kw, n_data in BASELINE_FULL:
+        drive_baseline(card, label, kw, n_data)
+    baseline_cli(card, tmp)
+    check_baseline_dp(card)
+    launched = {name: fn.launches for name, fn in wrappers.items()
+                if fn.launches}
+    if launched:
+        raise AssertionError(f"the baseline phase launched the port's "
+                             f"kernels: {launched}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--dp-baseline-rank"]:
+        return dp_baseline_worker(sys.argv[2])
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3326,6 +4072,10 @@ def main() -> int:
         dp_k1, dp_pn = check_data_parallel(card)
         print(f"data-parallel phase wall time: "
               f"{time.perf_counter() - t_dp:.1f} s [{card}]")
+        t_base = time.perf_counter()
+        baseline_phase(card, tmp)
+        print(f"baseline phase wall time: "
+              f"{time.perf_counter() - t_base:.1f} s [{card}]")
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)

@@ -23,10 +23,16 @@ Usage:
       --train_file_list ... --mpii_root ...
   python -m hcmoco_tpu_torch.cli.main_contrast --synthetic 512 ...  # no data
 
+The baselines run through the same CLI: a method preset (--method InsDis,
+CMC, MoCo, PIRL, MoCov2, CMCv2 or InfoMin) with --arch resnet50 (any
+RESNET_SPECS name, or <resnet>cmc for CMC's shared trunk) on an ImageFolder
+tree (--dataset folder --data_folder DIR/train); --IN_Pretrain fills the
+ResNet encoder (the RGB methods' `encoder`, CMC's `encoder1`).
+
 Each step's random draws (negatives; HRNetPN's depth2pts points; stage 2's
-soft-Pri3D pixels) come from a generator on the device seeded from
-(seed + 1, global step) alone, so a resumed run draws what an
-uninterrupted one would.
+soft-Pri3D pixels; the baselines' jigsaw orders) come from a generator on
+the device seeded from (seed + 1, global step) alone, so a resumed run
+draws what an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,14 +52,9 @@ if TYPE_CHECKING:
     from ..core.config import TrainConfig
     from ..train.state import TrainState
 
-# TrainConfig fields of the JAX package that this CLI does not take; their
-# flags are refused rather than ignored
-_NOT_PORTED = {
-    "alpha": "the moco EMA: ROADMAP.md Queue 1 item 11",
-}
 # the versatility segmentor's fields: cli/main_segmentor.py takes them;
 # the pre-training CLI, which trains no segmentation head, refuses them
-_SEGMENTOR_FIELDS = ("n_class", "supervise_type", "test_type",
+SEGMENTOR_FIELDS = ("n_class", "supervise_type", "test_type",
                      "cmc_loss_weights", "other_loss_weights")
 
 
@@ -146,27 +147,23 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(args, segmentor: bool = False) -> "TrainConfig":
+def config_from_args(args, accept: Tuple[str, ...] = ()) -> "TrainConfig":
     """The TrainConfig of parsed args: the recipe, then every flag given.
-    segmentor: the caller is cli/main_segmentor.py, which takes the
-    versatility flags; otherwise they raise."""
+    accept: the SEGMENTOR_FIELDS this caller takes (cli/main_segmentor.py
+    all of them, cli/main_linear.py n_class); the others raise when
+    given."""
     from ..core.config import RECIPES, TrainConfig, resolve_config
 
     if args.recipe and args.recipe not in RECIPES:
         import sys
         sys.exit(f"error: unknown --recipe '{args.recipe}'. Available:\n  "
                  + "\n  ".join(sorted(RECIPES)))
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name, None) is not None:
-            raise NotImplementedError(f"--{name} sets a field of {what}, "
-                                      "which is not ported yet")
-    if not segmentor:
-        for name in _SEGMENTOR_FIELDS:
-            if getattr(args, name, None) is not None:
-                raise NotImplementedError(
-                    f"--{name} sets a field of the versatility segmentor "
-                    "(ROADMAP.md Queue 1 item 12), which trains through "
-                    "cli/main_segmentor.py, not this CLI")
+    for name in SEGMENTOR_FIELDS:
+        if name not in accept and getattr(args, name, None) is not None:
+            raise NotImplementedError(
+                f"--{name} sets a field of the versatility segmentor "
+                "(ROADMAP.md Queue 1 item 12), which trains through "
+                "cli/main_segmentor.py, not this CLI")
     cfg = RECIPES[args.recipe] if args.recipe else TrainConfig()
     overrides = {}
     for f in dataclasses.fields(TrainConfig):
@@ -285,12 +282,16 @@ def print_options(cfg: "TrainConfig") -> None:
 def graft_and_resume(cfg: "TrainConfig", state: "TrainState",
                      ckpt_dir: str) -> tuple:
     """--pretrain (a previous stage's checkpoint, partially grafted;
-    main_contrast.py:52-67), then --resume from ckpt_dir.  Returns
-    (state, its CheckpointManager, the first epoch to run)."""
+    main_contrast.py:52-67), the moco key encoder set to the model's
+    weights as loaded so far, then --resume from ckpt_dir (which restores
+    the key encoder too).  Returns (state, its CheckpointManager, the
+    first epoch to run)."""
     from ..train.checkpoint import CheckpointManager, graft_pretrain
+    from ..train.state import copy_to_key_model
 
     if cfg.pretrain:
         state = graft_pretrain(cfg.pretrain, state)
+    copy_to_key_model(state)
     ckpt = CheckpointManager(ckpt_dir, save_freq=cfg.save_freq)
     start_epoch = 1
     if cfg.resume:
@@ -408,6 +409,14 @@ def _run(args, cfg: "TrainConfig", rank: int, size: int, device,
     if args.synthetic:
         from ..data.synthetic import SyntheticContrastSource
 
+        if cfg.mem == "moco":
+            # the JAX CLI feeds this source's 3 channels to a step that
+            # splits them into two crops (ROADMAP.md Queue 3, F11)
+            raise ValueError(
+                "--synthetic with mem='moco': the synthetic source yields "
+                "one 3-channel image, and the moco step needs the query and "
+                "the key crop stacked on channels; train moco from folder "
+                "data (--dataset folder --data_folder ...)")
         n_data = args.synthetic
         source = SyntheticContrastSource(
             cfg.batch_size, size=cfg.crop_size,
@@ -435,7 +444,9 @@ def _run(args, cfg: "TrainConfig", rank: int, size: int, device,
         if args.IN_Pretrain or args.depth_Pretrain:
             from ..export.transfer import load_imagenet_pretrained
 
-            for enc, path in (("encoder1", args.IN_Pretrain),
+            # the RGB baselines and the CMC shared trunk have one encoder
+            first = "encoder" if hasattr(model, "encoder") else "encoder1"
+            for enc, path in ((first, args.IN_Pretrain),
                               ("encoder2", args.depth_Pretrain)):
                 if path:
                     n = load_imagenet_pretrained(path, model,

@@ -38,10 +38,11 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from .main_contrast import (RunResult, build_argparser, config_from_args,
-                            decode_threads, graft_and_resume, join_ranks,
-                            print_options, rank_rows, refuse_unported,
-                            shard_stream, train_epochs)
+from .main_contrast import (SEGMENTOR_FIELDS, RunResult, build_argparser,
+                            config_from_args, decode_threads,
+                            graft_and_resume, join_ranks, print_options,
+                            rank_rows, refuse_unported, shard_stream,
+                            train_epochs)
 
 
 @dataclass
@@ -106,7 +107,7 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     if args.IN_Pretrain or args.depth_Pretrain:
         raise ValueError("main_segmentor starts from a stage-2 checkpoint "
                          "(--pretrain), not --IN_Pretrain/--depth_Pretrain")
-    cfg = config_from_args(args, segmentor=True)
+    cfg = config_from_args(args, accept=SEGMENTOR_FIELDS)
     if not cfg.dataset:
         cfg = dataclasses.replace(cfg, dataset="NTUSeg", modal="RGBD2S",
                                   mem="bank+jointspri3d",

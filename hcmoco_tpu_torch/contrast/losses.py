@@ -70,7 +70,7 @@ def _mean(x: torch.Tensor) -> torch.Tensor:
 def per_sample_nce(logits: torch.Tensor):
     """Per-sample CE-to-class-0 and top-1 indicator of (bsz, K+1) logits
     (the positive in column 0 wins ties, as torch argmax does)."""
-    logits = logits.float()
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     ce = torch.logsumexp(logits, dim=-1) - logits[:, 0]
     correct = (logits.argmax(dim=-1) == 0).float()
     return ce, correct
@@ -114,6 +114,23 @@ def masked_six_way(per_sample: Sequence[Tuple[torch.Tensor, torch.Tensor]],
             losses.append(_mean(ce))
             accs.append(_mean(cor))
     return losses, accs
+
+
+def nce_loss_and_acc(logits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE-to-class-0 and top-1 accuracy of (bsz, K+1) logits over the
+    global batch (this rank's share under data parallelism)."""
+    ce, correct = per_sample_nce(logits)
+    return _mean(ce), _mean(correct)
+
+
+def compute_loss_accuracy(logits: Sequence[torch.Tensor],
+                          use_depth: Optional[torch.Tensor] = None,
+                          use_rgb: Optional[torch.Tensor] = None):
+    """The masked NCE of logit matrices, one per direction
+    (contrast_trainer.py:212-253): masked_six_way of per_sample_nce."""
+    return masked_six_way([per_sample_nce(lg) for lg in logits], use_depth,
+                          use_rgb)
 
 
 # ---- stage 2: dense soft-Pri3D ---------------------------------------------

@@ -1,5 +1,5 @@
-"""Memory banks and the six-way bank NCE (counterpart of
-hcmoco_tpu/contrast/memory.py, bank mode).
+"""Memory banks, the six-way bank NCE and the MoCo queue (counterpart of
+hcmoco_tpu/contrast/memory.py).
 
 Behavioural spec: pycontrast/memory/mem_bank.py (CMCMem3), with
 AliasMethod negative sampling over uniform probabilities.  Two forms of
@@ -29,6 +29,7 @@ applies the update one process would, duplicates across ranks included.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -139,10 +140,11 @@ def memory_logits(x: torch.Tensor, bank: torch.Tensor, idx: torch.Tensor,
                   ) -> torch.Tensor:
     """(bsz, K+1) logits against one bank: logits[b, k] =
     <bank[idx[b, k]], x[b]> / T (BaseMem._compute_logit,
-    mem_bank.py:30-40).  dense_scores: the score matrix x @ bank.T, then a
-    scalar gather; else the rows bank[idx] and a bmm."""
-    bank = bank.detach()
-    x = x.float()
+    mem_bank.py:30-40), in f32 (float64 for a float64 x).  dense_scores:
+    the score matrix x @ bank.T, then a scalar gather; else the rows
+    bank[idx] and a bmm."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    bank = bank.detach().to(x.dtype)
     if dense_scores:
         logits = (x @ bank.t()).gather(1, idx)
     else:
@@ -266,3 +268,58 @@ def cmc3_forward(banks: torch.Tensor, feats: torch.Tensor, y: torch.Tensor,
             update_memory(banks[i], all_feats[i], all_y, m)
 
     return logits, commit
+
+
+# ---------------------------------------------------------------------------
+# MoCo FIFO queue (mem_moco.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MoCoState:
+    """The ring-buffer queue(s) and write pointer (MoCoState of the JAX
+    package): `queues` (n_modal, K, dim) f32, rows L2-normalised, updated
+    in place; `ptr` the next row to write."""
+
+    queues: torch.Tensor
+    ptr: int = 0
+
+
+def init_moco(generator: torch.Generator, n_modal: int, k: int,
+              dim: int = 128, device=None) -> MoCoState:
+    """randn rows, L2-normalised (RGBMoCo/CMCMoCo __init__,
+    mem_moco.py:56-58,95-98), drawn from `generator` (on `device`)."""
+    q = torch.randn((n_modal, k, dim), generator=generator, device=device,
+                    dtype=torch.float32)
+    return MoCoState(queues=_l2norm(q), ptr=0)
+
+
+def moco_logits(q: torch.Tensor, k_pos: torch.Tensor, queue: torch.Tensor,
+                temperature: float) -> torch.Tensor:
+    """[positive | the queue's negatives] logits (RGBMoCo.forward,
+    mem_moco.py:24-40): out[:, 0] = <q, k+>, out[:, 1:] = q @ queue.T, over
+    the temperature, in f32 (float64 for a float64 q).  The key and the
+    queue carry no gradient."""
+    q = q.to(torch.promote_types(q.dtype, torch.float32))
+    pos = torch.sum(q * k_pos.detach().to(q.dtype), dim=-1, keepdim=True)
+    neg = q @ queue.detach().to(q.dtype).t()
+    return torch.cat([pos, neg], dim=1) / temperature
+
+
+@torch.no_grad()
+def moco_enqueue(state: MoCoState, all_keys: torch.Tensor) -> MoCoState:
+    """Write the keys of the global batch, all_keys (n_modal, n, dim), at
+    rows ptr, ptr+1, ... modulo K, in place, and advance the pointer
+    (`_update_memory`, mem_moco.py:42-49).  With n > K the later keys of
+    the batch overwrite the earlier ones, as the JAX scatter does."""
+    k = state.queues.shape[1]
+    n = all_keys.shape[1]
+    keys = all_keys.detach().float()
+    if n > k:  # only the last K keys survive
+        keys, start = keys[:, n - k:], (state.ptr + n - k) % k
+    else:
+        start = state.ptr
+    pos = (start + torch.arange(keys.shape[1], device=keys.device)) % k
+    state.queues[:, pos] = keys
+    state.ptr = (state.ptr + n) % k
+    return state

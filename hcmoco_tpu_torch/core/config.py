@@ -127,6 +127,8 @@ class TrainConfig:
     nce_k: int = 16384
     nce_m: float = 0.5
     nce_t: float = 0.07
+    alpha: float = 0.999  # the moco key encoder's EMA (e <- a e + (1-a) p)
+    beta: float = 0.5  # PIRL/CMC jigsaw weight: (1-b) instance + b jigsaw
     modality_missing: bool = False
     # stage 2 (mem='bank+jointspri3d'): the dense and joint losses'
     # temperature, the pixels soft-Pri3D draws per image, and the SCL

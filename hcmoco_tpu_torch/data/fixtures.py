@@ -147,3 +147,38 @@ def make_seg_fixture(root: str, ntu_root: str, n_frames: int = 3,
     with open(list_path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return root, list_path
+
+
+def make_image_folder_fixture(root: str, n_classes: int = 3,
+                              n_per_class: int = 4, seed: int = 0,
+                              size: Tuple[int, int] = (64, 96)) -> str:
+    """An ImageFolder tree of JPEGs under root: train/<class>/*.jpg with
+    n_per_class images a class and val/<class>/*.jpg with half as many (at
+    least one), classes `class_000`, ...  Each image's height and width
+    are drawn in [size[0], size[1]]; its pixels are a smooth pattern of
+    random waves over the class's own mean colour, plus noise, so that
+    crops differ and a linear probe has something to learn.  Every file
+    is a function of (seed, split, class, image) alone.  Returns root."""
+    class_rng = np.random.default_rng(seed)
+    colours = class_rng.uniform(40, 215, (n_classes, 3))
+    for split, n in (("train", n_per_class),
+                     ("val", max(n_per_class // 2, 1))):
+        for c in range(n_classes):
+            for i in range(n):
+                rng = np.random.default_rng(
+                    [seed, split == "val", c, i])
+                h, w = rng.integers(size[0], size[1] + 1, 2)
+                yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+                img = np.broadcast_to(colours[c], (h, w, 3)).copy()
+                for _ in range(3):
+                    fy, fx = rng.uniform(0.02, 0.2, 2)
+                    amp = rng.uniform(10, 40, 3)
+                    img += amp * np.sin(fy * yy + fx * xx
+                                        + rng.uniform(0, 6.3))[..., None]
+                img += rng.normal(0, 8, img.shape)
+                path = os.path.join(root, split, f"class_{c:03d}",
+                                    f"img_{i:05d}.jpg")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    path, quality=90)
+    return root

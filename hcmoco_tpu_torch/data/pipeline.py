@@ -216,9 +216,16 @@ def build_contrast_source(cfg, num_workers: int = 8, rows=None):
         ds = cls(cfg.data_folder, cfg.train_file_list, **kw)
         first_len, second_len = len(ds), len(ds)
     elif cfg.dataset in ("folder", ""):
-        raise NotImplementedError(
-            "the ImageFolder baselines' datasets (dataset 'folder') are not "
-            "ported yet: ROADMAP.md Queue 1 item 11")
+        # ImageFolder baselines (InsDis/MoCo/CMC/PIRL on class-folder data,
+        # ImageFolderInstance, dataset.py:9-45)
+        from .contrast_folder import ContrastImageFolder
+
+        ds = ContrastImageFolder(
+            cfg.data_folder, aug=cfg.aug, modal=cfg.modal,
+            two_crop=(cfg.mem == "moco"), jigsaw=cfg.jigsaw,
+            size=cfg.crop_size, use_memory_bank=cfg.mem.startswith("bank"),
+            seed=cfg.seed)
+        first_len, second_len = len(ds), len(ds)
     else:
         raise NotImplementedError(f"dataset key {key}")
 

@@ -104,6 +104,5 @@ class A2JResNet(nn.Module):
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "A2JResNet (--arch resnet50) needs models/resnet.py's "
-            "ResBottleneck, which is not ported yet: ROADMAP.md Queue 1 "
-            "item 11")
+            "A2JResNet (--arch resnet50), the legacy A2J ResNet50, is not "
+            "ported yet: ROADMAP.md Queue 1 item 11b")

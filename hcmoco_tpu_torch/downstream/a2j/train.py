@@ -10,7 +10,7 @@ onto the CPU, and without a card the CLI raises).  torch Adam with
 `weight_decay` couples the L2 term into the gradient, which is optax's
 add_decayed_weights -> scale_by_adam (eps outside the square root); the
 StepLR is a staircase at lr_step x steps-per-epoch optimizer steps, set
-before each step.  `--arch resnet50` raises: ROADMAP.md Queue 1 item 11.
+before each step.  `--arch resnet50` raises: ROADMAP.md Queue 1 item 11b.
 Convs run in bf16 (f32 with `--synthetic`); HCMOCO_CONVBN_FUSE=1 sends
 the backbone's 1x1 ConvBN sites through K1/K1b in training.  Under
 torchrun it trains data-parallel as the pre-training CLI does
@@ -49,7 +49,7 @@ def build_argparser():
                    choices=("hrnet", "resnet50"),
                    help="hrnet = HCMoCo's A2J_HRNet_model (stride-4 "
                         "anchors, main.py:289-295); resnet50 = the legacy "
-                        "A2J_model (not ported yet: ROADMAP.md item 11)")
+                        "A2J_model (not ported yet: ROADMAP.md item 11b)")
     p.add_argument("--epochs", type=int, default=35)
     p.add_argument("--batch_size", type=int, default=12)
     p.add_argument("--learning_rate", type=float, default=3.5e-4)
@@ -209,7 +209,7 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
     if args.arch == "resnet50":
         from .model import A2JResNet
 
-        A2JResNet()  # raises: ROADMAP.md Queue 1 item 11
+        A2JResNet()  # raises: ROADMAP.md Queue 1 item 11b
     from ..run import join_ranks
 
     rank, size, device = join_ranks(args, "downstream.a2j.train")

@@ -26,6 +26,19 @@ encoder1_linear are 1x1 convs with bias (kernel (1, 1, Fin, Fout) ->
 weight (Fout, Fin, 1, 1)); HCMoCoPNModel's encoder2_linear is a SharedMLP
 (dense0/bn0 -> encoder2_linear.layer0.conv / .bn.bn, as above).
 
+The baselines' models (`baseline_flax_to_torch`): each ResNet or
+CMCResNet encoder (`encoder`, `encoder1`, `encoder2`) through
+export/transfer.py's resnet_flax_to_torch, the projection heads as above,
+and PIRL's JigsawHeads (`head_jig`, `head{1,2}_jig`):
+
+  fc1/{kernel, bias} (linear)  -> {head}.fc1.0.{weight, bias}
+  fc1a, fc1b (mlp)             -> {head}.fc1.0, {head}.fc1.2
+  fc2                          -> {head}.fc2
+
+The moco key encoder's `params_ema` is a params tree of the same model
+(with the model's batch_stats: the key encoder's own are never read).
+The linear probe's LinearClassifier (`linear_flax_to_torch`): fc -> fc.
+
 The versatility segmentor's FCNHead (`fcn_flax_to_torch`, the inverse of
 hcmoco_tpu.export.transfer.fcn_torch_to_flax):
 
@@ -57,7 +70,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .transfer import hrnet_flax_to_torch
+from .transfer import hrnet_flax_to_torch, resnet_flax_to_torch
 
 
 def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -170,6 +183,51 @@ def fcn_flax_to_torch(params: Dict, batch_stats: Dict
             batch_stats[f"bn{i}"])
         i += 1
     _conv(sd, "conv_seg", params["conv_seg"])
+    return _tensors(sd)
+
+
+def _linear(out: Dict[str, np.ndarray], prefix: str, p: Dict) -> None:
+    """A flax Dense -> Linear: kernel (in, out) -> weight (out, in)."""
+    out[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def jigsaw_flax_to_torch(params: Dict, prefix: str) -> Dict[str, np.ndarray]:
+    """A JigsawHead's flax params -> the port's names (module docstring)."""
+    out: Dict[str, np.ndarray] = {}
+    if "fc1" in params:
+        _linear(out, f"{prefix}.fc1.0", params["fc1"])
+    else:
+        _linear(out, f"{prefix}.fc1.0", params["fc1a"])
+        _linear(out, f"{prefix}.fc1.2", params["fc1b"])
+    _linear(out, f"{prefix}.fc2", params["fc2"])
+    return out
+
+
+def baseline_flax_to_torch(params: Dict[str, Any],
+                           batch_stats: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """SingleModalModel, CMCDualModel or CMCSharedModel flax trees (or a
+    moco run's params_ema with the model's batch_stats) -> the port
+    model's state dict (module docstring)."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if name.startswith("encoder"):
+            for k, v in resnet_flax_to_torch(
+                    p, batch_stats.get(name, {})).items():
+                sd[f"{name}.{k}"] = v
+        elif name.endswith("_jig"):
+            sd.update(jigsaw_flax_to_torch(p, name))
+        else:
+            sd.update(head_flax_to_torch(p, name))
+    return _tensors(sd)
+
+
+def linear_flax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """A LinearClassifier's flax params -> its state dict (fc.weight,
+    fc.bias)."""
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "fc", params["fc"])
     return _tensors(sd)
 
 

@@ -1,4 +1,4 @@
-"""Flax HRNet trees -> the reference torch key layout (numpy).
+"""Flax HRNet and ResNet trees -> the reference torch key layout (numpy).
 
 The port's own copy of the name tables of hcmoco_tpu/export/transfer.py
 (`_flatten`, `_convbn_torch_names`, `_translate_convbn`,
@@ -13,7 +13,11 @@ Name mapping (flax -> torch):
                                    -> stage{s}.{m}.branches.{i}.{b}.conv{k}/bn{k}
   stage{s}_module{m}/fuse{i}_{j}[_{k}] -> stage{s}.{m}.fuse_layers.{i}.{j}.[{k}.]{0,1}
 Convs transpose HWIO -> OIHW; BN scale/bias -> weight/bias and batch_stats
-mean/var -> running_mean/running_var.
+mean/var -> running_mean/running_var.  `resnet_flax_to_torch` does the same
+for the baselines' ResNet and CMCResNet (the inverse of the JAX package's
+_resnet_torch_name: stem_conv|stem_v{1,2}|stem_bn -> conv1|conv1_v{1,2}|bn1,
+layer{s}_block{b}/c{k}_{conv,bn}|ds_{conv,bn} -> layer{s}.{b}.conv{k}/bn{k}
+|downsample.{0,1}).
 
 `load_imagenet_pretrained` is the counterpart of the JAX package's loader of
 the same name (over `hrnet_torch_to_flax`): the port already holds the
@@ -147,6 +151,51 @@ def hrnet_flax_to_torch(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
     return out
 
 
+def _resnet_torch_name(path: Tuple[str, ...]) -> Optional[str]:
+    """One flax ResNet / CMCResNet module path -> its torch prefix (the
+    inverse of the JAX package's _resnet_torch_name): stem_conv -> conv1,
+    stem_v{1,2} -> conv1_v{1,2}, stem_bn -> bn1,
+    layer{s}_block{b}/c{k}_{conv,bn} -> layer{s}.{b}.{conv,bn}{k},
+    layer{s}_block{b}/ds_{conv,bn} -> layer{s}.{b}.downsample.{0,1}."""
+    stem = {"stem_conv": "conv1", "stem_v1": "conv1_v1",
+            "stem_v2": "conv1_v2", "stem_bn": "bn1"}
+    if len(path) == 1:
+        return stem.get(path[0])
+    m = re.fullmatch(r"layer(\d)_block(\d+)", path[0])
+    m2 = re.fullmatch(r"(c\d|ds)_(conv|bn)", path[1])
+    if not (m and m2 and len(path) == 2):
+        return None
+    s, b = m.groups()
+    part, kind = m2.groups()
+    if part == "ds":
+        return f"layer{s}.{b}.downsample.{0 if kind == 'conv' else 1}"
+    return f"layer{s}.{b}.{kind}{part[1]}"
+
+
+def resnet_flax_to_torch(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
+    """One flax ResNet's or CMCResNet's params + stats -> the reference
+    torch names (numpy): convs HWIO -> OIHW, BN scale/bias -> weight/bias,
+    mean/var -> running_mean/running_var."""
+    flat_p = _flatten(params)
+    flat_s = _flatten(batch_stats)
+    out: Dict[str, np.ndarray] = {}
+    for path, v in flat_p.items():
+        name = _resnet_torch_name(path[:-1])
+        if name is None:
+            continue
+        leaf = path[-1]
+        if leaf == "kernel":
+            out[f"{name}.weight"] = np.transpose(v, (3, 2, 0, 1))
+        elif leaf in ("scale", "bias"):
+            out[f"{name}.{'weight' if leaf == 'scale' else 'bias'}"] = v
+            mod = path[:-1]
+            if mod + ("mean",) in flat_s and leaf == "scale":
+                out[f"{name}.running_mean"] = flat_s[mod + ("mean",)]
+                out[f"{name}.running_var"] = flat_s[mod + ("var",)]
+                out[f"{name}.num_batches_tracked"] = np.asarray(0)
+    return out
+
+
 _BN_TENSORS = ("weight", "bias", "running_mean", "running_var")
 
 
@@ -154,7 +203,8 @@ def load_hrnet_state(state_dict: Dict[str, Any], encoder,
                      skip: Tuple[str, ...] = ()) -> int:
     """Copy a torch HRNet state dict into the HRNet `encoder` (a bare
     backbone, or a model whose backbone sits at the top level under the
-    reference names, as the parsing model's does), in place: per conv its
+    reference names, as the parsing model's does; a ResNet the same way,
+    by its reference names), in place: per conv its
     weight, per BN its weight, bias, running mean and running var, where
     the dict holds the same name at the same shape; every other tensor is
     skipped, like the reference's filtered load (official_hrnet.py:461-473,
@@ -195,20 +245,29 @@ def read_state_dict(path: str) -> Dict[str, Any]:
 def load_imagenet_pretrained(path: str, model, encoder_names=("encoder1",
                                                               "encoder2")
                              ) -> int:
-    """--IN_Pretrain / --depth_Pretrain: initialise the HRNet encoders
-    `encoder_names` of `model`, in place, from a torch HRNet state dict
+    """--IN_Pretrain / --depth_Pretrain: initialise the encoders
+    `encoder_names` of `model` (HRNets, or the baselines' ResNets and CMC
+    trunk), in place, from a torch state dict under the reference names
     (e.g. ImageNet pretrain; build_backbone.py:547-560) through
-    `load_hrnet_state`; the classifier or a stem of another width is
-    skipped.  An encoder that is not an HRNet (HRNetPN's PointNet++)
-    takes nothing.  Returns the number of conv weights loaded."""
+    `load_hrnet_state`, whose filtered load is by module name and so
+    serves any of them; the classifier or a stem of another width is
+    skipped.  A whole model's dict whose keys carry the encoder's prefix
+    (`encoder.`, as tests/golden/rgb_moco_torch_keys.txt) gives that
+    encoder its part.  An encoder of another kind (HRNetPN's PointNet++)
+    takes nothing.  Returns the number of conv weights loaded.  The JAX
+    package's loader maps HRNet names only."""
     from ..models.hrnet import HRNet
+    from ..models.resnet import CMCResNet, ResNet
 
     sd = read_state_dict(path)
     total = 0
     for enc in encoder_names:
         encoder = getattr(model, enc, None)
-        if isinstance(encoder, HRNet):
-            total += load_hrnet_state(sd, encoder)
+        if isinstance(encoder, (HRNet, ResNet, CMCResNet)):
+            prefix = f"{enc}."
+            part = {k[len(prefix):]: v for k, v in sd.items()
+                    if k.startswith(prefix)}
+            total += load_hrnet_state(part or sd, encoder)
     return total
 
 

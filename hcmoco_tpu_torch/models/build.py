@@ -1,7 +1,9 @@
 """Model assembly (counterpart of hcmoco_tpu/models/build.py).
 
-`build_model` dispatches to HCMoCoModel (arch 'HRNet', below) or
-HCMoCoPNModel (arch 'HRNetPN', models/pointnet2_model.py).  The flagship
+`build_model` dispatches to HCMoCoModel (modal 'RGBD2S', arch 'HRNet',
+below), HCMoCoPNModel (arch 'HRNetPN', models/pointnet2_model.py), and
+the baselines' ResNet models (modal 'RGB': SingleModalModel; 'CMC':
+CMCDualModel, or CMCSharedModel for an arch '<resnet>cmc').  The flagship
 tri-modal model, the reference's CMC3HRNetSGCNSingleHead
 (build_backbone.py:186-303): HRNet(RGB) + HRNet(depth copied to 3
 channels) + SemGCN, each globally pooled and projected to an L2-normalised
@@ -10,16 +12,17 @@ channels) + SemGCN, each globally pooled and projected to an L2-normalised
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..core.config import HRNET_CONFIGS, TrainConfig
 from ..ops.point_gather import MAX_DEST
-from .heads import ProjectionHead, linear_1x1
+from .heads import JigsawHead, ProjectionHead, linear_1x1
 from .hrnet import HRNet, merge_all_res, pool_maps
 from .pointnet2_model import HCMoCoPNModel
+from .resnet import make_cmc_resnet, make_resnet
 from .sgcn import SemGCN
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -85,6 +88,104 @@ class HCMoCoModel(nn.Module):
         return out
 
 
+class SingleModalModel(nn.Module):
+    """RGBSingleHead / RGBMultiHeads (build_backbone.py:14-83): a ResNet
+    `encoder`, a projection `head`, and with jigsaw PIRL's `head_jig` over
+    the patch stack, which runs through the same encoder (its BN sees the
+    patches as a batch of their own).  Keys match
+    tests/golden/rgb_moco_torch_keys.txt.  Input NCHW."""
+
+    def __init__(self, arch: str = "resnet50", feat_dim: int = 128,
+                 head: str = "linear", in_channel: int = 3,
+                 jigsaw: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.encoder = make_resnet(arch, in_channel, dtype)
+        dim = self.encoder.out_channels
+        self.head = ProjectionHead(dim, feat_dim, head)
+        self.head_jig = (JigsawHead(dim, feat_dim, 9, head) if jigsaw
+                         else None)
+
+    def forward(self, x: torch.Tensor, project: bool = True,
+                x_jig: Optional[torch.Tensor] = None,
+                shuffle_ids: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x (B, C, H, W); x_jig (B*9, C, h, w) patches with their
+        shuffle_ids (JigsawHead).  -> pooled, feat, feat_jig."""
+        out = {"pooled": self.encoder(x)}
+        if project:
+            out["feat"] = self.head(out["pooled"])
+        if self.head_jig is not None and x_jig is not None:
+            out["feat_jig"] = self.head_jig(self.encoder(x_jig), shuffle_ids)
+        return out
+
+
+class CMCDualModel(nn.Module):
+    """CMCSingleHead / CMCMultiHeads (build_backbone.py:85-184): the input
+    split on channels, its first in_channel_list[0] to `encoder1` and the
+    rest to `encoder2`, two ResNets, `head1`/`head2`, and with jigsaw the
+    patch stack through the same encoders, split alike, into
+    `head1_jig`/`head2_jig`.  Input NCHW."""
+
+    def __init__(self, arch: str = "resnet50", feat_dim: int = 128,
+                 head: str = "linear",
+                 in_channel_list: Tuple[int, ...] = (1, 2),
+                 jigsaw: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.c1 = in_channel_list[0]
+        self.encoder1 = make_resnet(arch, in_channel_list[0], dtype)
+        self.encoder2 = make_resnet(arch, in_channel_list[1], dtype)
+        dim = self.encoder1.out_channels
+        self.head1 = ProjectionHead(dim, feat_dim, head)
+        self.head2 = ProjectionHead(dim, feat_dim, head)
+        self.head1_jig = self.head2_jig = None
+        if jigsaw:
+            self.head1_jig = JigsawHead(dim, feat_dim, 9, head)
+            self.head2_jig = JigsawHead(dim, feat_dim, 9, head)
+
+    def forward(self, x: torch.Tensor, project: bool = True,
+                x_jig: Optional[torch.Tensor] = None,
+                shuffle_ids: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        c1 = self.c1
+        out = {"pooled1": self.encoder1(x[:, :c1]),
+               "pooled2": self.encoder2(x[:, c1:])}
+        if project:
+            out["feat1"] = self.head1(out["pooled1"])
+            out["feat2"] = self.head2(out["pooled2"])
+        if self.head1_jig is not None and x_jig is not None:
+            out["feat1_jig"] = self.head1_jig(self.encoder1(x_jig[:, :c1]),
+                                              shuffle_ids)
+            out["feat2_jig"] = self.head2_jig(self.encoder2(x_jig[:, c1:]),
+                                              shuffle_ids)
+        return out
+
+
+class CMCSharedModel(nn.Module):
+    """The legacy shared-trunk CMC model, arch '<resnet>cmc': one
+    CMCResNet `encoder` whose pooled halves (L, ab) go to `head1`/`head2`.
+    The reference ships the trunk unwired (resnet_cmc.py:234-238); it has
+    no jigsaw.  Input NCHW, 3 channels (L, a, b)."""
+
+    def __init__(self, arch: str = "resnet50", feat_dim: int = 128,
+                 head: str = "linear", dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.encoder = make_cmc_resnet(arch, dtype)
+        dim = self.encoder.out_channels // 2
+        self.head1 = ProjectionHead(dim, feat_dim, head)
+        self.head2 = ProjectionHead(dim, feat_dim, head)
+
+    def forward(self, x: torch.Tensor, project: bool = True,
+                x_jig: Optional[torch.Tensor] = None,
+                shuffle_ids: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        p1, p2 = self.encoder(x)
+        out = {"pooled1": p1, "pooled2": p2}
+        if project:
+            out["feat1"] = self.head1(p1)
+            out["feat2"] = self.head2(p2)
+        return out
+
+
 def check_card_limits(cfg: TrainConfig, device="cuda") -> None:
     """Refuse a configuration that a card kernel of its path does not take,
     so that it fails here and not inside a backward.  On the card, K5's
@@ -139,7 +240,23 @@ def build_model(cfg: TrainConfig, device="cuda") -> nn.Module:
             dtype=dtype,
         )
         return model.to(device)
-    if cfg.modal in ("CMC", "RGB"):
-        raise NotImplementedError(
-            f"modal {cfg.modal} is not ported yet: ROADMAP.md Queue 1 item 11")
-    raise NotImplementedError(f"modal {cfg.modal} arch {cfg.arch}")
+    if cfg.modal == "CMC" and cfg.arch.endswith("cmc"):
+        if cfg.jigsaw:
+            raise NotImplementedError(
+                "jigsaw/PIRL is not defined for the legacy shared-trunk CMC "
+                "ResNet (resnet_cmc.py has no jigsaw integration); use the "
+                "dual-encoder CMC archs")
+        model = CMCSharedModel(arch=cfg.arch[:-3], feat_dim=cfg.feat_dim,
+                               head=cfg.head, dtype=dtype)
+    elif cfg.modal == "CMC":
+        model = CMCDualModel(arch=cfg.arch, feat_dim=cfg.feat_dim,
+                             head=cfg.head,
+                             in_channel_list=tuple(cfg.in_channel_list),
+                             jigsaw=cfg.jigsaw, dtype=dtype)
+    elif cfg.modal == "RGB":
+        model = SingleModalModel(arch=cfg.arch, feat_dim=cfg.feat_dim,
+                                 head=cfg.head, jigsaw=cfg.jigsaw,
+                                 dtype=dtype)
+    else:
+        raise NotImplementedError(f"modal {cfg.modal} arch {cfg.arch}")
+    return model.to(device)

@@ -22,12 +22,15 @@ from ..parallel import batchnorm as global_bn
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
-    """torch F.normalize(p=2) semantics: x / max(||x||, eps), norm in f32."""
-    return F.normalize(x.float(), p=2.0, dim=dim, eps=eps).to(x.dtype)
+    """torch F.normalize(p=2) semantics: x / max(||x||, eps), norm in f32
+    (float64 for a float64 x)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return F.normalize(x.to(acc), p=2.0, dim=dim, eps=eps).to(x.dtype)
 
 
 class ProjectionHead(nn.Sequential):
-    """linear (or mlp) projection + L2 norm to the contrastive sphere; f32."""
+    """linear (or mlp) projection + L2 norm to the contrastive sphere; f32
+    (or the head's dtype)."""
 
     def __init__(self, in_dim: int, feat_dim: int = 128,
                  head: str = "linear"):
@@ -41,7 +44,49 @@ class ProjectionHead(nn.Sequential):
         super().__init__(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return l2_normalize(super().forward(x.float()))
+        # f32, or the dtype of a head moved to float64
+        return l2_normalize(super().forward(x.to(self[0].weight.dtype)))
+
+
+class JigsawHead(nn.Module):
+    """PIRL's jigsaw head (networks/util.py:83-124; JigsawHead of the JAX
+    package): a per-patch projection `fc1` (linear, or mlp as
+    Linear-ReLU-Linear), the patches reordered by the given shuffle ids,
+    each image's k patches concatenated, `fc2`, L2 norm; f32 (or the
+    head's dtype)."""
+
+    def __init__(self, in_dim: int, dim_out: int = 128, k: int = 9,
+                 head: str = "linear"):
+        super().__init__()
+        if head == "linear":
+            self.fc1 = nn.Sequential(nn.Linear(in_dim, dim_out))
+        elif head == "mlp":
+            self.fc1 = nn.Sequential(nn.Linear(in_dim, in_dim), nn.ReLU(),
+                                     nn.Linear(in_dim, dim_out))
+        else:
+            raise NotImplementedError(f"head: {head}")
+        self.fc2 = nn.Linear(dim_out * k, dim_out)
+        self.k = k
+
+    def forward(self, x: torch.Tensor,
+                shuffle_ids: torch.Tensor) -> torch.Tensor:
+        """x: (B*k, in_dim) pooled patches; shuffle_ids: (B*k,) rows of x,
+        image-major (the JAX step's perms + 9 * image)."""
+        x = self.fc1(x.to(self.fc2.weight.dtype))[shuffle_ids]
+        x = self.fc2(x.reshape(x.shape[0] // self.k, -1))
+        return l2_normalize(x)
+
+
+class LinearClassifier(nn.Module):
+    """The linear probe on frozen pooled features (build_linear.py:17-27):
+    one Linear, `fc`, in f32."""
+
+    def __init__(self, in_dim: int, n_class: int):
+        super().__init__()
+        self.fc = nn.Linear(in_dim, n_class)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x.float())
 
 
 def linear_1x1(conv: nn.Conv2d, x: torch.Tensor,

@@ -92,7 +92,8 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
                      bn.momentum), n=n)
         y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
     else:
-        y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding)
+        y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding,
+                     conv.dilation, conv.groups)
         y = bn(y.to(stat_dtype(y.dtype))).to(dtype)
     return F.relu(y) if relu else y
 

@@ -111,8 +111,9 @@ class ResGraphConv(nn.Module):
 class SemGCN(nn.Module):
     """Input block + num_layers residual blocks + output graph conv
     (sem_gcn.py:60-95, coords_dim = (2, hid_dim) per create_SGCN.py:13).
-    The reference's optional non-local blocks (nodes_group) are not
-    ported: every shipped recipe passes nodes_group=None."""
+    The reference's optional non-local blocks (nodes_group; the JAX
+    package's GraphNonLocal/GroupedNonLocal) are not ported, ROADMAP.md
+    Queue 1 item 11b: every shipped recipe passes nodes_group=None."""
 
     def __init__(self, hid_dim: int = 128, num_layers: int = 4,
                  skeleton: str = "mpii"):

@@ -8,9 +8,11 @@ restores everything including the banks.  Here a checkpoint is one
 state_dict (the reference torch names, BN running statistics included),
 the optimizer's state_dict (SGD's momentum buffers), the banks, `step` and
 `epoch`; a versatility segmentor's also its classifier's state_dict
-(`classifier`, the reference FCN names).  The reference BN names and buffers are the same with
-HCMOCO_CONVBN_FUSE on or off, so a checkpoint of one path restores into
-the other.
+(`classifier`, the reference FCN names); a moco run's, in place of the
+banks, the key encoder's parameters (`key_model`, the EMA ones, under the
+model's names), the queue (`queues`) and its pointer (`ptr`).  The
+reference BN names and buffers are the same with HCMOCO_CONVBN_FUSE on or
+off, so a checkpoint of one path restores into the other.
 
 Under data parallelism the ranks' states are replicas: rank 0 writes, every
 rank waits for the write (a barrier), and every rank restores from the same
@@ -73,6 +75,11 @@ class CheckpointManager:
                 "epoch": int(epoch)}
         if state.classifier is not None:
             ckpt["classifier"] = state.classifier.state_dict()
+        if state.moco is not None:
+            ckpt["key_model"] = {n: p.detach() for n, p in
+                                 state.key_model.named_parameters()}
+            ckpt["queues"] = state.moco.queues
+            ckpt["ptr"] = int(state.moco.ptr)
         torch.save(ckpt, tmp)
         os.replace(tmp, path)
         for old in self.epochs()[:-self.max_to_keep]:
@@ -94,7 +101,13 @@ class CheckpointManager:
             state.classifier.load_state_dict(ckpt["classifier"], strict=True)
         state.optimizer.load_state_dict(ckpt["optimizer"])
         with torch.no_grad():
-            state.banks.copy_(ckpt["banks"])
+            if state.moco is not None:
+                for name, p in state.key_model.named_parameters():
+                    p.copy_(ckpt["key_model"][name])
+                state.moco.queues.copy_(ckpt["queues"])
+                state.moco.ptr = int(ckpt["ptr"])
+            else:
+                state.banks.copy_(ckpt["banks"])
         state.step = int(ckpt["step"])
         return state, int(ckpt["epoch"])
 
@@ -149,7 +162,8 @@ def graft_pretrain(pretrain_path: str, state: TrainState) -> TrainState:
         say(f"=> grafted {n_param} param tensors from {path}")
         say(f"=> grafted {n_stat} batch-stat tensors from {path}")
         banks = ckpt.get("banks")
-        if banks is not None and banks.shape == state.banks.shape:
+        if (banks is not None and state.banks is not None
+                and banks.shape == state.banks.shape):
             state.banks.copy_(banks)
             say("=> grafted memory banks")
     return state

@@ -1,6 +1,8 @@
-"""The contrastive pre-training step, stages 1 and 2 (counterpart of
-hcmoco_tpu/train/contrast_step.py, `mem='bank'` and
-`mem='bank+jointspri3d'`, `modal='RGBD2S'`).
+"""The contrastive pre-training step (counterpart of
+hcmoco_tpu/train/contrast_step.py): HCMoCo's stages 1 and 2 (`modal
+'RGBD2S'`, `mem='bank'` and `mem='bank+jointspri3d'`), and the baselines
+(`modal` 'RGB' or 'CMC') on memory banks (InsDis, PIRL, CMC) or on a MoCo
+queue with an EMA key encoder (MoCo, MoCov2, CMCv2, InfoMin).
 
 Behavioural spec: pycontrast/learning/contrast_trainer.py
 `_train_mem_skeleton3d` (:532-640, stage 1): forward the tri-modal model,
@@ -31,6 +33,12 @@ arch 'HRNetPN' also reads (dataset.py:1105-1118):
   depth_mask (B, H, W) f32 | grid_xy (B, H, W, 2) f32 | depth_mean (B,) f32 |
   pts_u (B, pn_num_points) f32 in [0, 1) (optional: pins the depth2pts
   draw; else the step's generator draws it)
+the baselines (modal 'RGB' / 'CMC') read rgbd and index only, and:
+  rgbd_jig (B, 9, h, w, C) f32 (with jigsaw: PIRL's patch stack) |
+  jig_perm (B, 9) int (optional: pins each image's patch order; else the
+  step's generator draws it) | neg_idx (B, K+1) int (optional, banks: pins
+  the negatives); for mem='moco' rgbd holds the query and the key crop
+  stacked on channels (B, H, W, 2C)
 stage 2 also reads, for both archs:
   joints2d (B, J, 2) f32 full-resolution (row, col) | joints_vis (B, J) int |
   depth_mask (B, H, W) f32 | pix_idx (B, S) int (optional: pins the
@@ -44,13 +52,17 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..contrast.losses import (cross_subject_scl_loss, joints_pri3d_loss,
-                               masked_six_way, per_sample_nce, scl_loss,
-                               scl_joint_features, soft_pri3d_loss)
-from ..contrast.memory import cmc3_forward, cmc3_losses_counts, update_memory
+from ..contrast.losses import (compute_loss_accuracy,
+                               cross_subject_scl_loss, joints_pri3d_loss,
+                               masked_six_way, nce_loss_and_acc,
+                               per_sample_nce, scl_loss, scl_joint_features,
+                               soft_pri3d_loss)
+from ..contrast.memory import (cmc3_forward, cmc3_losses_counts,
+                               memory_logits, moco_enqueue, moco_logits,
+                               sample_negative_indices, update_memory)
 from ..core.config import TrainConfig
 from ..parallel.mesh import (all_reduce_grads, gather_rows, gather_rows_grad,
-                             global_sum, world_size)
+                             global_sum, my_rows, world_size)
 from .schedules import learning_rate_fn
 from .state import TrainState
 
@@ -186,11 +198,12 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
     commit): one forward of the train step, with commit() the bank EMA
     update, to be called after the loss's backward (its graph holds the
     banks as they were).  Metrics are 0-d tensors, detached."""
+    if cfg.modal in ("RGB", "CMC"):
+        return _baseline_bank_loss_fn(cfg, model)
     if (cfg.modal != "RGBD2S" or cfg.mem not in ("bank", "bank+jointspri3d")
             or cfg.arch not in ("HRNet", "HRNetPN")):
         raise NotImplementedError(
-            f"train step for modal={cfg.modal} mem={cfg.mem} arch={cfg.arch}"
-            " is not ported yet: ROADMAP.md Queue 1 item 11")
+            f"train step for modal={cfg.modal} mem={cfg.mem} arch={cfg.arch}")
     stage2 = cfg.mem == "bank+jointspri3d"
     if stage2 and not cfg.linear_feat_map:
         raise ValueError("mem='bank+jointspri3d' needs linear_feat_map: its "
@@ -277,6 +290,213 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
     return loss_fn
 
 
+def _jigsaw_inputs(batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator]) -> dict:
+    """The model's x_jig (B*9, C, h, w) and shuffle_ids (B*9,) from the
+    batch's rgbd_jig: each image's patch order from jig_perm, else a
+    uniform permutation of 9 a row of the global batch drawn from
+    `generator` (this rank keeps its rows); shuffle_ids address the rows
+    of x_jig, image-major, as the JAX step's perms + 9 * image."""
+    xj = batch["rgbd_jig"]
+    bsz = xj.shape[0]
+    perms = batch.get("jig_perm")
+    if perms is None:
+        if generator is None:
+            raise ValueError("jigsaw: pass jig_perm or a generator")
+        rows = bsz * world_size()
+        perms = torch.rand((rows, 9), generator=generator,
+                           device=xj.device).argsort(dim=1)[my_rows(rows)]
+    perms = perms.long()
+    ids = perms + 9 * torch.arange(bsz, device=perms.device)[:, None]
+    return {"x_jig": xj.reshape(-1, *xj.shape[2:]).permute(0, 3, 1, 2),
+            "shuffle_ids": ids.reshape(-1)}
+
+
+def _baseline_bank_loss_fn(cfg: TrainConfig, model: torch.nn.Module
+                           ) -> Callable[..., tuple]:
+    """loss_fn(state, batch, generator=None) -> (loss, metrics, commit) of
+    the bank baselines, modal 'RGB' (InsDis; PIRL with jigsaw: RGBMem,
+    mem_bank.py:55-90, one bank) and 'CMC' (CMCMem, mem_bank.py:109-154:
+    two banks, cross-modal logits), the JAX step's branches
+    (contrast_step.py:226-311).  The negatives are one (B, K+1) draw shared
+    by every logit matrix (pinned by neg_idx); the logits are the dense
+    scores + a gather unless cfg.bank_logits is 'gather' or n_data is
+    above counts_max_n_data, where the bank rows are gathered.  With
+    jigsaw the jig logits take the swapped arguments of the reference
+    trainer (contrast_trainer.py:447-448: logits of f2_jig against bank 2,
+    f1_jig against bank 1) and the loss is (1 - beta) times the instance
+    terms + beta times the jig terms; the metrics are the raw losses.
+    commit() writes the global batch's features into the banks."""
+    if cfg.mem != "bank":
+        raise NotImplementedError(f"modal {cfg.modal} with mem {cfg.mem}")
+    cmc = cfg.modal == "CMC"
+
+    def loss_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> tuple:
+        model.train()
+        y = batch["index"].long()
+        kw = (_jigsaw_inputs(batch, generator)
+              if cfg.jigsaw and "rgbd_jig" in batch else {})
+        out = model(batch["rgbd"].permute(0, 3, 1, 2), **kw)
+        banks = state.banks
+        n_data = banks.shape[1]
+        if "neg_idx" in batch:
+            idx = batch["neg_idx"].long()
+        else:
+            if generator is None:
+                raise ValueError("pass neg_idx or a generator")
+            idx = sample_negative_indices(generator, y, n_data, cfg.nce_k)
+        dense = ((cfg.dense_scores or cfg.bank_logits != "gather")
+                 and n_data <= cfg.counts_max_n_data)
+
+        def lg(x, bank_i):
+            return memory_logits(x, banks[bank_i], idx, cfg.nce_t, dense)
+
+        if cmc:
+            feats = [out["feat1"], out["feat2"]]
+            logits = [lg(out["feat1"], 1), lg(out["feat2"], 0)]
+            names = ["12", "21"]
+            if "feat1_jig" in out:
+                logits += [lg(out["feat2_jig"], 1), lg(out["feat1_jig"], 0)]
+                names += ["jig2", "jig1"]
+        else:
+            feats = [out["feat"]]
+            logits = [lg(out["feat"], 0)]
+            names = ["ins"]
+            if "feat_jig" in out:
+                logits.append(lg(out["feat_jig"], 0))
+                names.append("jig")
+        losses, accs = compute_loss_accuracy(logits)
+        if len(names) > len(feats):  # the jig terms follow
+            weights = [1 - cfg.beta] * len(feats) + [cfg.beta] * len(feats)
+            loss = sum(w * l for w, l in zip(weights, losses))
+        else:
+            loss = sum(losses)
+        all_y = gather_rows(y)
+        all_feats = [gather_rows(f) for f in feats]
+
+        def commit() -> None:
+            for i, f in enumerate(all_feats):
+                update_memory(banks[i], f, all_y, cfg.nce_m)
+
+        metrics: Dict[str, torch.Tensor] = {}
+        for name, l, a in zip(names, losses, accs):
+            metrics[f"nce_loss_{name}"] = l.detach()
+            metrics[f"nce_acc_{name}"] = a.detach()
+        metrics["loss"] = loss.detach()
+        return loss, metrics, commit
+
+    return loss_fn
+
+
+def make_moco_train_step(cfg: TrainConfig, model: torch.nn.Module,
+                         steps_per_epoch: int
+                         ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """step(state, batch, generator=None) -> metrics for mem='moco'
+    (contrast_trainer.py `_train_moco`, :255-392; the JAX step's
+    moco_loss_fn and moco_train_step).
+
+    rgbd stacks the query crop and the key crop on channels.  The query
+    pass runs the model (with the patch stack for jigsaw); the key pass
+    runs state.key_model, whose parameters are the EMA ones, with BN in
+    train mode (the reference's set_bn_train) and no gradient, on the key
+    batch.  Its BN statistics update lands in the key encoder's own
+    buffers, which are never read; the model's are untouched.  BN takes
+    the global batch's statistics (F10), so ShuffleBN's permutation of the
+    key batch would change only the order of a sum: the port makes no such
+    draw and exchanges no rows, at any world size (ROADMAP.md Queue 3,
+    F12).
+    RGB (RGBMoCo, mem_moco.py:60-88): logits of the query against its key
+    and the queue, loss (1 - beta) l + beta l_jig with jigsaw.  CMC
+    (CMCMoCo, mem_moco.py:91-142): each modality's query against the
+    other's key and queue, the jig terms with the swapped arguments
+    (contrast_trainer.py:306-311).  After the backward the global batch's
+    keys are enqueued in rank order, SGD steps, and the key encoder's
+    parameters move to a e + (1 - a) p, a = cfg.alpha (momentum_update,
+    contrast_trainer.py:1041-1045).  The metrics are the JAX step's."""
+    if cfg.modal not in ("RGB", "CMC"):
+        raise NotImplementedError(f"mem='moco' with modal {cfg.modal}")
+    if max(cfg.microbatch, 1) > 1:
+        raise ValueError("microbatch is not defined for mem='moco': the "
+                         "JAX package's moco step takes the whole batch")
+    lr_fn = learning_rate_fn(cfg, steps_per_epoch)
+    cmc = cfg.modal == "CMC"
+
+    def moco_loss(state: TrainState, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator]) -> tuple:
+        model.train()
+        state.key_model.train()
+        x = batch["rgbd"].permute(0, 3, 1, 2)
+        c = x.shape[1] // 2
+        q_in, k_in = x[:, :c], x[:, c:]
+        kw = (_jigsaw_inputs(batch, generator)
+              if cfg.jigsaw and "rgbd_jig" in batch else {})
+        out_q = model(q_in, **kw)
+        with torch.no_grad():
+            out_k = state.key_model(k_in)
+        queues = state.moco.queues
+        metrics: Dict[str, torch.Tensor] = {}
+        if cmc:
+            k1, k2 = out_k["feat1"], out_k["feat2"]
+            l1, a1 = nce_loss_and_acc(moco_logits(out_q["feat1"], k2,
+                                                  queues[1], cfg.nce_t))
+            l2, a2 = nce_loss_and_acc(moco_logits(out_q["feat2"], k1,
+                                                  queues[0], cfg.nce_t))
+            loss = l1 + l2
+            metrics.update(nce_acc_12=a1, nce_acc_21=a2)
+            if "feat1_jig" in out_q:
+                l1j, a1j = nce_loss_and_acc(moco_logits(
+                    out_q["feat2_jig"], k2, queues[1], cfg.nce_t))
+                l2j, a2j = nce_loss_and_acc(moco_logits(
+                    out_q["feat1_jig"], k1, queues[0], cfg.nce_t))
+                loss = (1 - cfg.beta) * loss + cfg.beta * (l1j + l2j)
+                metrics.update(nce_acc_jig2=a1j, nce_acc_jig1=a2j,
+                               loss_jig=0.5 * (l1j + l2j))
+            keys = torch.stack([k1, k2])
+        else:
+            key = out_k["feat"]
+            loss, acc = nce_loss_and_acc(moco_logits(out_q["feat"], key,
+                                                     queues[0], cfg.nce_t))
+            metrics["nce_acc"] = acc
+            if "feat_jig" in out_q:
+                lj, aj = nce_loss_and_acc(moco_logits(
+                    out_q["feat_jig"], key, queues[0], cfg.nce_t))
+                loss = (1 - cfg.beta) * loss + cfg.beta * lj
+                metrics.update(nce_acc_jig=aj, loss_jig=lj)
+            keys = key[None]
+        metrics["loss"] = loss
+        # the global batch's keys, rank order: (n_modal, B, dim), rows on
+        # dim 1
+        all_keys = gather_rows(keys.transpose(0, 1)).transpose(0, 1)
+        return loss, {k: v.detach() for k, v in metrics.items()}, all_keys
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        lr = lr_fn(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics, all_keys = moco_loss(state, batch, generator)
+        loss.backward()
+        # after the backward: the logits' graph holds the queue as it was
+        moco_enqueue(state.moco, all_keys)
+        fill_missing_grads(state.optimizer)
+        sync_grads(state.optimizer)
+        state.optimizer.step()
+        a = cfg.alpha
+        with torch.no_grad():
+            for e, p in zip(state.key_model.parameters(),
+                            model.parameters()):
+                e.mul_(a).add_(p, alpha=1 - a)
+        state.step += 1
+        metrics = global_metrics(metrics)
+        metrics["learning_rate"] = lr
+        return metrics
+
+    return train_step
+
+
 def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
                              steps_per_epoch: int
                              ) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -299,7 +519,10 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
     is seeded alike on every rank.
     Metrics: nce_loss_*/nce_acc_* for the six directions, loss and
     learning_rate, and in stage 2 STAGE2_METRICS, as 0-d tensors
-    (learning_rate a float)."""
+    (learning_rate a float).  The baselines' metrics are their branches'
+    (_baseline_bank_loss_fn); mem='moco' is make_moco_train_step's."""
+    if cfg.mem == "moco":
+        return make_moco_train_step(cfg, model, steps_per_epoch)
     loss_fn = make_contrast_loss_fn(cfg, model)
     n_micro = max(cfg.microbatch, 1)
     lr_fn = learning_rate_fn(cfg, steps_per_epoch)

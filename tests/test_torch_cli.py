@@ -12,6 +12,8 @@ MetricLogger, on the CPU at tiny size (width-4 HRNet, 32^2 crops, f32).
 - The refusals: no card without --device cpu, n_data above
   counts_max_n_data before the model is built, and the flags whose ROADMAP
   item is not ported.
+- --alpha reaches the moco key encoder's EMA (a MoCo step on folder data),
+  and the weights --IN_Pretrain or --pretrain load reach its start.
 - MetricLogger's stdout lines and TSV equal the JAX package's.
 """
 
@@ -30,7 +32,9 @@ from hcmoco_tpu.utils.meters import MetricLogger as JaxMetricLogger
 from hcmoco_tpu_torch.cli import main_contrast as cli
 from hcmoco_tpu_torch.cli import pack_ntu as pack_cli
 from hcmoco_tpu_torch.core import config
-from hcmoco_tpu_torch.data.fixtures import make_mpii_fixture, make_ntu_fixture
+from hcmoco_tpu_torch.data.fixtures import (make_image_folder_fixture,
+                                            make_mpii_fixture,
+                                            make_ntu_fixture)
 from hcmoco_tpu_torch.train.checkpoint import CheckpointManager
 from hcmoco_tpu_torch.train.contrast_step import STAGE2_METRICS
 from hcmoco_tpu_torch.utils.meters import MetricLogger
@@ -71,12 +75,88 @@ def test_config_from_args_matches_jax(recipe, overrides):
     (["--multihost"], "item 10"),
     (["--profile_dir", "/tmp/p"], "item 14"),
     (["--supervise_type", "1"], "item 12"),
-    (["--alpha", "0.9"], "item 11"),
     (["--n_class", "3"], "item 12"),
 ])
 def test_unported_flags_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--synthetic", "8", "--device", "cpu"] + argv)
+
+
+def test_alpha_reaches_the_moco_ema(tmp_path):
+    """--alpha 0.9 is cfg.alpha, as the JAX CLI parses it, and the moco
+    key encoder's EMA: after a MoCo step on folder data every key
+    parameter is 0.9 of its value before + 0.1 of the model's after.
+    With --synthetic the moco CLI raises, naming the 3-channel source
+    (ROADMAP.md Queue 3, F11)."""
+    argv = ["--method", "MoCo", "--alpha", "0.9"]
+    got = cli.config_from_args(cli.build_argparser().parse_args(argv))
+    want = jax_cli.config_from_args(jax_cli.build_argparser().parse_args(
+        argv))
+    assert got.alpha == want.alpha == 0.9 and got.mem == "moco"
+    root = make_image_folder_fixture(str(tmp_path / "imgs"), 2, 4)
+    seen = {}
+    run = cli.main(argv + [
+        "--arch", "resnet18", "--dataset", "folder", "--data_folder",
+        os.path.join(root, "train"), "--crop_size", "32", "--batch_size",
+        "4", "--nce_k", "16", "--compute_dtype", "float32", "--max_steps",
+        "1", "--num_workers", "1", "--model_path", str(tmp_path / "save"),
+        "--device", "cpu"], on_ready=lambda st: seen.update(
+            {n: p.detach().clone()
+             for n, p in st.key_model.named_parameters()}))
+    state = run.state
+    assert state.step == 1 and state.moco.ptr == 4
+    model = dict(state.model.named_parameters())
+    for n, p in state.key_model.named_parameters():
+        # within an f32 rounding of the two products' sum
+        torch.testing.assert_close(p, 0.9 * seen[n] + 0.1 * model[n],
+                                   rtol=2.5e-7, atol=1e-8)
+    with pytest.raises(ValueError, match="3-channel"):
+        cli.main(argv + ["--synthetic", "8", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--IN_Pretrain", "--pretrain"])
+def test_loaded_weights_reach_the_moco_key_encoder(tmp_path, flag):
+    """--IN_Pretrain (a ResNet-18 state dict under the reference names) and
+    --pretrain (a port checkpoint) load the model, and the moco key
+    encoder starts from the same weights (the reference's
+    momentum_update(model, model_ema, 0)), not from the random init: at
+    on_ready, before the first step, every key parameter equals the
+    model's, and the loaded ones equal the file's."""
+    from hcmoco_tpu_torch.models.build import build_model
+
+    argv = ["--method", "MoCo", "--arch", "resnet18", "--crop_size", "32",
+            "--batch_size", "4", "--nce_k", "16", "--compute_dtype",
+            "float32"]
+    torch.manual_seed(7)
+    src = build_model(cli.config_from_args(cli.build_argparser().parse_args(
+        argv)), device="cpu")
+    path = str(tmp_path / "weights.pt")
+    if flag == "--IN_Pretrain":
+        torch.save(src.encoder.state_dict(), path)
+        want = {f"encoder.{k}": v for k, v in
+                src.encoder.state_dict().items()}
+    else:
+        want = src.state_dict()
+        torch.save({"model": want}, path)
+    root = make_image_folder_fixture(str(tmp_path / "imgs"), 2, 4)
+    seen = {}
+
+    def ready(st):
+        model = dict(st.model.named_parameters())
+        seen.update({n: (p.detach().clone(), model[n].detach().clone())
+                     for n, p in st.key_model.named_parameters()})
+
+    cli.main(argv + [
+        flag, path, "--dataset", "folder", "--data_folder",
+        os.path.join(root, "train"), "--max_steps", "1", "--num_workers",
+        "1", "--model_path", str(tmp_path / "save"), "--device", "cpu"],
+        on_ready=ready)
+    loaded = [n for n in seen if n in want]
+    assert len(loaded) > 10
+    for n, (key, model) in seen.items():
+        assert torch.equal(key, model), n
+    for n in loaded:
+        assert torch.equal(seen[n][1], want[n]), n
 
 
 def test_without_a_card_main_raises(monkeypatch):

@@ -2,9 +2,9 @@
 journey on the CPU at tiny size (width-4 HRNet, 32^2 crops, f32): on
 --synthetic data and from NTU + Parsing-4K fixture trees with per-epoch
 validation, --resume, --pretrain from a stage-2 checkpoint of
-cli/main_contrast.py, and cli/transfer_ckpt.py on its checkpoint; the
-versatility flags that the pre-training CLI refuses, and the linear-probe
-CLI, which is not ported yet."""
+cli/main_contrast.py, and cli/transfer_ckpt.py on its checkpoint; and the
+versatility flags that the pre-training CLI refuses.  (The linear-probe
+CLI's tests are tests/test_torch_linear.py.)"""
 
 import io
 import os
@@ -16,7 +16,7 @@ import torch
 
 from hcmoco_tpu.cli import main_contrast as jax_cli
 
-from hcmoco_tpu_torch.cli import main_contrast, main_linear, main_segmentor
+from hcmoco_tpu_torch.cli import main_contrast, main_segmentor
 from hcmoco_tpu_torch.cli import transfer_ckpt
 from hcmoco_tpu_torch.core import config
 from hcmoco_tpu_torch.core.config import HRNET_CONFIGS
@@ -172,7 +172,8 @@ def test_segmentor_config_matches_jax(recipe):
             "--test_type", "1", "--cmc_loss_weights", "0.5",
             "--other_loss_weights", "2.0"]
     got = main_contrast.config_from_args(
-        main_contrast.build_argparser().parse_args(argv), segmentor=True)
+        main_contrast.build_argparser().parse_args(argv),
+        accept=main_contrast.SEGMENTOR_FIELDS)
     want = jax_cli.config_from_args(jax_cli.build_argparser().parse_args(
         argv))
     for name in PORT_FIELDS:
@@ -194,8 +195,3 @@ def test_segmentor_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         main_segmentor.main(["--synthetic", "8"] + TINY[:-2])
-
-
-def test_main_linear_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main_linear.main([])

@@ -311,18 +311,20 @@ def test_build_contrast_source_matches_jax(trees, name):
 
 
 @pytest.mark.parametrize("dataset", ["NTUSeg", "NTURGBD", "folder"])
-def test_build_contrast_source_other_keys(trees, dataset):
-    """The versatility (NTUSeg) and single-NTU keys match the JAX
-    package's; the ImageFolder baselines are refused, naming their item."""
+def test_build_contrast_source_other_keys(trees, dataset, tmp_path):
+    """The versatility (NTUSeg), single-NTU and ImageFolder-baseline keys
+    match the JAX package's; the last on a fixture tree with InfoMin's
+    data (two crops of policy D on channels and the jigsaw stack)."""
     base = dict(batch_size=2, crop_size=SIZE, data_folder=trees["ntu"],
                 train_file_list=trees["ntu_list"], seg_root=trees["seg"],
                 seg_file_list=trees["seg_list"], dataset=dataset, seed=1,
                 modal="RGBD2S" if dataset != "NTURGBD" else "")
-    cfg = config.TrainConfig(**base)
     if dataset == "folder":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            pipeline.build_contrast_source(cfg)
-        return
+        root = fixtures.make_image_folder_fixture(str(tmp_path), 2, 3)
+        base = dict(batch_size=2, crop_size=SIZE, dataset=dataset, seed=1,
+                    data_folder=os.path.join(root, "train"), modal="RGB",
+                    mem="moco", jigsaw=True, aug="D")
+    cfg = config.TrainConfig(**base)
     got = pipeline.build_contrast_source(cfg, num_workers=1)
     want = jax_pipeline.build_contrast_source(jax_config.TrainConfig(**base))
     want[0].num_workers = 1

@@ -75,34 +75,60 @@ def run_bn_case(case: dict) -> dict:
             "running_var": bn.running_var.clone()}
 
 
+def port_f64(model: torch.nn.Module, heads: bool = False
+             ) -> torch.nn.Module:
+    """The model's ResNet / CMCResNet encoders in float64 (parameters, BN
+    statistics and compute), and with `heads` the whole model; else its
+    heads stay f32, as the JAX package's ProjectionHead computes in f32
+    (tests/torch_baseline_common.py says why)."""
+    from hcmoco_tpu_torch.models.resnet import CMCResNet, ResNet
+
+    for enc in model.modules():
+        if heads or isinstance(enc, (ResNet, CMCResNet)):
+            enc.double()
+            for m in enc.modules():
+                if hasattr(m, "compute_dtype"):
+                    m.compute_dtype = torch.float64
+    return model
+
+
 def run_case(case: dict) -> dict:
     """Steps of one case on this rank's rows.
 
     case: name; kind 'contrast' | 'segment'; cfg (TrainConfig kwargs);
-    fuse (HCMOCO_CONVBN_FUSE's path); n_data; model / classifier (state
-    dicts) and banks to start from; batches (global batch dicts of
-    tensors); sync (per step: None, or {'model', 'classifier', 'banks'}
-    whose parameters and banks the step starts from); gen_seed (None:
-    the batches pin every draw; else step i draws from a generator seeded
-    gen_seed + i).  Returns per step: metrics (floats), model and
-    classifier state dicts, banks.  A case of kind 'bn' is run_bn_case's."""
+    fuse (HCMOCO_CONVBN_FUSE's path); f64 (the baselines' model in
+    float64, port_f64 with its heads); n_data; model / classifier (state dicts) and banks,
+    or for mem='moco' queues, to start from (the moco key encoder starts
+    as the model); batches (global batch dicts of tensors); sync (per
+    step: None, or {'model', 'classifier', 'banks'} whose parameters and
+    banks the step starts from); gen_seed (None: the batches pin every
+    draw; else step i draws from a generator seeded gen_seed + i).
+    Returns per step: metrics (floats), model and classifier state dicts,
+    banks; for moco the queues, the pointer and the key encoder's
+    parameters instead of the banks.  A case of kind 'bn' is
+    run_bn_case's."""
     if case["kind"] == "bn":
         return run_bn_case(case)
     rank, size = mesh.world()
     cfg = resolve_config(TrainConfig(**case["cfg"]))
     model = set_convbn_fuse(build_model(cfg, device="cpu"),
                             case.get("fuse", False))
+    model.load_state_dict(case["model"], strict=True)
+    if case.get("f64"):
+        port_f64(model, heads=True)
     classifier = None
     if case["kind"] == "segment":
         classifier = FCNHead(128, cfg.n_class)
     state = create_train_state(cfg, model, torch.Generator().manual_seed(0),
                                n_data=case["n_data"], steps_per_epoch=1,
                                classifier=classifier)
-    model.load_state_dict(case["model"], strict=True)
     if classifier is not None:
         classifier.load_state_dict(case["classifier"], strict=True)
     with torch.no_grad():
-        state.banks.copy_(case["banks"])
+        if state.moco is not None:
+            state.moco.queues.copy_(case["queues"])
+        else:
+            state.banks.copy_(case["banks"])
     if classifier is None:
         step = make_contrast_train_step(cfg, model, steps_per_epoch=1)
     else:
@@ -128,7 +154,14 @@ def run_case(case: dict) -> dict:
         if classifier is not None:
             out["classifier"].append({k: v.clone() for k, v in
                                       classifier.state_dict().items()})
-        out["banks"].append(state.banks.clone())
+        if state.moco is not None:
+            out.setdefault("queues", []).append(state.moco.queues.clone())
+            out.setdefault("ptr", []).append(state.moco.ptr)
+            out.setdefault("key_model", []).append(
+                {k: v.detach().clone() for k, v in
+                 state.key_model.named_parameters()})
+        else:
+            out["banks"].append(state.banks.clone())
     return out
 
 
