@@ -1704,20 +1704,118 @@ def cli_input_rate(argv: list, batches: int = 10) -> float:
         it.close()
 
 
+def wrapper_counts(wrappers: dict) -> dict:
+    """{name: launches so far} of cli_run's `wrappers`, K1's generic-path
+    count after K1's own."""
+    launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
+    if "mm_bn_stats" in launches:
+        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                    "mm_bn_stats generic":
+                        k1_wrappers()["mm_bn_stats"].generic_launches,
+                    **launches}
+    return launches
+
+
+# the device kernels of each K1/K1b wrapper launch, by name in a trace: K1
+# launches its fast path's kernel (and its slot reduction) or its generic
+# path's one kernel; K1b's backward sums a reduction (and its tail)
+K1_TRACE_KERNELS = {
+    "mm_bn_stats": ("mm_bn_fast_kernel", "mm_bn_generic_kernel"),
+    "mm_bn_stats generic": ("mm_bn_generic_kernel",),
+    "bn_apply fwd": ("k1b_bn_fwd_kernel",),
+    "bn_apply bwd sums": ("k1b_bwd_reduce_kernel",),
+    "bn_apply bwd dy": ("k1b_bwd_dy_kernel",),
+    "mm_bn bwd dyt": ("k1b_dyt_kernel",)}
+
+
+def read_cli_trace(trace_dir: str) -> dict:
+    """The one trace that the CLI's --profile_dir wrote: its file's MB,
+    the `global_step N` spans, every device kernel's (name, us), copies
+    and fills left out, and the seconds json.load took."""
+    import glob
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile_dir wrote {files}, expected one "
+                             "trace file")
+    t0 = time.perf_counter()
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    read_s = time.perf_counter() - t0
+    return {"mb": os.path.getsize(files[0]) / 1e6, "read_s": read_s,
+            "events": len(events),
+            "spans": sorted((e["name"] for e in events
+                             if e.get("cat") == "user_annotation"
+                             and e.get("name", "").startswith("global_step ")),
+                            key=lambda n: int(n.split()[1])),
+            "kernels": [(e["name"], float(e.get("dur", 0.0))) for e in events
+                        if e.get("cat") == "kernel"]}
+
+
+def check_trace(card: str, label: str, trace_dir: str, marks: dict,
+                r, free_it_ms: float) -> None:
+    """The CLI's --profile_dir trace against the run: its spans are global
+    steps 10-15 and its K1/K1b kernel events (K1_TRACE_KERNELS) equal the
+    wrappers' launches over those steps (`marks`: the counts after step 9
+    and after step 15, and the host clock there).  Prints the trace's
+    size, the seconds that stopping the profiler and writing the trace
+    took (the host time between the two marks less the six steps'), and
+    reading it, and the trace's device ms a step beside the CLI's own
+    step time; returns that device ms a step."""
+    from hcmoco_tpu_torch.cli.main_contrast import PROFILE_STEPS
+
+    first, last = PROFILE_STEPS
+    tr = read_cli_trace(trace_dir)
+    want_spans = [f"global_step {i}" for i in range(first, last + 1)]
+    if tr["spans"] != want_spans:
+        raise AssertionError(f"{label}: trace spans {tr['spans']}, "
+                             f"expected {want_spans}")
+    n = last - first + 1
+    counted = {k: marks["after"][k] - marks["before"][k]
+               for k in K1_TRACE_KERNELS}
+    traced = {k: sum(1 for name, _ in tr["kernels"]
+                     if any(t in name for t in keys))
+              for k, keys in K1_TRACE_KERNELS.items()}
+    if traced != counted or not all(counted.values()):
+        raise AssertionError(f"{label}: K1/K1b kernels in the trace "
+                             f"{traced}, the wrappers counted {counted} over "
+                             f"steps {first}-{last}")
+    steps = slice(first, last + 1)
+    traced_host = sum(a + b + c for a, b, c in zip(
+        r.wait_s[steps], r.upload_s[steps], r.step_s[steps]))
+    write_s = marks["after_t"] - marks["before_t"] - traced_host
+    kernel_ms = sum(us for _, us in tr["kernels"]) / 1e3 / n
+    step_ms = statistics.median(r.step_s[steps]) * 1e3
+    print(f"{label} --profile_dir: trace of global steps {first}-{last} "
+          f"({tr['events']} events, {len(tr['kernels'])} kernels, "
+          f"{tr['mb']:.1f} MB); K1/K1b kernel events {traced} = the "
+          f"wrappers' launches over those steps; stopping the profiler and "
+          f"writing the trace {write_s:.1f} s, json.load {tr['read_s']:.1f} "
+          f"s [{card}]")
+    print(f"{label} --profile_dir: device kernel time {kernel_ms:.3f} ms a "
+          f"step from the trace, beside the CLI's step time {step_ms:.2f} ms "
+          f"(median of the traced steps, CPU and CUDA activity on) and its "
+          f"iteration median {free_it_ms:.2f} ms untraced: busy share "
+          f"{kernel_ms / free_it_ms:.3f} [{card}]")
+    return kernel_ms
+
+
 def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
             wrappers: dict, on_ready=None, input_rate: float = None,
-            main=None):
+            main=None, trace_dir: Optional[str] = None):
     """main(argv) (cli/main_contrast.py's unless `main` is another CLI's
     with its signature and result), which runs `n` steps, on the card with
     every count of `wrappers` ({name: (fn, launches a step, or None:
     checked by the caller)}) and K1's generic-path count set to 0 just
-    before it; torch.profiler records the run's last two steps.
+    before it; torch.profiler records the run's last two steps, or with
+    `trace_dir` the CLI's own --profile_dir traces global steps 10-15
+    there (check_trace).
     Prints the iteration's median and quartiles over the steps before the
-    profiler's (the first step, a warm-up, left out), samples/s, the host
-    input rate, the device busy share and the peak memory; returns
-    (result, launches by name), after checking
-    the launches against the expected count a step and that the epoch's
-    loss is finite and its checkpoint written."""
+    profiler's (the first step, a warm-up, left out; with `trace_dir` the
+    steps outside 10-15), samples/s, the host input rate, the device busy
+    share and the peak memory; returns (result, launches by name), after
+    checking the launches against the expected count a step and that the
+    epoch's loss is finite and its checkpoint written."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     if main is None:
@@ -1730,18 +1828,31 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     mm_bn_stats_cuda = k1_wrappers()["mm_bn_stats"]
     mm_bn_stats_cuda.generic_launches = 0
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=n - 3, warmup=1, active=2,
-                                   repeat=1)) as prof:
-        r = main(argv, on_ready=on_ready, on_step=lambda _: prof.step())
+    prof = None
+    if trace_dir is not None:
+        from hcmoco_tpu_torch.cli.main_contrast import PROFILE_STEPS
+
+        marks = {}
+
+        def on_step(i):
+            # after step 9 and after step 15
+            for key, at in (("before", PROFILE_STEPS[0]),
+                            ("after", PROFILE_STEPS[1] + 1)):
+                if i == at:
+                    marks[key] = wrapper_counts(wrappers)
+                    marks[f"{key}_t"] = time.perf_counter()
+
+        r = main(argv + ["--profile_dir", trace_dir], on_ready=on_ready,
+                 on_step=on_step)
+    else:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=n - 3, warmup=1, active=2,
+                                       repeat=1)) as prof:
+            r = main(argv, on_ready=on_ready, on_step=lambda _: prof.step())
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
-    if "mm_bn_stats" in launches:
-        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
-                    "mm_bn_stats generic": mm_bn_stats_cuda.generic_launches,
-                    **launches}
+    launches = wrapper_counts(wrappers)
     steps = len(r.step_s)
     if steps != n:
         raise AssertionError(f"{label}: ran {steps} steps, expected {n}")
@@ -1761,27 +1872,41 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     if not bool(torch.isfinite(r.state.banks).all()):
         raise AssertionError(f"{label}: non-finite bank rows")
 
-    rows = device_rows(prof)
-    kernel_ms = sum(us for name, us in rows
-                    if not name.startswith(("Memcpy", "Memset"))) / 1e3 / 2
-    h2d_ms = sum(us for name, us in rows
-                 if name.startswith("Memcpy") and "HtoD" in name) / 1e3 / 2
     it_s = [a + b + c for a, b, c in zip(r.wait_s, r.upload_s, r.step_s)]
-    free = slice(1, n - 3)  # after the warm-up, before the profiler's steps
-    q1, med, q3 = statistics.quantiles(it_s[free], n=4)
-    step_med = statistics.median(r.step_s[free])
+    if prof is None:
+        # after the warm-up, outside the traced steps
+        free = [i for i in range(1, n)
+                if not PROFILE_STEPS[0] <= i <= PROFILE_STEPS[1]]
+        where = f"steps 2-{PROFILE_STEPS[0]} and {PROFILE_STEPS[1] + 2}-{n}"
+    else:
+        # after the warm-up, before the profiler's steps
+        free = list(range(1, n - 3))
+        where = f"steps 2-{n - 3}"
+    q1, med, q3 = statistics.quantiles([it_s[i] for i in free], n=4)
+    step_med = statistics.median(r.step_s[i] for i in free)
+    if prof is None:
+        kernel_ms = check_trace(card, label, trace_dir, marks, r, med * 1e3)
+        h2d = ""  # the trace's copies are not read
+    else:
+        rows = device_rows(prof)
+        kernel_ms = sum(us for name, us in rows
+                        if not name.startswith(("Memcpy", "Memset"))) / 1e3 / 2
+        h2d = "; H2D copies {:.3f} ms/step".format(sum(
+            us for name, us in rows
+            if name.startswith("Memcpy") and "HtoD" in name) / 1e3 / 2)
     print(f"{label}: {steps} steps, epochs {r.start_epoch}-{r.last_epoch}, "
           f"loss {loss:.5f} (epoch mean), checkpoint {ckpt}")
     print(f"{label}: iteration median {med * 1e3:.2f} ms (quartiles "
-          f"{q1 * 1e3:.2f}, {q3 * 1e3:.2f}; steps 2-{n - 3}) = "
+          f"{q1 * 1e3:.2f}, {q3 * 1e3:.2f}; {where}) = "
           f"{bsz / med:.2f} samples/s; medians of its parts: data wait "
-          f"{statistics.median(r.wait_s[free]) * 1e3:.2f} ms, pin + upload "
-          f"enqueue {statistics.median(r.upload_s[free]) * 1e3:.2f} ms, step "
-          f"{step_med * 1e3:.2f} ms; host input rate {input_rate:.2f} "
+          f"{statistics.median(r.wait_s[i] for i in free) * 1e3:.2f} ms, "
+          f"pin + upload enqueue "
+          f"{statistics.median(r.upload_s[i] for i in free) * 1e3:.2f} ms, "
+          f"step {step_med * 1e3:.2f} ms; host input rate {input_rate:.2f} "
           f"samples/s (DataSource alone, 10 batches) against the step's "
           f"{bsz / step_med:.2f}; device kernel time {kernel_ms:.3f} "
-          f"ms/step, busy share {kernel_ms / (med * 1e3):.3f}; H2D copies "
-          f"{h2d_ms:.3f} ms/step; peak memory {peak:.2f} GiB [{card}]")
+          f"ms/step, busy share {kernel_ms / (med * 1e3):.3f}{h2d}; peak "
+          f"memory {peak:.2f} GiB [{card}]")
     print(f"{label}: launches {launches} in {steps} steps; wall time: main "
           f"{t1 - t0:.1f} s, profile read {time.perf_counter() - t1:.1f} s "
           f"[{card}]")
@@ -1883,7 +2008,10 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
     --pretrain, and HRNetPN bs64 from a pack of the NTU tree through the
     native resample.  Returns the K1/K1b launches of the three HRNet runs
     and the point kernels' of the HRNetPN run; copies the stage-2 run's
-    checkpoint to `stage2_copy` (the versatility phase grafts from it)."""
+    checkpoint to `stage2_copy` (the versatility phase grafts from it).
+    The stage-1 run passes --profile_dir: its trace of global steps 10-15
+    must hold exactly the K1/K1b launches that the wrappers counted there
+    (cli_run, check_trace)."""
     from hcmoco_tpu_torch.data.fixtures import (make_mpii_fixture,
                                                 make_ntu_fixture)
     from hcmoco_tpu_torch.data.packed import pack_ntu
@@ -1937,9 +2065,13 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
         s1 = ["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18",
               "--batch_size", str(BATCH)] + files
         rate = cli_input_rate(s1)
+        t_trace = time.perf_counter()
         r1, l1 = cli_run(card, "CLI stage-1 HRNet", s1 + [
             "--epochs", "1", "--max_steps", str(steps1)], BATCH, steps1, k1,
-            input_rate=rate)
+            input_rate=rate, trace_dir=os.path.join(tmp, "trace"))
+        print(f"CLI stage-1 HRNet with --profile_dir: wall "
+              f"{time.perf_counter() - t_trace:.1f} s, the trace's write "
+              f"and read included [{card}]")
         check_k1(l1, r1, steps1, "CLI stage-1 HRNet")
         stage1_dir = r1.ckpt_dir
         saved = (r1.state.step, r1.state.banks.detach().cpu().clone(),
@@ -2777,9 +2909,9 @@ def downstream_run(card: str, label: str, main, argv: list, bsz: int,
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the "
           f"run [{card}]")
     print(f"{label}: K1/K1b launches {launches} in {n} steps = {sites} a "
-          f"step ({generic} on K1's generic path) for the one HRNet-W18 "
-          f"(the pre-training step's two: 80, 62); wall {wall:.1f} s "
-          f"[{card}]")
+          f"step ({generic} on K1's generic path)"
+          + (" for the one HRNet-W18 (the pre-training step's two: 80, 62)"
+             if sites else "") + f"; wall {wall:.1f} s [{card}]")
     return r, out, launches
 
 
@@ -2794,7 +2926,8 @@ def downstream_phase(card: str, encoder2: str, tmp: str) -> list:
     frames from the best weights; (c) A2J (downstream/a2j/train.py):
     HRNet-W18, crop 288, bs12, --pretrained_pth, on an ITOP fixture, 8
     steps over two epochs with PCK@10cm before and after each.  Returns
-    the K1/K1b launches of (b) and (c)."""
+    the K1/K1b launches of (b) and (c), and the ITOP fixture's (train dir,
+    test dir, train boxes, test boxes)."""
     import re
 
     from hcmoco_tpu_torch.data.fixtures import make_seg_fixture
@@ -2896,7 +3029,7 @@ def downstream_phase(card: str, encoder2: str, tmp: str) -> list:
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         torch.backends.cudnn.allow_tf32 = False
-    return [seg_launches, a2j_launches]
+    return [seg_launches, a2j_launches], itop
 
 
 # ---- data parallelism: two ranks on one card over gloo ----------------------
@@ -3516,7 +3649,10 @@ def stem_bgr_control(model: torch.nn.Module) -> None:
     with torch.no_grad():
         for name, m in model.named_children():
             if name.startswith("encoder"):
-                m.conv1.weight.copy_(m.conv1.weight.flip(1))
+                # a ResNeSt's deep stem is a Sequential, its first conv at 0
+                stem = (m.conv1[0] if isinstance(m.conv1, torch.nn.Sequential)
+                        else m.conv1)
+                stem.weight.copy_(stem.weight.flip(1))
 
 
 def head_bf16_control(model: torch.nn.Module) -> None:
@@ -3623,17 +3759,32 @@ def glue_gaps(cfg, model: torch.nn.Module, batch: dict, run: dict) -> dict:
     return out
 
 
-def baseline_dtype_readings(label: str, kw: dict) -> dict:
-    """One step of `label` at BASELINE_DTYPE_SIZE on the CPU in float64
-    and f32 and on the card in f32 and bf16 (convs; heads, logits and
-    memory f32), each card step also with its broken control, from the
-    same weights, memory and pinned draws.  -> the readings the checks
+@contextlib.contextmanager
+def cudnn_off():
+    """PyTorch's native CUDA convolutions in place of cuDNN's inside."""
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = was
+
+
+def baseline_dtype_readings(label: str, kw: dict,
+                            size: dict = BASELINE_DTYPE_SIZE,
+                            f32_cudnn: bool = True) -> dict:
+    """One step of `label` at `size` (BASELINE_DTYPE_SIZE) on the CPU in
+    float64 and f32 and on the card in f32 and bf16 (convs; heads, logits
+    and memory f32), each card step also with its broken control, from
+    the same weights, memory and pinned draws.  -> the readings the checks
     hold: f32_margins of the card's f32 step and of its BN-eps control;
     bf16_gaps of the bf16 step and of its BGR control; glue_gaps of the
-    bf16 step and of its bf16-heads control."""
+    bf16 step and of its bf16-heads control.  Without `f32_cudnn` the two
+    f32 card steps run PyTorch's native CUDA convolutions, and the f32
+    step through cuDNN is read beside them ('f32 cudnn', not held)."""
     from hcmoco_tpu_torch.models.build import build_model
 
-    cfg = baseline_cfg(**kw, **BASELINE_DTYPE_SIZE)
+    cfg = baseline_cfg(**kw, **size)
     n = BASELINE_SMALL_N_DATA
     batch = baseline_batch(cfg, np.random.default_rng(7), n)
     torch.manual_seed(0)
@@ -3648,19 +3799,24 @@ def baseline_dtype_readings(label: str, kw: dict) -> dict:
                                  control=control, capture=True)
 
     cpu = step(model, "cpu")
-    runs = {"f32": step(model, "cuda"),
-            "f32 eps control": step(model, "cuda", bn_eps_control),
+    with contextlib.nullcontext() if f32_cudnn else cudnn_off():
+        runs = {"f32": step(model, "cuda"),
+                "f32 eps control": step(model, "cuda", bn_eps_control)}
+    f32 = ["f32", "f32 eps control"]
+    if not f32_cudnn:
+        runs["f32 cudnn"] = step(model, "cuda")
+        f32.append("f32 cudnn")
+    runs.update({
             "bf16": step(bf16, "cuda"),
             "bf16 bgr control": step(bf16, "cuda", stem_bgr_control),
-            "bf16 heads control": step(bf16, "cuda", head_bf16_control)}
+            "bf16 heads control": step(bf16, "cuda", head_bf16_control)})
     for name, r in runs.items():
         if "ptr" in cpu["state"] and not torch.equal(r["state"]["ptr"],
                                                      cpu["state"]["ptr"]):
             raise AssertionError(f"{label} {name}: queue pointer "
                                  f"{r['state']['ptr']} vs the CPU's")
     return {"cfg": cfg,
-            "f32": {name: f32_margins(runs[name], cpu, ref)
-                    for name in ("f32", "f32 eps control")},
+            "f32": {name: f32_margins(runs[name], cpu, ref) for name in f32},
             "bf16": {name: bf16_gaps(runs[name], cpu)
                      for name in ("bf16", "bf16 bgr control")},
             "glue": {name: glue_gaps(cfg, model, batch, runs[name])
@@ -3671,15 +3827,18 @@ def baseline_dtype_readings(label: str, kw: dict) -> dict:
                         for name, r in runs.items()}}}
 
 
-def baseline_dtype_check(card: str, label: str, kw: dict) -> None:
+def baseline_dtype_check(card: str, label: str, kw: dict,
+                         size: dict = BASELINE_DTYPE_SIZE,
+                         f32_cudnn: bool = True) -> None:
     """The baseline step in the dtypes users run, card vs CPU, at a size
     where BN is well conditioned (baseline_dtype_readings): the card's
     f32 step within f32_margins <= 1 of the float64 step in every group
     and the loss; its bf16 step within BASELINE_BF16_TOL of the f32 CPU
     step (features and loss); the bf16 step's glue within
     BASELINE_GLUE_TOL of its CPU replay.  Each check must fail its broken
-    control, or it has no teeth."""
-    r = baseline_dtype_readings(label, kw)
+    control, or it has no teeth.  `size`: the arch, crop, batch and
+    nce_k; `f32_cudnn`: baseline_dtype_readings'."""
+    r = baseline_dtype_readings(label, kw, size, f32_cudnn)
     cfg = r["cfg"]
     head = (f"baseline {label} ({cfg.arch} {cfg.crop_size}^2 "
             f"bs{cfg.batch_size}, {cfg.mem})")
@@ -3688,7 +3847,9 @@ def baseline_dtype_check(card: str, label: str, kw: dict) -> None:
             for name, v in r["bf16"].items()}
     glue = {name: max(v.values()) / BASELINE_GLUE_TOL
             for name, v in r["glue"].items()}
-    print(f"{head} f32 card step vs the float64 CPU step, over "
+    where = ("" if f32_cudnn else
+             " (native CUDA convs; 'f32 cudnn' read, not held)")
+    print(f"{head} f32 card step{where} vs the float64 CPU step, over "
           f"{BASELINE_F32_RATIO} x the f32 CPU step's distance + "
           f"{BASELINE_F32_FLOOR:.3g} of the norm: {r['f32']} [{card}]")
     print(f"{head} bf16 card step vs the f32 CPU step (max abs; tolerance "
@@ -3710,8 +3871,9 @@ def baseline_dtype_check(card: str, label: str, kw: dict) -> None:
 
 
 def drive_baseline(card: str, label: str, kw: dict, n_data: int,
-                   warmup: int = 2, steps: int = 5) -> None:
-    """`warmup` + `steps` full-width steps (ResNet-50, 224^2, bf16) through
+                   warmup: int = 2, steps: int = 5,
+                   arch: str = "resnet50") -> None:
+    """`warmup` + `steps` full-width steps (`arch`, 224^2, bf16) through
     build_model, create_train_state and make_contrast_train_step on one
     batch built from seeded numpy; the draws from the step's generator.
     Prints device ms a step (CUDA events), the host median, the busy share
@@ -3725,8 +3887,8 @@ def drive_baseline(card: str, label: str, kw: dict, n_data: int,
     from hcmoco_tpu_torch.train.state import create_train_state
 
     dev = torch.device("cuda")
-    cfg = baseline_cfg(arch="resnet50", crop_size=224,
-                       compute_dtype="bfloat16", **kw)
+    cfg = baseline_cfg(arch=arch, crop_size=224, compute_dtype="bfloat16",
+                       **kw)
     torch.manual_seed(0)
     model = build_model(cfg, device=dev).to(memory_format=torch.channels_last)
     spe = n_data // cfg.batch_size
@@ -4016,6 +4178,330 @@ def baseline_phase(card: str, tmp: str) -> None:
                              f"kernels: {launched}")
 
 
+# ---- the last modules: ResNeSt, A2J's ResNet50, the non-local SemGCN and
+# the model summary ----------------------------------------------------------
+
+# the small ResNeSt of the card-vs-CPU checks: one block a stage,
+# ResNeSt-50's stem (tests/torch_dp_worker.py's SMALL_RESNEST)
+SMALL_RESNEST = dict(layers=(1, 1, 1, 1), stem_width=32)
+RESNEST_SMALL = (
+    ("ResNeSt MoCo", dict(method="MoCo", arch="resnest50", crop_size=32,
+                          batch_size=4)),
+    ("ResNeSt CMC dual", dict(method="CMC", arch="resnest50", crop_size=32,
+                              batch_size=4)))
+# the dtype check's size: the small ResNeSt at 224^2 bs8, whose layer4 BN
+# sees 8 * 7 * 7 = 392 values a channel (its SplAt attention BN: 8).  Its
+# f32 check runs the card's convs natively (f32_cudnn=False): through
+# cuDNN's f32 convolutions the parameters after the step read 31.9-39.1 of
+# the check's margin on an H100 (native: 0.166-0.274; ResNet-18 through
+# cuDNN: 0.294-0.384; PERF.md)
+RESNEST_DTYPE_SIZE = dict(arch="resnest50", crop_size=224, batch_size=8,
+                          nce_k=256)
+# SemGCN's Human3.6M joint pairs (16 joints, groups of 2)
+SEMGCN_GROUPS = ((2, 3), (5, 6), (1, 4), (0, 7), (8, 9), (14, 15), (11, 12),
+                 (10, 13))
+# the grouped SemGCN card vs CPU in f32: the largest abs difference over
+# the largest magnitude of the output, the input gradient and the BN
+# statistics (an H100: sound 1.19e-6-3.09e-6; the joints left in group
+# order 0.23-0.92; PERF.md)
+NONLOCAL_TOL = 1e-5
+A2J_RES_CROP = 64
+
+
+@contextlib.contextmanager
+def small_resnest():
+    """Inside, build_model builds arch 'resnest50' as SMALL_RESNEST."""
+    from hcmoco_tpu_torch.models import build
+    from hcmoco_tpu_torch.models.resnest import ResNeSt
+
+    make = build.make_resnet
+
+    def small(name, in_channel=3, dtype=torch.bfloat16):
+        if name != "resnest50":
+            return make(name, in_channel, dtype)
+        return ResNeSt(in_channel=in_channel, dtype=dtype, **SMALL_RESNEST)
+
+    build.make_resnet = small
+    try:
+        yield
+    finally:
+        build.make_resnet = make
+
+
+def resnest_full(card: str) -> None:
+    """MoCov2 at ResNeSt-50, 224^2, K 65536, bf16 (drive_baseline), at
+    bs256, or at the largest of 128 and 64 that fits if it does not."""
+    for bsz in (256, 128, 64):
+        try:
+            drive_baseline(card, "MoCov2 ResNeSt-50",
+                           dict(method="MoCov2", batch_size=bsz,
+                                nce_k=MOCO_K), IMAGENET_N_DATA,
+                           arch="resnest50")
+            return
+        except torch.cuda.OutOfMemoryError:
+            print(f"baseline MoCov2 ResNeSt-50: bs{bsz} does not fit in "
+                  f"the card's memory [{card}]")
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise AssertionError("MoCov2 ResNeSt-50 fits at none of bs256-64")
+
+
+def a2j_resnet_step(model: torch.nn.Module, dev: str, depth: np.ndarray,
+                    labels: np.ndarray) -> dict:
+    """One downstream/a2j/train.py train step (Adam, the StepLR, cls + 3 x
+    reg) of a copy of `model` on `dev` over the stride-16 grid; returns on
+    the CPU the metrics, the gradients and the state after."""
+    from hcmoco_tpu_torch.downstream.a2j import train as a2j
+
+    m = copy.deepcopy(model).to(dev)
+    args = a2j.build_argparser().parse_args([])
+    opt = torch.optim.Adam(m.parameters(), lr=args.learning_rate,
+                           weight_decay=args.weight_decay)
+    grid = a2j.a2j_anchors("resnet50", depth.shape[1], dev).double()
+    step = a2j.make_train_step(m, opt, a2j.step_lr_fn(
+        args.learning_rate, 10, args.lr_gamma), grid, args)
+    metrics = step({"depth": torch.from_numpy(depth).to(dev),
+                    "label": torch.from_numpy(labels).to(dev)}, 0)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.detach().cpu().clone()
+                      for n, p in m.named_parameters()},
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in m.state_dict().items()}}
+
+
+def small_a2j_resnet_check(card: str) -> None:
+    """One float64 train step of A2JResNet at 64^2 bs2 on the card against
+    the CPU (the CPU step is held against the JAX package by
+    tests/test_torch_a2j_resnet.py): the losses, every gradient, the BN
+    statistics and the parameters after Adam within BASELINE_SMALL_TOL
+    (a gradient's atol scaled by its tensor's largest), but the heads'
+    conv biases ahead of a training BN, whose gradient is zero in exact
+    arithmetic (rounding noise on either side, which Adam's first step
+    turns into +-lr): their gradients must be under atol x the model's
+    largest gradient on both sides."""
+    from hcmoco_tpu_torch.downstream.a2j.model import A2JResNet
+
+    torch.manual_seed(0)
+    model = model_f64(A2JResNet(dtype=torch.float32))
+    rng = np.random.default_rng(13)
+    c = A2J_RES_CROP
+    depth = rng.standard_normal((2, c, c, 1))
+    labels = np.concatenate([rng.uniform(0, c, (2, 15, 2)),
+                             rng.standard_normal((2, 15, 1)) * 5], -1)
+    ref = a2j_resnet_step(model, "cpu", depth, labels)
+    got = a2j_resnet_step(model, "cuda", depth, labels)
+    tol = BASELINE_SMALL_TOL
+    for k, v in ref["metrics"].items():
+        if not abs(got["metrics"][k] - v) <= tol["atol"] + tol["rtol"] * abs(v):
+            raise AssertionError(f"A2J ResNet50 f64 step {k}: card "
+                                 f"{got['metrics'][k]} vs cpu {v}")
+    ahead_of_bn = {f"{h}.conv{i}.bias" for h in (
+        "classificationModel", "regressionModel", "DepthRegressionModel")
+        for i in range(1, 5)}
+    top = max(float(v.abs().max()) for v in ref["grads"].values())
+    for k in ahead_of_bn:
+        noise = max(float(r["grads"][k].abs().max()) for r in (ref, got))
+        if not noise <= tol["atol"] * top:
+            raise AssertionError(f"A2J ResNet50 grads {k}: {noise} on a bias "
+                                 "whose gradient is zero ahead of a BN")
+    worst = 0.0
+    for what in ("grads", "state"):
+        for k, v in ref[what].items():
+            if k in ahead_of_bn:
+                continue
+            # a gradient's atol scales with its tensor's largest
+            atol = tol["atol"] * (float(v.abs().max()) if what == "grads"
+                                  else 1.0)
+            torch.testing.assert_close(
+                got[what][k], v, rtol=tol["rtol"], atol=atol,
+                msg=lambda msg, k=k, w=what: f"A2J ResNet50 {w} {k}: {msg}")
+            if v.is_floating_point():
+                worst = max(worst, float((got[what][k] - v).abs().max()))
+    print(f"A2J ResNet50 ({c}^2 bs2) float64 train step, card vs cpu: loss "
+          f"{got['metrics']['loss']:.10f} vs {ref['metrics']['loss']:.10f}; "
+          f"gradients and state max abs diff {worst:.3g} (tolerance {tol}; "
+          f"the 12 head conv biases ahead of BN: gradients under "
+          f"{tol['atol'] * top:.3g}) [{card}]")
+
+
+def nonlocal_gaps(model: torch.nn.Module, dev: str, x: np.ndarray,
+                  g: np.ndarray) -> dict:
+    """A train-mode forward and backward of sum(out * g) of a copy of the
+    grouped SemGCN on `dev`: the output, the input's gradient and the BN
+    running statistics, on the CPU."""
+    m = copy.deepcopy(model).to(dev).train()
+    xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+    out = m(xt)
+    (out * torch.from_numpy(g).to(dev)).sum().backward()
+    return {"out": out.detach().cpu(), "dx": xt.grad.cpu(),
+            "stats": torch.cat([v.detach().cpu().reshape(-1) for k, v in
+                                m.state_dict().items() if "running_" in k])}
+
+
+def nonlocal_sgcn_check(card: str) -> None:
+    """SemGCN(128, 4, 'mpii', nodes_group=SEMGCN_GROUPS) at bs256 in f32,
+    every non-local block's W_bn scale and bias drawn away from zero (at
+    init the blocks are the identity): its output, input gradient and BN
+    statistics on the card against the CPU's, each's largest abs
+    difference over its largest magnitude within NONLOCAL_TOL; a broken
+    control, the joints left in group order after each block, must fail
+    it."""
+    from hcmoco_tpu_torch.models.sgcn import (GraphNonLocal,
+                                              GroupedNonLocal, SemGCN)
+
+    torch.manual_seed(0)
+    model = SemGCN(128, 4, "mpii", nodes_group=SEMGCN_GROUPS)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, GraphNonLocal):
+                m.W[1].weight.uniform_(0.5, 1.5)
+                m.W[1].bias.uniform_(-0.5, 0.5)
+    rng = np.random.default_rng(17)
+    x = rng.uniform(-1, 1, (256, 16, 2)).astype(np.float32)
+    g = rng.standard_normal((256, 16, 128)).astype(np.float32)
+    broken = copy.deepcopy(model)
+    for m in broken.modules():
+        if isinstance(m, GroupedNonLocal):
+            m.restored = torch.arange(16)
+    ref = nonlocal_gaps(model, "cpu", x, g)
+    gaps = {}
+    for name, m in (("sound", model), ("control", broken)):
+        got = nonlocal_gaps(m, "cuda", x, g)
+        gaps[name] = {k: float((got[k] - v).abs().max() / v.abs().max())
+                      for k, v in ref.items()}
+    print(f"non-local SemGCN (128, 4 layers, 8 groups of 2) bs256 f32 train "
+          f"forward + backward, card vs cpu, max abs diff over max |value| "
+          f"(tolerance {NONLOCAL_TOL}): {gaps['sound']}; control (joints "
+          f"left in group order): {gaps['control']} [{card}]")
+    if not max(gaps["sound"].values()) <= NONLOCAL_TOL:
+        raise AssertionError(f"non-local SemGCN card vs cpu: {gaps['sound']}")
+    if not max(gaps["control"].values()) > NONLOCAL_TOL:
+        raise AssertionError("the non-local SemGCN check passed its broken "
+                             f"control: {gaps['control']}")
+
+
+def summary_models(dev: str) -> list:
+    """(label, model, example inputs) of every full-width model the smoke
+    builds, one sample each, on `dev` in f32 (the count is of shapes)."""
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.downstream.a2j.model import A2JHRNet, A2JResNet
+    from hcmoco_tpu_torch.downstream.seg.model import SegHRNet
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.resnet import make_resnet
+
+    f32 = torch.float32
+    b = synthetic_contrast_batch(np.random.default_rng(0), 1, size=320,
+                                 n_data=N_DATA)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    rgbd = t["rgbd"].permute(0, 3, 1, 2)
+    pn = make_cfg(arch="HRNetPN", compute_dtype="float32")
+    torch.manual_seed(0)
+    return [
+        ("HCMoCo HRNet-W18 320^2",
+         build_model(make_cfg(compute_dtype="float32"), device=dev),
+         (rgbd, t["skeleton"])),
+        ("HCMoCo HRNetPN-W18 320^2 (4096 points)",
+         build_model(pn, device=dev),
+         (rgbd, t["skeleton"], t["depth_mask"], t["grid_xy"], pn.pn_ori_h,
+          pn.pn_ori_w, t["depth_mean"], torch.Generator(dev).manual_seed(0))),
+        ("ResNet-50 224^2", make_resnet("resnet50", dtype=f32).to(dev),
+         (torch.zeros(1, 3, 224, 224, device=dev),)),
+        ("ResNeSt-50 224^2", make_resnet("resnest50", dtype=f32).to(dev),
+         (torch.zeros(1, 3, 224, 224, device=dev),)),
+        ("parsing HRNet-W18 473^2", SegHRNet(25, 18, f32).to(dev),
+         (torch.zeros(1, 3, 473, 473, device=dev),)),
+        ("A2J HRNet-W18 288^2", A2JHRNet(15, 9, 18, dtype=f32).to(dev),
+         (torch.zeros(1, 1, 288, 288, device=dev),)),
+        ("A2J ResNet50 288^2", A2JResNet(15, 16, dtype=f32).to(dev),
+         (torch.zeros(1, 1, 288, 288, device=dev),))]
+
+
+def summary_check(card: str) -> dict:
+    """utils/summary.py's count_params and forward_flops of every
+    full-width model the smoke builds (summary_models), on the card and on
+    the CPU: equal, since FlopCounterMode counts shapes.  Returns {label:
+    (params, forward GFLOPs an image)}."""
+    from hcmoco_tpu_torch.utils.summary import count_params, forward_flops
+
+    cpu = {label: (count_params(m), forward_flops(m, *a))
+           for label, m, a in summary_models("cpu")}
+    out = {}
+    for label, m, a in summary_models("cuda"):
+        got = (count_params(m), forward_flops(m, *a))
+        if got != cpu[label]:
+            raise AssertionError(f"summary {label}: card {got}, cpu "
+                                 f"{cpu[label]}")
+        out[label] = (got[0], got[1] / 1e9)
+        print(f"summary {label}: {got[0]:,} parameters, {got[1] / 1e9:.3f} "
+              f"GFLOP a forward (FlopCounterMode, 2 x multiply-adds), equal "
+              f"on the card and the CPU [{card}]")
+    return out
+
+
+def last_modules_phase(card: str, itop: tuple) -> None:
+    """The modules of ROADMAP items 11b and 14 on the card: ResNeSt
+    (float64 MoCo and CMC-dual steps of the small ResNeSt card vs CPU, the
+    f32/bf16 dtype check with the baselines' broken controls, MoCov2 at
+    ResNeSt-50 224^2 bs256 K 65536 bf16), A2J's ResNet50 (a float64 train
+    step card vs CPU, then downstream/a2j/train.py --arch resnet50 at 288^2
+    bs12 on the ITOP fixture `itop` for 8 steps and PCK@10cm), the grouped
+    non-local SemGCN card vs CPU, none of which launches a kernel of the
+    port; then the model summary of every full-width model."""
+    from hcmoco_tpu_torch.downstream.a2j.train import main as a2j_main
+
+    wrappers = {**k1_wrappers(),
+                **{name: fn for name, (fn, _) in point_wrappers().items()}}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with small_resnest():
+        for label, kw in RESNEST_SMALL:
+            small_baseline_check(card, label, kw)
+        for label, kw in (("ResNeSt MoCov2", dict(method="MoCov2")),
+                          ("ResNeSt CMC", dict(method="CMC"))):
+            baseline_dtype_check(card, label, kw, RESNEST_DTYPE_SIZE,
+                                 f32_cudnn=False)
+    t1 = time.perf_counter()
+    resnest_full(card)
+    t2 = time.perf_counter()
+    small_a2j_resnet_check(card)
+    tr, te, btr, bte = itop
+    # the trainer runs as its CLI does: cuDNN's f32 convs in TF32 (F9)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        r, out, _ = downstream_run(
+            card, "A2J ResNet50 288^2 bs12", a2j_main, [
+                "--arch", "resnet50", "--train_dir", tr, "--test_dir", te,
+                "--bndbox_train", btr, "--bndbox_test", bte, "--crop",
+                str(A2J_CROP), "--batch_size", str(A2J_BATCH), "--epochs",
+                "2", "--max_steps", "8", "--print_freq", "4",
+                "--eval_first", "--seed", "0"], A2J_BATCH, 8, 0, 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    import re
+    pck = dict(re.findall(r"epoch (\d): PCK@10cm (\d\.\d+)", out))
+    if not {"0", "1"} <= set(pck):
+        raise AssertionError(f"A2J ResNet50: PCK@10cm for epochs {pck}")
+    print(f"A2J ResNet50 288^2 bs12 (from scratch, 16 anchors a stride-16 "
+          f"cell): PCK@10cm by epoch {pck} on {ITOP_TEST} frames [{card}]")
+    del r
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    nonlocal_sgcn_check(card)
+    launched = {name: fn.launches for name, fn in wrappers.items()
+                if fn.launches}
+    if launched:
+        raise AssertionError(f"the last-modules phase launched the port's "
+                             f"kernels: {launched}")
+    t4 = time.perf_counter()
+    summary_check(card)  # HRNetPN's forward runs the point kernels
+    print(f"last-modules phase parts: ResNeSt checks {t1 - t0:.1f} s, "
+          f"ResNeSt-50 MoCov2 {t2 - t1:.1f} s, A2J ResNet50 {t3 - t2:.1f} "
+          f"s, non-local SemGCN {t4 - t3:.1f} s, summaries "
+          f"{time.perf_counter() - t4:.1f} s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -4064,8 +4550,8 @@ def main() -> int:
               f"{time.perf_counter() - t_vers:.1f} s [{card}]")
         t_down = time.perf_counter()
         # check_export wrote stage 2's depth encoder there
-        down_k1 = downstream_phase(card, os.path.join(tmp, "encoder2.pth"),
-                                   tmp)
+        down_k1, itop = downstream_phase(
+            card, os.path.join(tmp, "encoder2.pth"), tmp)
         print(f"downstream phase wall time: "
               f"{time.perf_counter() - t_down:.1f} s [{card}]")
         t_dp = time.perf_counter()
@@ -4076,6 +4562,10 @@ def main() -> int:
         baseline_phase(card, tmp)
         print(f"baseline phase wall time: "
               f"{time.perf_counter() - t_base:.1f} s [{card}]")
+        t_last = time.perf_counter()
+        last_modules_phase(card, itop)
+        print(f"last-modules phase wall time: "
+              f"{time.perf_counter() - t_last:.1f} s [{card}]")
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)

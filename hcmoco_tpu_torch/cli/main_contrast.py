@@ -38,6 +38,7 @@ draws what an uninterrupted one would.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -139,7 +140,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="accepted for the JAX CLI's command lines, where "
                         "it has no effect either")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="profiler trace directory (not ported yet: raises)")
+                   help="write a torch.profiler trace of global steps 10-15 "
+                        "to this directory (TensorBoard's trace format)")
     p.add_argument("--multihost", action="store_true",
                    help="data-parallel training over torchrun's (multi-node) "
                         "rendezvous: join the process group its environment "
@@ -216,12 +218,57 @@ class RunResult:
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_PORT")
 
+# --profile_dir traces these global steps, first and last, as the JAX CLI's
+# jax.profiler trace does
+PROFILE_STEPS = (10, 15)
 
-def refuse_unported(args) -> None:
-    """Raise for the flags whose ROADMAP item is not ported."""
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir is not ported yet: ROADMAP.md Queue 1 item 14")
+
+class StepTrace:
+    """--profile_dir: torch.profiler over global steps PROFILE_STEPS, its
+    CPU activity and, on the card, its CUDA activity; each traced step is
+    a `global_step N` span.  It starts before step 10 (a run that starts
+    past it, resumed, traces nothing, as the JAX CLI) and stops after
+    step 15 once the step's metrics are read back, or when the run ends
+    first (close(); the JAX CLI leaves that trace unwritten).
+    tensorboard_trace_handler writes one `<host>_<pid>.<time>.pt.trace.json`
+    a process, so each rank of a data-parallel run writes its own, as each
+    JAX process does."""
+
+    def __init__(self, profile_dir: str, device, say: Callable):
+        self.dir, self.device, self.say = profile_dir, device, say
+        self.prof = None
+
+    def span(self, step: int):
+        """The context of global step `step`: the profiler started at the
+        first traced step, and the step's span while it runs."""
+        if self.dir and step == PROFILE_STEPS[0] and self.prof is None:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+
+            acts = [ProfilerActivity.CPU]
+            if torch.device(self.device).type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(
+                activities=acts,
+                on_trace_ready=tensorboard_trace_handler(self.dir))
+            self.prof.start()
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"global_step {step}")
+
+    def after(self, step: int) -> None:
+        if step >= PROFILE_STEPS[1]:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the profiler, if it runs, and write its trace."""
+        if self.prof is None:
+            return
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.prof = None
+        self.say(f"profiler trace written to {self.dir}")
 
 
 def join_ranks(args, cfg: "TrainConfig") -> tuple:
@@ -311,11 +358,14 @@ def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
     each step's batch from `it`, uploaded, stepped with the generator of
     (seed + 1, global step), its host times recorded in `result` and its
     metrics logged; each epoch's TSV line and checkpoint, then
-    after_epoch(epoch)."""
+    after_epoch(epoch).  With --profile_dir, global steps 10-15 are
+    traced (StepTrace)."""
     from ..data.pipeline import to_device
     from ..utils.meters import MetricLogger
 
     logger = MetricLogger(ckpt.directory, print_freq=cfg.print_freq)
+    trace = StepTrace(args.profile_dir, device,
+                      (lambda *a: None) if logger.quiet else print)
     steps_per_epoch = result.steps_per_epoch
     global_step = state.step
     try:
@@ -328,10 +378,12 @@ def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
                 t_upload = time.perf_counter()
                 batch = to_device(host, device)
                 t_step = time.perf_counter()
-                metrics = step_fn(state, batch, step_generator(
-                    cfg.seed + 1, global_step, device))
-                values = metric_floats(metrics)
+                with trace.span(global_step):
+                    metrics = step_fn(state, batch, step_generator(
+                        cfg.seed + 1, global_step, device))
+                    values = metric_floats(metrics)
                 t_end = time.perf_counter()
+                trace.after(global_step)
                 global_step += 1
                 result.wait_s.append(t_upload - t_wait)
                 result.upload_s.append(t_step - t_upload)
@@ -352,6 +404,7 @@ def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
             if args.max_steps and global_step >= args.max_steps:
                 break
     finally:
+        trace.close()
         logger.close()
 
 
@@ -362,7 +415,6 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     each step, n the global step count (instrumentation, e.g. a
     profiler's step)."""
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
     cfg = config_from_args(args)
     if cfg.batch_size % max(cfg.microbatch, 1):
         raise ValueError(f"--microbatch {cfg.microbatch} does not divide "

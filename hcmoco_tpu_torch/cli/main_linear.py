@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from .main_contrast import (build_argparser as contrast_argparser,
                             config_from_args, join_ranks, metric_floats,
-                            rank_rows, refuse_unported)
+                            rank_rows)
 
 
 def build_argparser():
@@ -87,7 +87,11 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> LinearRun:
     """Run the probe on argv.  on_ready(model, classifier) is called once
     both are built (and the encoder loaded), before the first step."""
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
+    if args.profile_dir:
+        raise ValueError(
+            "--profile_dir traces the training steps of main_contrast and "
+            "main_segmentor; the linear probe writes no trace (the JAX "
+            "package's probe takes the flag and ignores it)")
     cfg = config_from_args(args, accept=("n_class",))
     if cfg.modal != "RGB":
         raise ValueError(

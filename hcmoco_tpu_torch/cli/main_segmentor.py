@@ -41,8 +41,7 @@ import torch
 from .main_contrast import (SEGMENTOR_FIELDS, RunResult, build_argparser,
                             config_from_args, decode_threads,
                             graft_and_resume, join_ranks, print_options,
-                            rank_rows, refuse_unported, shard_stream,
-                            train_epochs)
+                            rank_rows, shard_stream, train_epochs)
 
 
 @dataclass
@@ -103,7 +102,6 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     built, grafted and restored, before the first step; on_step(n) after
     each step, n the global step count."""
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
     if args.IN_Pretrain or args.depth_Pretrain:
         raise ValueError("main_segmentor starts from a stage-2 checkpoint "
                          "(--pretrain), not --IN_Pretrain/--depth_Pretrain")

@@ -12,6 +12,12 @@ with conv1-4, bn1-4 and `output`.
 Output layout: the reference permutes NCHW to (N, W, H, C) before it
 flattens, so anchors are enumerated W-major, the ravel order of
 anchors.shift_anchors; the heads do the same permute here.
+
+`A2JResNet` is the legacy ResNet50 variant (`A2J_model`,
+A2J/model.py:155-195): its backbone's names are the reference's
+`Backbone.model.*` (ResNetBackBone wraps torchvision's resnet50 as
+`model`: conv1, bn1, layer{s}.{b}.conv{k}/bn{k}, downsample.{0,1}),
+without the classifier `fc` that the forward never reads.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.config import HRNET_CONFIGS
-from ...models.hrnet import HRNet, merge_all_res, stat_dtype
+from ...models.hrnet import HRNet, conv_bn, merge_all_res, stat_dtype
+from ...models.resnet import ResBottleneck, _bn, _max_pool
 from ...parallel.batchnorm import GlobalBatchNorm2d
 from ..seg.model import merged_channels
 
@@ -98,11 +105,80 @@ class A2JHRNet(nn.Module):
         return cls, reg, self.DepthRegressionModel(merged)
 
 
-class A2JResNet(nn.Module):
-    """The legacy ResNet50 A2J (`A2J_model`, A2J/model.py:177-195): not
-    ported yet."""
+# (planes, blocks, stride, dilation of the non-first blocks) a stage
+A2J_RESNET_STAGES = ((64, 3, 1, 1), (128, 4, 2, 1), (256, 6, 2, 1),
+                     (512, 3, 1, 2))
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "A2JResNet (--arch resnet50), the legacy A2J ResNet50, is not "
-            "ported yet: ROADMAP.md Queue 1 item 11b")
+
+class _ResNet50Trunk(nn.Module):
+    """torchvision's resnet50 trunk as A2J/resnet.py builds it: 7x7 stem,
+    a single max-pool, layer4 at stride 1 whose non-first blocks are
+    dilated 2 (its first block is built without the dilation,
+    A2J/resnet.py:142-145)."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _bn(64)
+        inplanes = 64
+        for stage, (planes, n, stride, dil) in enumerate(A2J_RESNET_STAGES):
+            blocks = []
+            for b in range(n):
+                blocks.append(ResBottleneck(
+                    inplanes, planes, stride if b == 0 else 1, b == 0,
+                    dilation=1 if b == 0 else dil, dtype=dtype))
+                inplanes = planes * ResBottleneck.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+
+
+class A2JResNetBackbone(nn.Module):
+    """ResNetBackBone (A2J/model.py:155-173): (x3, x4), layer3's 1024- and
+    layer4's 2048-channel maps, both at stride 16."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.model = _ResNet50Trunk(dtype)
+
+    def forward(self, x: torch.Tensor):
+        m = self.model
+        d = m.compute_dtype
+        x = x.to(dtype=d, memory_format=torch.channels_last)
+        x = _max_pool(conv_bn(m.conv1, m.bn1, x, True, d))
+        x3 = m.layer3(m.layer2(m.layer1(x)))
+        return x3, m.layer4(x3)
+
+
+class A2JResNet(nn.Module):
+    """The legacy ResNet50 A2J (`A2J_model`, A2J/model.py:177-195; the
+    original A2J configuration, main.py:296-300): the classification head
+    on layer3 (1024 channels), the regression and depth heads on layer4
+    (2048 channels), `num_anchors` (16, anchors.generate_anchors(None,
+    None)) per stride-16 cell.  Depth (B, H, W), (B, 1, H, W) -> (cls
+    (B, N, P), reg (B, N, P, 2) [, depth (B, N, P)]), N = (H/16)(W/16) x
+    num_anchors."""
+
+    def __init__(self, num_classes: int = 15, num_anchors: int = 16,
+                 is_3d: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.is_3d = is_3d
+        self.compute_dtype = dtype
+        self.Backbone = A2JResNetBackbone(dtype)
+        self.classificationModel = AnchorHead(1024, 1, num_anchors,
+                                              num_classes, dtype=dtype)
+        self.regressionModel = AnchorHead(2048, 2, num_anchors, num_classes,
+                                          dtype=dtype)
+        if is_3d:
+            self.DepthRegressionModel = AnchorHead(
+                2048, 1, num_anchors, num_classes, dtype=dtype)
+
+    def forward(self, depth: torch.Tensor):
+        if depth.dim() == 3:
+            depth = depth[:, None]
+        x = depth.to(self.compute_dtype).expand(-1, 3, -1, -1)
+        x3, x4 = self.Backbone(x)
+        cls = self.classificationModel(x3)
+        reg = self.regressionModel(x4)
+        if not self.is_3d:
+            return cls, reg
+        return cls, reg, self.DepthRegressionModel(x4)

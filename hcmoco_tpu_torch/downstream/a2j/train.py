@@ -10,7 +10,10 @@ onto the CPU, and without a card the CLI raises).  torch Adam with
 `weight_decay` couples the L2 term into the gradient, which is optax's
 add_decayed_weights -> scale_by_adam (eps outside the square root); the
 StepLR is a staircase at lr_step x steps-per-epoch optimizer steps, set
-before each step.  `--arch resnet50` raises: ROADMAP.md Queue 1 item 11b.
+before each step.  `--arch resnet50` trains the legacy A2J_model
+(model.A2JResNet, 16 anchors per stride-16 cell) at the same settings;
+with `--pretrained_pth` it raises: the JAX trainer's HRNet loader maps no
+name of that ResNet and loads nothing (ROADMAP.md Queue 3, F13b).
 Convs run in bf16 (f32 with `--synthetic`); HCMOCO_CONVBN_FUSE=1 sends
 the backbone's 1x1 ConvBN sites through K1/K1b in training.  Under
 torchrun it trains data-parallel as the pre-training CLI does
@@ -49,7 +52,7 @@ def build_argparser():
                    choices=("hrnet", "resnet50"),
                    help="hrnet = HCMoCo's A2J_HRNet_model (stride-4 "
                         "anchors, main.py:289-295); resnet50 = the legacy "
-                        "A2J_model (not ported yet: ROADMAP.md item 11b)")
+                        "A2J_model (stride-16 anchors, main.py:296-300)")
     p.add_argument("--epochs", type=int, default=35)
     p.add_argument("--batch_size", type=int, default=12)
     p.add_argument("--learning_rate", type=float, default=3.5e-4)
@@ -117,15 +120,36 @@ def step_lr_fn(lr: float, transition_steps: int,
     return fn
 
 
-def hrnet_anchors(crop: int, device) -> torch.Tensor:
-    """The A2J_HRNet_model grid: 9 anchors ([1, 2, 3]^2 offsets,
-    A2J/main.py:84) per stride-4 cell, W-major, f32 on `device`."""
+def a2j_anchors(arch: str, crop: int, device) -> torch.Tensor:
+    """The anchor grid of `arch`, W-major, f32 on `device`: for hrnet
+    (A2J_HRNet_model) 9 anchors ([1, 2, 3]^2 offsets, A2J/main.py:84) per
+    stride-4 cell; for resnet50 (A2J_model) the 16 default anchors
+    ([2, 6, 10, 14]^2, anchor.py:7-25) per stride-16 cell."""
     from .anchors import generate_anchors, shift_anchors
 
-    p_hw = np.array([1, 2, 3])
-    return torch.as_tensor(shift_anchors(
-        (crop // 4, crop // 4), 4, generate_anchors(p_hw, p_hw)),
-        dtype=torch.float32, device=device)
+    if arch == "resnet50":
+        grid = shift_anchors((crop // 16, crop // 16), 16,
+                             generate_anchors(None, None))
+    else:
+        p_hw = np.array([1, 2, 3])
+        grid = shift_anchors((crop // 4, crop // 4), 4,
+                             generate_anchors(p_hw, p_hw))
+    return torch.as_tensor(grid, dtype=torch.float32, device=device)
+
+
+def build_a2j(args, device) -> torch.nn.Module:
+    """The model of --arch on `device` (channels_last), in f32 with
+    --synthetic and in bf16 otherwise, as the JAX trainer builds it."""
+    from .data import KEYPOINTS
+    from .model import A2JHRNet, A2JResNet
+
+    dtype = torch.float32 if args.synthetic else torch.bfloat16
+    if args.arch == "resnet50":
+        model = A2JResNet(num_classes=KEYPOINTS, num_anchors=16, dtype=dtype)
+    else:
+        model = A2JHRNet(num_classes=KEYPOINTS, num_anchors=9,
+                         width=args.width, dtype=dtype)
+    return model.to(device, memory_format=torch.channels_last)
 
 
 def make_train_step(model, optimizer, lr_fn, anchors, args) -> Callable:
@@ -206,10 +230,13 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
     count.  Returns a downstream.run.DownstreamRun (scores: PCK@10cm of
     each evaluation, the untrained one first under --eval_first)."""
     args = build_argparser().parse_args(argv)
-    if args.arch == "resnet50":
-        from .model import A2JResNet
-
-        A2JResNet()  # raises: ROADMAP.md Queue 1 item 11b
+    if args.arch == "resnet50" and args.pretrained_pth:
+        raise ValueError(
+            "--pretrained_pth with --arch resnet50: the JAX trainer loads it "
+            "through its HRNet name tables, which map no name of the A2J "
+            "ResNet50, so it loads 0 conv tensors and trains from scratch "
+            "(ROADMAP.md Queue 3, F13b); drop --pretrained_pth to train "
+            "from scratch, or use --arch hrnet")
     from ..run import join_ranks
 
     rank, size, device = join_ranks(args, "downstream.a2j.train")
@@ -227,8 +254,7 @@ def _run(args, rank: int, size: int, device, on_step):
     from ...parallel.mesh import broadcast_, local_world_size
     from ...utils.meters import MetricLogger
     from ..run import DownstreamRun, train_rows
-    from .data import KEYPOINTS, ITOPDataset
-    from .model import A2JHRNet
+    from .data import ITOPDataset
 
     say = print if rank == 0 else (lambda *a: None)
     crop = args.crop
@@ -249,13 +275,9 @@ def _run(args, rank: int, size: int, device, on_step):
         # the JAX CLI draws one batch to initialise its model; drawing it
         # here too keeps the two CLIs' data streams aligned
         next(it)
-        anchors = hrnet_anchors(crop, device)
+        anchors = a2j_anchors(args.arch, crop, device)
         torch.manual_seed(args.seed)
-        model = A2JHRNet(num_classes=KEYPOINTS, num_anchors=9,
-                         width=args.width,
-                         dtype=torch.float32 if args.synthetic
-                         else torch.bfloat16).to(
-            device, memory_format=torch.channels_last)
+        model = build_a2j(args, device)
         if args.pretrained_pth:
             n = load_hrnet_state(read_state_dict(args.pretrained_pth),
                                  model.Backbone)

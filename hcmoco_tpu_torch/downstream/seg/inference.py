@@ -61,10 +61,12 @@ def sliding_window_inference(
     crop_size: Tuple[int, int] = (473, 473),
     scales: Sequence[float] = (1.0,), flip: bool = False,
     flip_pairs: Optional[np.ndarray] = None,
-    pad_value: Optional[np.ndarray] = None, device="cpu",
+    pad_value: Optional[np.ndarray] = None, *, device,
 ) -> np.ndarray:
     """image: (H, W, 3) normalized host array; returns (H, W,
-    num_classes) probabilities summed over the scales."""
+    num_classes) probabilities summed over the scales.  `device`, where
+    the windows run, has no default: the caller names it (the card in
+    the trainer, the CPU in the tests)."""
     import cv2
 
     oh, ow = image.shape[:2]

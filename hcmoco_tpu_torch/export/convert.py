@@ -51,8 +51,8 @@ hcmoco_tpu.export.transfer.fcn_torch_to_flax):
 
 The downstream models (`seg_flax_to_torch`, `a2j_flax_to_torch`): the
 backbone through the HRNet name tables, at the top level for SegHRNet
-(the reference's seg_hrnet.py names) and under `Backbone.` for A2JHRNet;
-then
+(the reference's seg_hrnet.py names) and under `Backbone.` for A2JHRNet
+(A2JResNet's through resnet_flax_to_torch under `Backbone.model.`); then
 
   last_conv1 / last_bn / last_conv2 -> last_layer.0 / .1 / .3
   {classificationModel, regressionModel, DepthRegressionModel}/
@@ -95,21 +95,66 @@ def _gconv(out: Dict[str, np.ndarray], prefix: str, p: Dict) -> None:
             w.shape[2])
 
 
+def _conv1d(out: Dict[str, np.ndarray], prefix: str, p: Dict) -> None:
+    """A flax Dense -> a 1x1 Conv1d: kernel (in, out) -> weight (out, in,
+    1), bias."""
+    out[f"{prefix}.weight"] = np.asarray(p["kernel"]).T[:, :, None]
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def nonlocal_flax_to_torch(params: Dict, stats: Dict, prefix: str,
+                           sub_sampled: bool) -> Dict[str, np.ndarray]:
+    """A flax GraphNonLocal's trees -> the port's GraphNonLocal names under
+    `prefix` (numpy): g, theta, phi (g.0 / phi.0 if `sub_sampled`, its
+    sub_sample above 1),
+    concat_project (2ic, 1) -> concat_project.0.weight (1, 2ic, 1, 1), W
+    (and W_bn) -> W.0 and W.1 (W alone without BN)."""
+    out: Dict[str, np.ndarray] = {}
+    sub = ".0" if sub_sampled else ""
+    for name, torch_name in (("g", f"g{sub}"), ("theta", "theta"),
+                             ("phi", f"phi{sub}")):
+        _conv1d(out, f"{prefix}{torch_name}", params[name])
+    out[f"{prefix}concat_project.0.weight"] = np.asarray(
+        params["concat_project"]).T[:, :, None, None]
+    if "W_bn" in params:
+        _conv1d(out, f"{prefix}W.0", params["W"])
+        _bn(out, f"{prefix}W.1", params["W_bn"], stats["W_bn"])
+    else:
+        _conv1d(out, f"{prefix}W", params["W"])
+    return out
+
+
 def sgcn_flax_to_torch(params: Dict, stats: Dict,
                        prefix: str = "") -> Dict[str, np.ndarray]:
     """One SemGCN's flax trees -> reference torch names (numpy), the
-    inverse of hcmoco_tpu.export.transfer._sgcn_torch_to_flax."""
+    inverse of hcmoco_tpu.export.transfer._sgcn_torch_to_flax; with
+    nodes_group, its grouped non-local blocks nl_input and nl{i} go to
+    gconv_input.1 and gconv_layers.{2i + 1} (the residual blocks to
+    gconv_layers.{2i})."""
     out: Dict[str, np.ndarray] = {}
     _gconv(out, f"{prefix}gconv_input.0.gconv", params["gconv_input"]["gconv"])
     _bn(out, f"{prefix}gconv_input.0.bn", params["gconv_input"]["bn"],
         stats["gconv_input"]["bn"])
+    grouped = "nl_input" in params
+    step = 2 if grouped else 1
+
+    def non_local(name: str, torch_prefix: str) -> None:
+        # a grouped block sub-samples by its group size, always above 1
+        out.update(nonlocal_flax_to_torch(
+            params[name]["nonlocal"], stats[name]["nonlocal"],
+            f"{prefix}{torch_prefix}.non_local.", sub_sampled=True))
+
+    if grouped:
+        non_local("nl_input", "gconv_input.1")
     i = 0
     while f"res{i}" in params:
         for g in ("gconv1", "gconv2"):
-            base = f"{prefix}gconv_layers.{i}.{g}"
+            base = f"{prefix}gconv_layers.{step * i}.{g}"
             _gconv(out, f"{base}.gconv", params[f"res{i}"][g]["gconv"])
             _bn(out, f"{base}.bn", params[f"res{i}"][g]["bn"],
                 stats[f"res{i}"][g]["bn"])
+        if grouped:
+            non_local(f"nl{i}", f"gconv_layers.{2 * i + 1}")
         i += 1
     _gconv(out, f"{prefix}gconv_output", params["gconv_output"])
     return out
@@ -294,10 +339,16 @@ def anchor_head_flax_to_torch(params: Dict, batch_stats: Dict,
 
 def a2j_flax_to_torch(params: Dict, batch_stats: Dict
                       ) -> Dict[str, torch.Tensor]:
-    """The JAX package's A2JHRNet trees -> the port's A2JHRNet state dict
-    (module docstring)."""
-    sd = {f"Backbone.{k}": v for k, v in hrnet_flax_to_torch(
-        params["Backbone"], batch_stats.get("Backbone", {})).items()}
+    """The JAX package's A2JHRNet or A2JResNet trees -> the port's state
+    dict of the same model (module docstring; A2JResNet's backbone through
+    resnet_flax_to_torch, under `Backbone.model.`)."""
+    bp, bs = params["Backbone"], batch_stats.get("Backbone", {})
+    if "stem_conv" in bp:
+        sd = {f"Backbone.model.{k}": v
+              for k, v in resnet_flax_to_torch(bp, bs).items()}
+    else:
+        sd = {f"Backbone.{k}": v
+              for k, v in hrnet_flax_to_torch(bp, bs).items()}
     for head in A2J_HEADS:
         if head in params:  # is_3d=False has no depth head
             sd.update(anchor_head_flax_to_torch(

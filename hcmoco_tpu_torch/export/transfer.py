@@ -17,7 +17,8 @@ mean/var -> running_mean/running_var.  `resnet_flax_to_torch` does the same
 for the baselines' ResNet and CMCResNet (the inverse of the JAX package's
 _resnet_torch_name: stem_conv|stem_v{1,2}|stem_bn -> conv1|conv1_v{1,2}|bn1,
 layer{s}_block{b}/c{k}_{conv,bn}|ds_{conv,bn} -> layer{s}.{b}.conv{k}/bn{k}
-|downsample.{0,1}).
+|downsample.{0,1}), and for a ResNeSt tree, of which the JAX package maps
+none, to the port's names (`_resnest_torch_name`).
 
 `load_imagenet_pretrained` is the counterpart of the JAX package's loader of
 the same name (over `hrnet_torch_to_flax`): the port already holds the
@@ -172,15 +173,40 @@ def _resnet_torch_name(path: Tuple[str, ...]) -> Optional[str]:
     return f"layer{s}.{b}.{kind}{part[1]}"
 
 
+# the ResNeSt deep stem (flax stem{i}/stem_bn{i}) -> the public ResNeSt
+# code's conv1 Sequential and bn1
+_RESNEST_STEM = {"stem0": "conv1.0", "stem_bn0": "conv1.1",
+                 "stem1": "conv1.3", "stem_bn1": "conv1.4",
+                 "stem2": "conv1.6", "stem_bn2": "bn1"}
+
+
+def _resnest_torch_name(path: Tuple[str, ...]) -> Optional[str]:
+    """One flax ResNeSt module path -> its torch prefix (models/resnest.py
+    of the port): the stem by _RESNEST_STEM, layer{s}_block{b}/{name}[/sub]
+    -> layer{s}.{b}.{name}[.sub] (SplAtConv2d's conv, bn0, fc1, bn1, fc2
+    under conv2), ds_conv / ds_bn -> downsample.1 / downsample.2."""
+    if len(path) == 1:
+        return _RESNEST_STEM.get(path[0])
+    m = re.fullmatch(r"layer(\d)_block(\d+)", path[0])
+    if not m:
+        return None
+    s, b = m.groups()
+    rest = {"ds_conv": "downsample.1", "ds_bn": "downsample.2"}.get(
+        path[1], path[1])
+    return ".".join((f"layer{s}", b, rest) + tuple(path[2:]))
+
+
 def resnet_flax_to_torch(params: Dict, batch_stats: Dict) -> Dict[str, Any]:
-    """One flax ResNet's or CMCResNet's params + stats -> the reference
-    torch names (numpy): convs HWIO -> OIHW, BN scale/bias -> weight/bias,
-    mean/var -> running_mean/running_var."""
+    """One flax ResNet's, CMCResNet's or ResNeSt's params + stats -> the
+    reference torch names (numpy): convs HWIO -> OIHW (and a conv's bias),
+    BN scale/bias -> weight/bias, mean/var -> running_mean/running_var."""
     flat_p = _flatten(params)
     flat_s = _flatten(batch_stats)
     out: Dict[str, np.ndarray] = {}
+    torch_name = (_resnest_torch_name if "stem0" in params
+                  else _resnet_torch_name)
     for path, v in flat_p.items():
-        name = _resnet_torch_name(path[:-1])
+        name = torch_name(path[:-1])
         if name is None:
             continue
         leaf = path[-1]
@@ -210,7 +236,8 @@ def load_hrnet_state(state_dict: Dict[str, Any], encoder,
     skipped, like the reference's filtered load (official_hrnet.py:461-473,
     seg_hrnet.py:456-480).  Modules under a child named in `skip` (a head
     of the model) take nothing.  Returns the number of conv weights
-    loaded, the count of the JAX package's hrnet_torch_to_flax."""
+    loaded, the count of the JAX package's hrnet_torch_to_flax.  A conv
+    with a bias (ResNeSt's fc1/fc2) takes the dict's bias too."""
     import torch
 
     total = 0
@@ -223,6 +250,10 @@ def load_hrnet_state(state_dict: Dict[str, Any], encoder,
                 if w is not None and w.shape == mod.weight.shape:
                     mod.weight.copy_(w)
                     total += 1
+                b = state_dict.get(f"{name}.bias")
+                if (mod.bias is not None and b is not None
+                        and b.shape == mod.bias.shape):
+                    mod.bias.copy_(b)
             elif isinstance(mod, torch.nn.BatchNorm2d):
                 for t in _BN_TENSORS:
                     v = state_dict.get(f"{name}.{t}")
@@ -255,15 +286,18 @@ def load_imagenet_pretrained(path: str, model, encoder_names=("encoder1",
     (`encoder.`, as tests/golden/rgb_moco_torch_keys.txt) gives that
     encoder its part.  An encoder of another kind (HRNetPN's PointNet++)
     takes nothing.  Returns the number of conv weights loaded.  The JAX
-    package's loader maps HRNet names only."""
+    package's loader maps HRNet names only (into a ResNet or a ResNeSt it
+    loads nothing); the port's loads a ResNeSt by the public ResNeSt
+    code's names."""
     from ..models.hrnet import HRNet
+    from ..models.resnest import ResNeSt
     from ..models.resnet import CMCResNet, ResNet
 
     sd = read_state_dict(path)
     total = 0
     for enc in encoder_names:
         encoder = getattr(model, enc, None)
-        if isinstance(encoder, (HRNet, ResNet, CMCResNet)):
+        if isinstance(encoder, (HRNet, ResNet, CMCResNet, ResNeSt)):
             prefix = f"{enc}."
             part = {k[len(prefix):]: v for k, v in sd.items()
                     if k.startswith(prefix)}

@@ -195,11 +195,18 @@ def parse_arch(name: str) -> Tuple[str, int]:
 
 
 def make_resnet(name: str, in_channel: int = 3,
-                dtype: torch.dtype = torch.bfloat16) -> ResNet:
+                dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """A RESNET_SPECS ResNet, or a ResNeSt (models/resnest.py) for
+    resnest50/resnest101, at the width of an x2/x4 suffix."""
     base, width = parse_arch(name)
     if base.startswith("resnest"):
-        raise NotImplementedError(
-            f"{name}: ResNeSt is not ported yet: ROADMAP.md Queue 1 item 11b")
+        from .resnest import RESNEST_SPECS, ResNeSt
+
+        if base not in RESNEST_SPECS:
+            raise NotImplementedError(f"arch {name}")
+        layers, stem = RESNEST_SPECS[base]
+        return ResNeSt(layers=layers, stem_width=stem, in_channel=in_channel,
+                       width_mult=width, dtype=dtype)
     if base not in RESNET_SPECS:
         raise NotImplementedError(f"arch {name}")
     return ResNet(in_channel=in_channel, width_mult=width, dtype=dtype,

@@ -3,8 +3,9 @@ hcmoco_tpu's on the same seeded numpy inputs, on the CPU: the anchor grid,
 post_process and a2j_loss (tests/golden/a2j_golden.npz, and JAX with
 gradients), AnchorHead's W-major output on a non-square map, A2JHRNet at
 crop 32 in training and eval with its BN statistics, two Adam/StepLR
-steps, the ITOP data path (samples equal bit for bit), the fixture
-writer, and the CLI.
+steps (the legacy A2JResNet's, --arch resnet50, are
+tests/test_torch_a2j_resnet.py's), the ITOP data path (samples equal
+bit for bit), the fixture writer, and the CLI.
 
 Layouts: JAX NHWC, the port NCHW.  Tolerances: the anchor math rtol 1e-5
 / atol 1e-6 (f32 sums in another order); the model, its statistics and
@@ -40,8 +41,7 @@ from hcmoco_tpu.downstream.a2j.model import AnchorHead as JaxAnchorHead
 
 from hcmoco_tpu_torch.core.config import HRNET_CONFIGS
 from hcmoco_tpu_torch.downstream.a2j import anchors, data, train
-from hcmoco_tpu_torch.downstream.a2j.model import (A2JHRNet, A2JResNet,
-                                                   AnchorHead)
+from hcmoco_tpu_torch.downstream.a2j.model import A2JHRNet, AnchorHead
 from hcmoco_tpu_torch.export.convert import (a2j_flax_to_torch,
                                              anchor_head_flax_to_torch)
 from hcmoco_tpu_torch.models.hrnet import HRNet
@@ -264,21 +264,23 @@ def test_step_lr_matches_optax():
     assert fn(29) == fn(0) and fn(30) < fn(29)
 
 
-def test_adam_steplr_steps_match_jax(a2j_pair):
-    """Two steps of the CLI's train step (the StepLR decaying after one
+def _adam_steps_match_jax(pair, grid: torch.Tensor, crop: int,
+                          steps: int = 2) -> None:
+    """`steps` steps of the CLI's train step (the StepLR decaying after one
     step, cls + 3 x reg loss, Adam with the L2 term in the gradient), both
-    sides in float64, against the JAX CLI's optax chain: every parameter
-    and BN statistic within TOL, and the losses; Adam's few elements whose
-    input is within 1e-5 of its tensor's largest gradient, where the
-    reference's gradient noise moves the step by more than TOL, are held
-    only to a step of at most a few lr (and must be under 1e-3 of all)."""
-    jmodel, params, stats, model, x = a2j_pair
+    sides in float64, against the JAX CLI's optax chain, from `pair`
+    (jmodel, params, stats, model, x) over the anchors `grid` at `crop`:
+    every parameter and BN statistic within TOL, and the losses; Adam's
+    few elements whose input is within 1e-5 of its tensor's largest
+    gradient, where the reference's gradient noise moves the step by more
+    than TOL, are held only to a step of at most a few lr (and must be
+    under 1e-3 of all)."""
+    jmodel, params, stats, model, x = pair
     model = _float64(model)
     rng = np.random.default_rng(5)
-    labels = np.concatenate([rng.uniform(0, CROP, (2, 2, 15, 2)),
+    labels = np.concatenate([rng.uniform(0, crop, (2, 2, 15, 2)),
                              rng.standard_normal((2, 2, 15, 1)) * 5],
                             -1).astype(np.float32)
-    grid = train.hrnet_anchors(CROP, "cpu")
     lr, wd = 3.5e-4, 1e-4
     lr_fn = optax.exponential_decay(lr, transition_steps=1, decay_rate=0.2,
                                     staircase=True)
@@ -302,7 +304,7 @@ def test_adam_steplr_steps_match_jax(a2j_pair):
         jp, js = params, stats
         opt_state = tx.init(jp)
         floor = None
-        for s in range(2):
+        for s in range(steps):
             (jl, js2), g = grad_fn(jp, js, jnp.asarray(labels[s],
                                                        jnp.float64))
             # Adam's input g + wd p, where JAX's loss gradient noise (its
@@ -357,12 +359,10 @@ def test_adam_steplr_steps_match_jax(a2j_pair):
     assert n_masked <= 1e-3 * n_all, (n_masked, n_all)
 
 
-def test_resnet50_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        A2JResNet()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.main(["--arch", "resnet50", "--device", "cpu",
-                    "--synthetic", "4"])
+def test_adam_steplr_steps_match_jax(a2j_pair):
+    """_adam_steps_match_jax on A2JHRNet at crop 32, two steps."""
+    _adam_steps_match_jax(a2j_pair, train.a2j_anchors("hrnet", CROP, "cpu"),
+                          CROP)
 
 
 # ---- the ITOP data path -------------------------------------------------------

@@ -73,13 +73,45 @@ def test_config_from_args_matches_jax(recipe, overrides):
 
 @pytest.mark.parametrize("argv,match", [
     (["--multihost"], "item 10"),
-    (["--profile_dir", "/tmp/p"], "item 14"),
     (["--supervise_type", "1"], "item 12"),
     (["--n_class", "3"], "item 12"),
 ])
 def test_unported_flags_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--synthetic", "8", "--device", "cpu"] + argv)
+
+
+def _trace_spans(trace_dir: str) -> list:
+    """The `global_step N` spans of the one trace file under trace_dir."""
+    import glob
+    import json
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    assert len(files) == 1, files
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    return sorted(e["name"] for e in events
+                  if e.get("name", "").startswith("global_step "))
+
+
+def test_profile_dir_writes_a_trace(tmp_path, capsys):
+    """--profile_dir traces global steps 10-15 as the JAX CLI's
+    jax.profiler trace does (torch.profiler, CPU activity on the CPU):
+    a 16-step run writes one trace whose step spans are those six and
+    says where; a 12-step run, which ends inside the window, writes what
+    it traced (steps 10 and 11) when it ends."""
+    base = ["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18", "--synthetic",
+            "64", "--epochs", "1"] + TINY
+    for steps, want in ((16, range(10, 16)), (12, range(10, 12))):
+        trace = str(tmp_path / f"trace{steps}")
+        r = cli.main(base + ["--max_steps", str(steps), "--model_path",
+                             str(tmp_path / f"save{steps}"), "--profile_dir",
+                             trace])
+        assert r.state.step == steps
+        assert f"profiler trace written to {trace}" in capsys.readouterr().out
+        assert _trace_spans(trace) == sorted(f"global_step {i}"
+                                             for i in want)
 
 
 def test_alpha_reaches_the_moco_ema(tmp_path):

@@ -509,7 +509,8 @@ def test_sliding_window_flip_tta_matches_jax(seg_pair):
     kw = dict(crop_size=(24, 24), scales=(0.75, 1.0), flip=True,
               flip_pairs=pairs)
     want = jax_sliding_window(apply_fn, img, N_CLASS, **kw)
-    got = sliding_window_inference(model.eval(), img, N_CLASS, **kw)
+    got = sliding_window_inference(model.eval(), img, N_CLASS, **kw,
+                                   device="cpu")
     assert got.shape == (40, 56, N_CLASS)
     np.testing.assert_allclose(got, want, **TOL)
 

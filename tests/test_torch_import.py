@@ -24,10 +24,11 @@ def _port_modules():
                 "seg.model", "seg.inference", "seg.train", "a2j.data",
                 "a2j.anchors", "a2j.model", "a2j.train"):
         assert f"hcmoco_tpu_torch.downstream.{sub}" in names, sub
-    # the baselines' modules (ROADMAP item 11a)
+    # the baselines' modules (ROADMAP item 11a), ResNeSt (11b) and the
+    # model summary (14)
     for mod in ("models.resnet", "data.augment", "data.randaugment",
                 "data.image_folder", "data.contrast_folder",
-                "cli.main_linear"):
+                "cli.main_linear", "models.resnest", "utils.summary"):
         assert f"hcmoco_tpu_torch.{mod}" in names, mod
     return ["hcmoco_tpu_torch"] + names
 

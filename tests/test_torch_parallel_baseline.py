@@ -6,15 +6,19 @@ spawn: MoCo (the queue, the EMA key encoder; no ShuffleBN permutation,
 which under global BN changes only the order of a sum, ROADMAP.md Queue
 3, F12) and CMC with jigsaw on banks (the negatives and
 the patch orders drawn for the global batch, the bank update from every
-rank's rows).  Global batch 8, two steps each, the draws from a generator
-seeded alike on every rank, the encoders in float64 (torch_baseline_common
-says why).
+rank's rows), and MoCo on the small ResNeSt (torch_dp_worker's
+SMALL_RESNEST: global BN at SplAtConv2d's (B, 1, 1, C) attention sites,
+8 rows a channel over the ranks).  Global batch 8, two steps each, the
+draws from a generator seeded alike on every rank, the encoders in
+float64 (torch_baseline_common says why).
 
 The ranks: every metric, parameter, BN statistic, bank or queue, pointer
 and key-encoder parameter equal bit for bit after every step.  Against
 one process: rtol 1e-5, atol 3e-6 (tests/test_torch_parallel.py's
 tolerance against the port's own one-process run); the pointer exactly.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -23,7 +27,7 @@ from hcmoco_tpu_torch.core.config import TrainConfig, resolve_config
 from hcmoco_tpu_torch.models.build import build_model
 
 from torch_dp_common import ranks_running
-from torch_dp_worker import one_process
+from torch_dp_worker import one_process, small_resnest
 
 torch.set_num_threads(1)
 
@@ -31,10 +35,12 @@ TOL = dict(rtol=1e-5, atol=3e-6)
 BSZ, CROP, PATCH, N_DATA = 8, 32, 16, 32
 
 
-def make_case(name: str, kw: dict, seed: int) -> dict:
+def make_case(name: str, kw: dict, seed: int,
+              resnest: bool = False) -> dict:
     cfg = resolve_config(TrainConfig(**kw))
     torch.manual_seed(seed)
-    model = build_model(cfg, device="cpu")
+    with small_resnest() if resnest else contextlib.nullcontext():
+        model = build_model(cfg, device="cpu")
     rng = np.random.default_rng(seed)
     moco = cfg.mem == "moco"
     batches = []
@@ -52,6 +58,7 @@ def make_case(name: str, kw: dict, seed: int) -> dict:
         (1 if cfg.modal == "RGB" else 2, cfg.nce_k if moco else N_DATA,
          128)).astype(np.float32)), dim=-1)
     case = {"name": name, "kind": "contrast", "cfg": kw, "f64": True,
+            "small_resnest": resnest,
             "n_data": N_DATA, "model": model.state_dict(),
             "batches": batches, "gen_seed": 100 + seed}
     case["queues" if moco else "banks"] = mem
@@ -66,6 +73,10 @@ CASES = [
                                  jigsaw=True, arch="resnet18", nce_k=7,
                                  batch_size=BSZ, epochs=2,
                                  compute_dtype="float32"), 1),
+    make_case("moco_resnest", dict(method="MoCo", arch="resnest50", nce_k=16,
+                                   batch_size=BSZ, epochs=2,
+                                   compute_dtype="float32"), 2,
+              resnest=True),
 ]
 
 

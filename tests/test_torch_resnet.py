@@ -277,8 +277,8 @@ def test_shared_trunk_step_towers_never_mix():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        make_resnet("resnest50")
+    """The CMC shared trunk refuses jigsaw (ResNeSt, once refused here,
+    is tests/test_torch_resnest.py's)."""
     cfg = resolve_config(TrainConfig(method="Customize", modal="CMC",
                                      arch="resnet50cmc", jigsaw=True))
     with pytest.raises(NotImplementedError, match="shared-trunk"):

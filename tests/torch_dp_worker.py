@@ -22,6 +22,7 @@ and as it ended.
 
 import os
 import sys
+from contextlib import contextmanager
 
 import torch
 
@@ -77,14 +78,15 @@ def run_bn_case(case: dict) -> dict:
 
 def port_f64(model: torch.nn.Module, heads: bool = False
              ) -> torch.nn.Module:
-    """The model's ResNet / CMCResNet encoders in float64 (parameters, BN
-    statistics and compute), and with `heads` the whole model; else its
-    heads stay f32, as the JAX package's ProjectionHead computes in f32
-    (tests/torch_baseline_common.py says why)."""
+    """The model's ResNet / CMCResNet / ResNeSt encoders in float64
+    (parameters, BN statistics and compute), and with `heads` the whole
+    model; else its heads stay f32, as the JAX package's ProjectionHead
+    computes in f32 (tests/torch_baseline_common.py says why)."""
+    from hcmoco_tpu_torch.models.resnest import ResNeSt
     from hcmoco_tpu_torch.models.resnet import CMCResNet, ResNet
 
     for enc in model.modules():
-        if heads or isinstance(enc, (ResNet, CMCResNet)):
+        if heads or isinstance(enc, (ResNet, CMCResNet, ResNeSt)):
             enc.double()
             for m in enc.modules():
                 if hasattr(m, "compute_dtype"):
@@ -92,12 +94,38 @@ def port_f64(model: torch.nn.Module, heads: bool = False
     return model
 
 
+# the CPU tests' small ResNeSt: one block a stage, ResNeSt-50's stem
+SMALL_RESNEST = dict(layers=(1, 1, 1, 1), stem_width=32)
+
+
+@contextmanager
+def small_resnest():
+    """Inside, the port's build_model builds arch 'resnest50' as the small
+    ResNeSt (SMALL_RESNEST) at its width and input channels."""
+    from hcmoco_tpu_torch.models import build
+    from hcmoco_tpu_torch.models.resnest import ResNeSt
+
+    make = build.make_resnet
+
+    def patched(name, in_channel=3, dtype=torch.bfloat16):
+        if name != "resnest50":
+            return make(name, in_channel, dtype)
+        return ResNeSt(in_channel=in_channel, dtype=dtype, **SMALL_RESNEST)
+
+    build.make_resnet = patched
+    try:
+        yield
+    finally:
+        build.make_resnet = make
+
+
 def run_case(case: dict) -> dict:
     """Steps of one case on this rank's rows.
 
     case: name; kind 'contrast' | 'segment'; cfg (TrainConfig kwargs);
     fuse (HCMOCO_CONVBN_FUSE's path); f64 (the baselines' model in
-    float64, port_f64 with its heads); n_data; model / classifier (state dicts) and banks,
+    float64, port_f64 with its heads); small_resnest (arch 'resnest50'
+    built as SMALL_RESNEST); n_data; model / classifier (state dicts) and banks,
     or for mem='moco' queues, to start from (the moco key encoder starts
     as the model); batches (global batch dicts of tensors); sync (per
     step: None, or {'model', 'classifier', 'banks'} whose parameters and
@@ -109,6 +137,9 @@ def run_case(case: dict) -> dict:
     run_bn_case's."""
     if case["kind"] == "bn":
         return run_bn_case(case)
+    if case.get("small_resnest"):
+        with small_resnest():
+            return run_case(dict(case, small_resnest=False))
     rank, size = mesh.world()
     cfg = resolve_config(TrainConfig(**case["cfg"]))
     model = set_convbn_fuse(build_model(cfg, device="cpu"),
