@@ -8,7 +8,8 @@ shapes, and drives the train steps the port has through its entry points:
     K1b;
   * HRNetPN (HRNet-W18 + PointNet++ MSG on 4096 depth points + SemGCN,
     320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
-    steps under torch.profiler (device ms per kernel class);
+    steps under torch.profiler (device ms per kernel class); K56a past
+    8192 destinations, and both stages at 16384 points bs32;
   * stage 2 of both, and then the pre-training CLI (cli/main_contrast.py)
     in process from a tree of Kinect-size frames written from a seed:
     stage-1 HRNet bs32 fused for an epoch, its resume, stage 2 grafted
@@ -38,7 +39,8 @@ shapes, and drives the train steps the port has through its entry points:
     memory and K1/K1b launches, which add to the kernels';
   * data parallelism (parallel/mesh.py): the pre-training CLI under
     torchrun's environment for a world of one (NCCL, a rank-0 checkpoint
-    and its resume; no NCCL kernel in its profile), and two ranks on the
+    and its resume; no NCCL kernel in its profile) and with --multihost
+    under a SLURM job step's variables alone, and two ranks on the
     one card over gloo (`chip_smoke.py --dp-rank`, NCCL refusing two
     ranks on one device) against one process: HRNet-W18 stage 1 at
     320^2 bs32 fused (K1 and K1b on each rank's rows, K1's sums
@@ -54,7 +56,12 @@ shapes, and drives the train steps the port has through its entry points:
     busy share, launches and peak memory; main_contrast MoCov2 on an
     ImageFolder tree of JPEGs, its --resume (the queue and pointer
     restored) and main_linear --pretrain; and MoCo and CMC-jigsaw on two
-    `--dp-baseline-rank` ranks against one process.
+    `--dp-baseline-rank` ranks against one process;
+  * the last modules (last_modules_phase): ResNeSt's avd pool's gradient
+    in channels_last (ROADMAP F14), a small ResNeSt card vs CPU in
+    float64 and in the dtypes users run (f32 through cuDNN, bf16),
+    MoCov2 at ResNeSt-50, A2J's ResNet50, the grouped SemGCN and the
+    model summaries.
 
     python3 chip_smoke.py
 
@@ -95,6 +102,16 @@ STEPS = 5
 BATCH = 32
 PN_BATCH = 64
 N_DATA = 8192
+# HRNetPN at 16384 points, past K56a's former 8192 destinations: npoints
+# (16384, 4096, 1024, 256), at the largest power-of-two batch whose peak
+# memory stays under ~60 GiB
+PN_WIDE_POINTS = 16384
+PN_WIDE_BATCH = 32
+# K56a past 8192 destinations: (n_dest, sources a group, sources a sample);
+# a group of 32 is K5's (a center's slots at SA0), of 3 K6's (a pixel's
+# three rows at pts2depth, 320^2 = 102400 pixels)
+CSR_WIDE = ((8193, 32, 8193 * 32), (16384, 32, 16384 * 32),
+            (65537, 3, 307200), (102400, 3, 307200))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
@@ -572,6 +589,135 @@ def check_csr(name: str, idx: torch.Tensor, n_dest: int) -> None:
                              f"{int((src != psrc).sum())} sources misplaced")
 
 
+def check_csr_wide(card: str) -> None:
+    """K56a past 8192 destinations (CSR_WIDE), on two samples: one of
+    random indices, one of a zero cloud's (K5: every center's slots
+    0..31; K6: every pixel's rows 0, 1 and 2).  start and src equal to the
+    plain version on the card, then K5's or K6's backward (K56a + K56b)
+    bit for bit equal to the plain version on the CPU and over two
+    launches; K56a's time."""
+    from hcmoco_tpu_torch.ops import point_gather as pg
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for n_dest, per, r in CSR_WIDE:
+        idx = torch.randint(0, n_dest, (2, r), generator=g, device="cuda",
+                            dtype=torch.int32)
+        idx[1] = torch.arange(r, device="cuda", dtype=torch.int32) % per
+        check_csr(f"n_dest {n_dest}", idx, n_dest)
+        if per == 32:
+            gidx = idx.view(2, r // per, per)
+            gout = torch.randn((2, r // per, per, 32), generator=g,
+                               device="cuda").bfloat16()
+            scatter_exact(f"K5 bwd at n_dest {n_dest}",
+                          lambda: pg.group_rows_bwd_cuda(gout, gidx, n_dest),
+                          pg.group_rows_bwd_plain(gout.cpu(), gidx.cpu(),
+                                                  n_dest))
+            what = "K5 bwd (bf16, C 32)"
+        else:
+            ii = idx.view(2, r // 3, 3)
+            w = torch.rand((2, r // 3, 3), generator=g, device="cuda") + 1e-3
+            w = w / w.sum(-1, keepdim=True)
+            gout = torch.randn((2, r // 3, 128), generator=g, device="cuda")
+            scatter_exact(f"K6 bwd at n_dest {n_dest}",
+                          lambda: pg.interpolate_rows_bwd_cuda(gout, ii, w,
+                                                               n_dest),
+                          pg.interpolate_rows_bwd_plain(gout.cpu(), ii.cpu(),
+                                                        w.cpu(), n_dest))
+            what = "K6 bwd (f32, C 128)"
+        ms = cuda_ms(lambda: pg.dest_csr_cuda(idx, n_dest), iters=5)
+        print(f"K56a at n_dest {n_dest} (2 x {r} sources, "
+              f"{-(-n_dest // 8192)} windows of destinations; a random and "
+              f"a zero-cloud sample): start and src equal to the plain "
+              f"version, {what} after it equal to the CPU's bit for bit and "
+              f"over two launches; {ms:.4f} ms [{card}]")
+        del idx, gout
+
+
+def check_wide_points(card: str, batch_size: int = PN_WIDE_BATCH,
+                      n_points: int = PN_WIDE_POINTS) -> None:
+    """K56a at the 16384-point path's two calls past 8192 destinations, on
+    a synthetic batch with zero clouds: SA0's K5 backward (scale 1, the
+    ball query of the cloud around itself, 32 slots) and pts2depth's K6
+    backward (every pixel of the 320^2 crop against the cloud).  K3 and K4
+    equal to their plain versions there, K56a's index equal, the
+    backwards' rows of the last valid and the last zero cloud equal to the
+    CPU's; K56a's and the backwards' times against the plain versions and
+    K56a's bound (idx read once, src and start written once)."""
+    from hcmoco_tpu_torch.models.pointnet2_model import NSAMPLE, RADIUS
+    from hcmoco_tpu_torch.ops import ball_query as bq
+    from hcmoco_tpu_torch.ops import point_gather as pg
+    from hcmoco_tpu_torch.ops.point_ops import interpolation_weights
+
+    b, n = batch_size, n_points
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cloud, all_pts, valid = depth_clouds("cuda", b, 320, n)
+    r_, s_ = RADIUS[0][1], NSAMPLE[0][1]
+    gidx = bq.ball_query_cuda(cloud, cloud, r_, s_)
+    if not torch.equal(gidx, bq.ball_query_plain(cloud, cloud, r_, s_)):
+        raise AssertionError(f"K3 at sa0.1 with {n} points: indices off")
+    dist, idx = check_three_nn(f"pts2depth {n} points", all_pts, cloud,
+                               ~valid)
+    w = interpolation_weights(dist)
+    del dist
+    calls = (("SA0's K5 bwd", gidx.view(b, -1), 32, torch.bfloat16),
+             ("pts2depth's K6 bwd", idx.view(b, -1), 128, torch.float32))
+    for label, idx2, c, dt in calls:
+        rows = idx2.shape[1]
+        check_csr(f"{label} at {n} points", idx2, n)
+        if c == 32:
+            gout = torch.randn((b, n, s_, c), generator=g,
+                               device="cuda").to(dt)
+
+            def bwd():
+                return pg.group_rows_bwd_cuda(gout, gidx, n)
+
+            def bwd_cpu(k):
+                return pg.group_rows_bwd_plain(gout[k:k + 1].cpu(),
+                                               gidx[k:k + 1].cpu(), n)
+
+            def plain():
+                return pg.group_rows_bwd_plain(gout, gidx, n)
+        else:
+            gout = torch.randn((b, all_pts.shape[1], c), generator=g,
+                               device="cuda").to(dt)
+
+            def bwd():
+                return pg.interpolate_rows_bwd_cuda(gout, idx, w, n)
+
+            def bwd_cpu(k):
+                return pg.interpolate_rows_bwd_plain(
+                    gout[k:k + 1].cpu(), idx[k:k + 1].cpu(),
+                    w[k:k + 1].cpu(), n)
+
+            def plain():
+                return pg.interpolate_rows_bwd_plain(gout, idx, w, n)
+        grad = bwd()
+        if not torch.equal(grad, bwd()):
+            raise AssertionError(f"{label} at {n} points: two launches "
+                                 "differ")
+        for sel in (valid, ~valid):
+            k = int(torch.nonzero(sel)[-1])
+            if not torch.equal(grad[k:k + 1].cpu(), bwd_cpu(k)):
+                raise AssertionError(f"{label} at {n} points, sample {k}: "
+                                     "differs from the CPU's")
+        del grad
+        csr = cuda_ms(lambda: pg.dest_csr_cuda(idx2, n), iters=5)
+        csr_plain = cuda_ms(lambda: pg.dest_csr_plain(idx2, n), iters=2,
+                            warmup=1)
+        bnd = bound(b * rows * 8 + b * (n + 1) * 4, 0, F32_OPS_S)
+        t_bwd = cuda_ms(bwd, iters=5)
+        t_plain = cuda_ms(plain, iters=2, warmup=1)
+        print(f"K56a at {label}, {n} points bs{b} ({b} x {rows} sources -> "
+              f"{n} rows, {-(-rows // 8192)} tiles x {-(-n // 8192)} "
+              f"windows a sample): {csr:.4f} ms, plain {csr_plain:.4f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"{bnd['bound_ms'] / csr:.3f} of it; the backward (K56a + "
+              f"K56b, {str(dt)[6:]}, C {c}) {t_bwd:.4f} ms, plain "
+              f"{t_plain:.4f} ms; index and the last valid and zero "
+              f"cloud's rows equal [{card}]")
+        del gout
+
+
 def k3_scan(xyz: torch.Tensor, centers: torch.Tensor, r: float, s: int,
             chunk: int = 256) -> dict:
     """What a first-hit ball query of radius r and S slots must test on
@@ -861,7 +1007,7 @@ def check_points(card: str, dev="cuda", batch_size: int = PN_BATCH,
             k2 = kernel_entry(
                 "fps (furthest point sampling)", "fps.cu",
                 "hcmoco_tpu/ops/pallas/fps.py:26", 0.0, ms,
-                cuda_ms(lambda: fp.fps_plain(xyz, m)),
+                cuda_ms(lambda: fp.fps_plain(xyz, m), iters=3, warmup=1),
                 bound(b * n * 12 + b * m * 4, 10 * b * n * (m - 1),
                       F32_NOFMA_OPS_S))
 
@@ -1102,9 +1248,13 @@ def timed_steps(step, state, batch, gen, n: int, label: str,
     return statistics.median(times[1:]), metrics
 
 
-def small_reference_check(card: str, arch: str = "HRNet") -> None:
-    """One f32 train step of the tiny (width-4, 32^2; HRNetPN: 64 points)
-    model on the card vs the same step on the CPU (the CPU path is held
+def small_reference_check(card: str, arch: str = "HRNet",
+                          n_points: int = 64, size: int = 32,
+                          batch_size: int = 6) -> None:
+    """One f32 train step of the tiny (width-4, `size`^2, 32 by default,
+    bs6; HRNetPN: `n_points`, 64 by default, where 9000 takes K56a past
+    8192 destinations at SA0) model on the card vs the same step on the
+    CPU (the CPU path is held
     against the JAX package by tests/test_torch_*.py): losses, updated
     params and banks within rel 1e-4.  Plain ConvBN path: K1 is bf16-only,
     and the tiny model in bf16 moves its features by 2% between any two
@@ -1126,21 +1276,22 @@ def small_reference_check(card: str, arch: str = "HRNet") -> None:
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
 
-    cfg = make_cfg(arch=arch, width=4, crop_size=32, batch_size=6, nce_k=15,
-                   compute_dtype="float32", pn_num_points=64)
+    bs = batch_size
+    cfg = make_cfg(arch=arch, width=4, crop_size=size, batch_size=bs,
+                   nce_k=15, compute_dtype="float32", pn_num_points=n_points)
     rng = np.random.default_rng(1)
-    batch = synthetic_contrast_batch(rng, 6, size=32, n_data=64)
+    batch = synthetic_contrast_batch(rng, bs, size=size, n_data=64)
     if arch == "HRNet":
         # depth of every sample non-zero: the synthetic all-zero depth
         # samples leave the tiny depth encoder too ill-conditioned to
         # compare
-        batch["rgbd"] = (rng.standard_normal((6, 32, 32, 6)) * 0.5).astype(
-            np.float32)
+        batch["rgbd"] = (rng.standard_normal((bs, size, size, 6))
+                         * 0.5).astype(np.float32)
     else:
-        batch["pts_u"] = rng.random((6, 64), dtype=np.float32)
-        if not 0 < int(batch["use_depth"].sum()) < 6:
+        batch["pts_u"] = rng.random((bs, n_points), dtype=np.float32)
+        if not 0 < int(batch["use_depth"].sum()) < bs:
             raise AssertionError("the batch must hold valid and zero clouds")
-    counts = sample_negative_counts(torch.Generator().manual_seed(2), 6, 64,
+    counts = sample_negative_counts(torch.Generator().manual_seed(2), bs, 64,
                                     15)
     torch.manual_seed(0)
     model = set_convbn_fuse(build_model(cfg, device="cpu"), False)
@@ -1206,7 +1357,9 @@ def small_reference_check(card: str, arch: str = "HRNet") -> None:
                                  f"{cpu_d} from the float64 step")
         note = (f"; encoder2 params {card_d:.4g} (card) and {cpu_d:.4g} "
                 "(cpu) from the float64 step")
-    print(f"tiny f32 {arch} step, card vs cpu: loss {l_got['loss']:.6f} vs "
+    what = f"{arch} {size}^2 bs{bs}" + (f" {n_points} points"
+                                  if arch == "HRNetPN" else "")
+    print(f"tiny f32 {what} step, card vs cpu: loss {l_got['loss']:.6f} vs "
           f"{l_ref['loss']:.6f}, params and banks within tolerance{note} "
           f"[{card}]")
 
@@ -1311,25 +1464,24 @@ def drive_slice(card: str) -> dict:
     return launches
 
 
-def check_build_refusal(card: str) -> None:
-    """build_model refuses, on the card, a cloud larger than K56a's
-    destination limit, and names the limit."""
+def check_build_wide(card: str) -> None:
+    """build_model takes pn_num_points = PN_WIDE_POINTS on the card (K56a
+    ranks any number of destinations): the model's four SA levels sample
+    (16384, 4096, 1024, 256) points."""
     from hcmoco_tpu_torch.models.build import build_model
-    from hcmoco_tpu_torch.ops.point_gather import MAX_DEST
 
-    cfg = make_cfg(arch="HRNetPN", batch_size=PN_BATCH,
-                   pn_num_points=MAX_DEST + 1)
-    try:
-        build_model(cfg, device="cuda")
-    except ValueError as e:
-        if "K56a" not in str(e) or str(MAX_DEST) not in str(e):
-            raise AssertionError(f"build_model's refusal does not name "
-                                 f"K56a's limit: {e}") from e
-        print(f"build_model refuses pn_num_points={MAX_DEST + 1} on the "
-              f"card: {e} [{card}]")
-        return
-    raise AssertionError(f"build_model took pn_num_points={MAX_DEST + 1} "
-                         "on the card")
+    cfg = make_cfg(arch="HRNetPN", batch_size=PN_WIDE_BATCH,
+                   pn_num_points=PN_WIDE_POINTS)
+    model = build_model(cfg, device="cuda")
+    npoints = [sa.npoint for sa in model.encoder2.SA_modules]
+    want = [PN_WIDE_POINTS // 4 ** k for k in range(4)]
+    if npoints != want or next(model.parameters()).device.type != "cuda":
+        raise AssertionError(f"build_model at pn_num_points="
+                             f"{PN_WIDE_POINTS} on the card: npoints "
+                             f"{npoints}, expected {want}")
+    print(f"build_model takes pn_num_points={PN_WIDE_POINTS} on the card: "
+          f"SA npoints {npoints} [{card}]")
+    del model
 
 
 def point_wrappers() -> dict:
@@ -1414,6 +1566,12 @@ def profile_steps(card: str, step, state, batch, gen, median_s: float,
         members.setdefault(cls, []).append(name)
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
         print(f"  [class] {ms / n:9.3f} ms/step  {cls}")
+    for label, prefix in (("K56a (csr_*)", "csr_"),
+                          ("K56b (segsum_*)", "segsum_")):
+        ms = sum(us for name, (us, _) in by_name.items()
+                 if prefix in name) / 1e3
+        if ms:
+            print(f"  [kernel] {ms / n:9.3f} ms/step  {label}")
     top = names[:20]
     for name in top + [k for k in members.get("K2-K6 point kernels", [])
                        + members.get("other", [])[:5] if k not in top]:
@@ -1423,17 +1581,19 @@ def profile_steps(card: str, step, state, batch, gen, median_s: float,
     return total, total / (median_s * 1e3)
 
 
-def drive_pn(card: str) -> dict:
-    """Stage-1 HRNetPN W18 320^2 bs64 train steps, 4096 points, through the
-    user entry points (ConvBN fuse at its default, off); returns each point
-    kernel's launches during the steps."""
+def drive_pn(card: str, n_points: int = 4096,
+             batch_size: int = PN_BATCH) -> dict:
+    """Stage-1 HRNetPN W18 320^2 train steps, bs64 with 4096 points by
+    default, through the user entry points (ConvBN fuse at its default,
+    off); returns each point kernel's launches during the steps."""
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.models.build import build_model
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
 
     dev = torch.device("cuda")
-    cfg = make_cfg(arch="HRNetPN", batch_size=PN_BATCH)
+    cfg = make_cfg(arch="HRNetPN", batch_size=batch_size,
+                   pn_num_points=n_points)
     os.environ.pop("HCMOCO_CONVBN_FUSE", None)  # drive_slice set it
     torch.manual_seed(0)
     model = build_model(cfg).to(memory_format=torch.channels_last)
@@ -1442,9 +1602,9 @@ def drive_pn(card: str) -> dict:
                                steps_per_epoch=100)
     step = make_contrast_train_step(cfg, model, steps_per_epoch=100)
     batch = to_device(synthetic_contrast_batch(
-        np.random.default_rng(0), PN_BATCH, size=cfg.crop_size,
+        np.random.default_rng(0), batch_size, size=cfg.crop_size,
         num_joints=16, n_data=N_DATA), dev)
-    if not (0 < int(batch["use_depth"].sum()) < PN_BATCH):
+    if not (0 < int(batch["use_depth"].sum()) < batch_size):
         raise AssertionError("the batch must hold valid and zero clouds")
     wrappers = point_wrappers()
 
@@ -1453,7 +1613,7 @@ def drive_pn(card: str) -> dict:
     for fn, _ in wrappers.values():
         fn.launches = 0
     steady, metrics = timed_steps(step, state, batch, gen, STEPS,
-                                  "stage-1 HRNetPN", card)
+                                  f"stage-1 HRNetPN {n_points} points", card)
     launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
     for name, (_, per_step) in wrappers.items():
         if launches[name] != per_step * STEPS:
@@ -1462,11 +1622,14 @@ def drive_pn(card: str) -> dict:
                                  f"{STEPS}")
     print("HRNetPN losses per step: "
           + ", ".join(f"{m['loss']:.5f}" for m in metrics))
-    print(f"HRNetPN W18 320^2 bs{PN_BATCH} 4096-point stage-1 step: median "
-          f"{steady * 1e3:.2f} ms = {PN_BATCH / steady:.2f} samples/s; peak "
+    print(f"HRNetPN W18 320^2 bs{batch_size} {n_points}-point stage-1 step: "
+          f"median {steady * 1e3:.2f} ms = {batch_size / steady:.2f} "
+          f"samples/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {launches} in {STEPS} steps [{card}]")
     profile_steps(card, step, state, batch, gen, steady)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1588,11 +1751,13 @@ def small_stage2_check(card: str, arch: str) -> None:
           + f", params and banks within tolerance [{card}]")
 
 
-def drive_stage2(card: str, arch: str) -> dict:
+def drive_stage2(card: str, arch: str, n_points: int = 4096,
+                 batch_size: Optional[int] = None) -> dict:
     """Stage-2 train steps (mem='bank+jointspri3d') of the reference's
     second-stage recipe for `arch` through the user entry points: HRNet-W18
     at bs32 with HCMOCO_CONVBN_FUSE=1 (K1, K1b), or HRNetPN at bs64 with
-    4096 points (K2-K6, K56a/K56b, and pts2depth's K4, K6 and K6 bwd).
+    4096 points by default (`batch_size`, `n_points`; K2-K6, K56a/K56b,
+    and pts2depth's K4, K6 and K6 bwd).
     320^2, K=16384, 400 soft-Pri3D pixels an image drawn by the step, T =
     0.07.  Prints every stage-2 metric a step, the median step, samples/s,
     peak memory and a profile; returns each kernel wrapper's launches in
@@ -1608,8 +1773,10 @@ def drive_stage2(card: str, arch: str) -> dict:
     from hcmoco_tpu_torch.train.state import create_train_state
 
     dev = torch.device("cuda")
-    bsz = BATCH if arch == "HRNet" else PN_BATCH
+    bsz = batch_size or (BATCH if arch == "HRNet" else PN_BATCH)
     cfg = dataclasses.replace(RECIPES[STAGE2_RECIPES[arch]], batch_size=bsz)
+    if arch == "HRNetPN":
+        cfg = dataclasses.replace(cfg, pn_num_points=n_points)
     if arch == "HRNet":
         os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
     else:
@@ -1640,7 +1807,8 @@ def drive_stage2(card: str, arch: str) -> dict:
                  "segment_rows_sum": 1}
         wrappers = {name: (fn, n + extra.get(name, 0))
                     for name, (fn, n) in point_wrappers().items()}
-    label = f"stage-2 {arch}"
+    label = f"stage-2 {arch}" + (f" {n_points} points"
+                                 if arch == "HRNetPN" else "")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in wrappers.values():
@@ -1676,6 +1844,7 @@ def drive_stage2(card: str, arch: str) -> dict:
 
 
 CLI_FRAMES = 512   # NTU frames of the CLI phase's tree
+RESUME_STEPS = 6   # steps of the resumed stage-1 CLI run
 CLI_MPII = 64      # MPII images of it
 KINECT_HW = (424, 512)
 
@@ -1998,16 +2167,102 @@ def nccl_cli(card: str, argv: list, save: str) -> list:
     return runs
 
 
+SLURM_CLI_STEPS = 2
+
+
+def slurm_cli(card: str, argv: list, save: str) -> dict:
+    """cli/main_contrast.py --multihost under a SLURM job step's variables
+    alone, for one task (SLURM_JOB_ID, SLURM_STEP_NODELIST, SLURM_NTASKS,
+    SLURM_PROCID, SLURM_LOCALID set here; no srun, and none of torchrun's
+    variables, nor MASTER_PORT): it joins an NCCL process group of one at
+    the node list's first host and port SLURM_JOB_ID % 4096 + 61440, as
+    jax.distributed.initialize() does, and trains SLURM_CLI_STEPS steps.
+    Checks the rank, world, backend and address it joined; returns its
+    K1/K1b launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hcmoco_tpu_torch.cli.main_contrast import main
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+    from hcmoco_tpu_torch.parallel import mesh
+
+    job = 7340000
+    while True:  # a job id whose port is free here
+        port = job % 4096 + 61440
+        with socket.socket() as sock:
+            try:
+                sock.bind(("localhost", port))
+                break
+            except OSError:
+                job += 1
+    env = {"SLURM_JOB_ID": str(job), "SLURM_STEP_NODELIST": "localhost",
+           "SLURM_NTASKS": "1", "SLURM_PROCID": "0", "SLURM_LOCALID": "0",
+           "SLURM_STEP_TASKS_PER_NODE": "1", "SLURM_NODEID": "0"}
+    hidden = {k: os.environ.pop(k) for k in mesh.TORCHRUN_ENV
+              + ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR")
+              if k in os.environ}
+    seen = {}
+
+    def on_ready(state):
+        seen.update(backend=dist.get_backend(), rank=dist.get_rank(),
+                    world=dist.get_world_size(), joined=dict(mesh.JOINED))
+
+    wrappers = k1_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    wrappers["mm_bn_stats"].generic_launches = 0
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        r = main(argv + ["--model_path", save, "--multihost", "--epochs",
+                         "1", "--max_steps", str(SLURM_CLI_STEPS)],
+                 on_ready=on_ready)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(hidden)
+    joined = seen.pop("joined", None)
+    want = {"launcher": "slurm", "rank": 0, "world": 1, "local_rank": 0,
+            "address": f"localhost:{port}"}
+    if seen != {"backend": "nccl", "rank": 0, "world": 1} or joined != want:
+        raise AssertionError(f"SLURM CLI run: joined {joined}, process "
+                             f"group {seen}; expected {want} over nccl")
+    if dist.is_initialized():
+        raise AssertionError("the CLI left its process group behind")
+    model = r.state.model
+    sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
+    gen = generic_sites(model.encoder1) + generic_sites(model.encoder2)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                "mm_bn_stats generic":
+                    wrappers["mm_bn_stats"].generic_launches, **launches}
+    steps = len(r.step_s)
+    want = {name: (gen if name.endswith("generic") else sites) * steps
+            for name in launches}
+    if steps != SLURM_CLI_STEPS or launches != want:
+        raise AssertionError(f"SLURM CLI run: {steps} steps, launches "
+                             f"{launches}, expected {want}")
+    print(f"SLURM CLI run (--multihost, SLURM_JOB_ID {job}, no torchrun "
+          f"variables): joined rank {joined['rank']} of {joined['world']} "
+          f"over {seen['backend']} at {joined['address']}, {steps} steps "
+          f"in {time.perf_counter() - t0:.1f} s [{card}]")
+    del r
+    return launches
+
+
 def drive_cli(card: str, stage2_copy: str) -> tuple:
     """The pre-training CLI (cli/main_contrast.py) in process on the card,
     from frames on disk: an NTU tree of CLI_FRAMES Kinect-size frames and
     an MPII tree of CLI_MPII images, written from a seed into a temporary
     directory under build/ and deleted at the end.  Stage 1 HRNet-W18 bs32
-    fused for an epoch, its resume for a second (the restored step, banks
-    and a weight equal to what was saved), stage 2 grafted from it with
-    --pretrain, and HRNetPN bs64 from a pack of the NTU tree through the
-    native resample.  Returns the K1/K1b launches of the three HRNet runs
-    and the point kernels' of the HRNetPN run; copies the stage-2 run's
+    fused for an epoch, its resume for RESUME_STEPS steps of a second (the
+    restored step, banks and a weight equal to what was saved), stage 2
+    grafted from it with --pretrain, and HRNetPN bs64 from a pack of the
+    NTU tree through the native resample; the CLI under torchrun's and
+    under SLURM's variables (nccl_cli, slurm_cli).  Returns the K1/K1b
+    launches of the HRNet runs and the point kernels' of the HRNetPN
+    run; copies the stage-2 run's
     checkpoint to `stage2_copy` (the versatility phase grafts from it).
     The stage-1 run passes --profile_dir: its trace of global steps 10-15
     must hold exactly the K1/K1b launches that the wrappers counted there
@@ -2089,18 +2344,19 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
 
         r2, l2 = cli_run(card, "CLI stage-1 HRNet resumed", s1 + [
             "--epochs", "2", "--resume", "auto", "--max_steps",
-            str(2 * steps1)], BATCH, steps1, k1, on_ready=check_restored,
-            input_rate=rate)
+            str(steps1 + RESUME_STEPS)], BATCH, RESUME_STEPS, k1,
+            on_ready=check_restored, input_rate=rate)
         if r2.start_epoch != 2 or restored.get("step") != steps1:
             raise AssertionError(f"resume started at epoch {r2.start_epoch}"
                                  f", step {restored.get('step')}")
         print(f"CLI resume: epoch 2 restored step {steps1}, the banks and "
               f"encoder1.conv1.weight bit for bit [{card}]")
-        check_k1(l2, r2, steps1, "CLI stage-1 HRNet resumed")
+        check_k1(l2, r2, RESUME_STEPS, "CLI stage-1 HRNet resumed")
         trained = r2.state.model.encoder1.conv1.weight.detach().cpu().clone()
         del r1, r2
         torch.cuda.empty_cache()
         l_nccl = nccl_cli(card, s1, os.path.join(tmp, "save_nccl"))
+        l_slurm = slurm_cli(card, s1, os.path.join(tmp, "save_slurm"))
 
         def check_grafted(state):
             if not torch.equal(
@@ -2134,7 +2390,7 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
         print(f"CLI HRNetPN packed path: resample route {route} [{card}]")
         del r4
         torch.cuda.empty_cache()
-        return [l1, l2, l3] + l_nccl, [l4]
+        return [l1, l2, l3] + l_nccl + [l_slurm], [l4]
     finally:
         os.environ.pop("HCMOCO_CONVBN_FUSE", None)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3759,29 +4015,15 @@ def glue_gaps(cfg, model: torch.nn.Module, batch: dict, run: dict) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def cudnn_off():
-    """PyTorch's native CUDA convolutions in place of cuDNN's inside."""
-    was = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.enabled = was
-
-
 def baseline_dtype_readings(label: str, kw: dict,
-                            size: dict = BASELINE_DTYPE_SIZE,
-                            f32_cudnn: bool = True) -> dict:
+                            size: dict = BASELINE_DTYPE_SIZE) -> dict:
     """One step of `label` at `size` (BASELINE_DTYPE_SIZE) on the CPU in
     float64 and f32 and on the card in f32 and bf16 (convs; heads, logits
     and memory f32), each card step also with its broken control, from
     the same weights, memory and pinned draws.  -> the readings the checks
     hold: f32_margins of the card's f32 step and of its BN-eps control;
     bf16_gaps of the bf16 step and of its BGR control; glue_gaps of the
-    bf16 step and of its bf16-heads control.  Without `f32_cudnn` the two
-    f32 card steps run PyTorch's native CUDA convolutions, and the f32
-    step through cuDNN is read beside them ('f32 cudnn', not held)."""
+    bf16 step and of its bf16-heads control."""
     from hcmoco_tpu_torch.models.build import build_model
 
     cfg = baseline_cfg(**kw, **size)
@@ -3799,17 +4041,12 @@ def baseline_dtype_readings(label: str, kw: dict,
                                  control=control, capture=True)
 
     cpu = step(model, "cpu")
-    with contextlib.nullcontext() if f32_cudnn else cudnn_off():
-        runs = {"f32": step(model, "cuda"),
-                "f32 eps control": step(model, "cuda", bn_eps_control)}
-    f32 = ["f32", "f32 eps control"]
-    if not f32_cudnn:
-        runs["f32 cudnn"] = step(model, "cuda")
-        f32.append("f32 cudnn")
-    runs.update({
+    runs = {"f32": step(model, "cuda"),
+            "f32 eps control": step(model, "cuda", bn_eps_control),
             "bf16": step(bf16, "cuda"),
             "bf16 bgr control": step(bf16, "cuda", stem_bgr_control),
-            "bf16 heads control": step(bf16, "cuda", head_bf16_control)})
+            "bf16 heads control": step(bf16, "cuda", head_bf16_control)}
+    f32 = ["f32", "f32 eps control"]
     for name, r in runs.items():
         if "ptr" in cpu["state"] and not torch.equal(r["state"]["ptr"],
                                                      cpu["state"]["ptr"]):
@@ -3828,8 +4065,7 @@ def baseline_dtype_readings(label: str, kw: dict,
 
 
 def baseline_dtype_check(card: str, label: str, kw: dict,
-                         size: dict = BASELINE_DTYPE_SIZE,
-                         f32_cudnn: bool = True) -> None:
+                         size: dict = BASELINE_DTYPE_SIZE) -> None:
     """The baseline step in the dtypes users run, card vs CPU, at a size
     where BN is well conditioned (baseline_dtype_readings): the card's
     f32 step within f32_margins <= 1 of the float64 step in every group
@@ -3837,8 +4073,8 @@ def baseline_dtype_check(card: str, label: str, kw: dict,
     step (features and loss); the bf16 step's glue within
     BASELINE_GLUE_TOL of its CPU replay.  Each check must fail its broken
     control, or it has no teeth.  `size`: the arch, crop, batch and
-    nce_k; `f32_cudnn`: baseline_dtype_readings'."""
-    r = baseline_dtype_readings(label, kw, size, f32_cudnn)
+    nce_k."""
+    r = baseline_dtype_readings(label, kw, size)
     cfg = r["cfg"]
     head = (f"baseline {label} ({cfg.arch} {cfg.crop_size}^2 "
             f"bs{cfg.batch_size}, {cfg.mem})")
@@ -3847,9 +4083,7 @@ def baseline_dtype_check(card: str, label: str, kw: dict,
             for name, v in r["bf16"].items()}
     glue = {name: max(v.values()) / BASELINE_GLUE_TOL
             for name, v in r["glue"].items()}
-    where = ("" if f32_cudnn else
-             " (native CUDA convs; 'f32 cudnn' read, not held)")
-    print(f"{head} f32 card step{where} vs the float64 CPU step, over "
+    print(f"{head} f32 card step vs the float64 CPU step, over "
           f"{BASELINE_F32_RATIO} x the f32 CPU step's distance + "
           f"{BASELINE_F32_FLOOR:.3g} of the norm: {r['f32']} [{card}]")
     print(f"{head} bf16 card step vs the f32 CPU step (max abs; tolerance "
@@ -4191,10 +4425,10 @@ RESNEST_SMALL = (
                               batch_size=4)))
 # the dtype check's size: the small ResNeSt at 224^2 bs8, whose layer4 BN
 # sees 8 * 7 * 7 = 392 values a channel (its SplAt attention BN: 8).  Its
-# f32 check runs the card's convs natively (f32_cudnn=False): through
-# cuDNN's f32 convolutions the parameters after the step read 31.9-39.1 of
-# the check's margin on an H100 (native: 0.166-0.274; ResNet-18 through
-# cuDNN: 0.294-0.384; PERF.md)
+# f32 step runs the path users' f32 steps take, cuDNN's convs included; it
+# read 31.9-39.1 of the check's margin on an H100 while the avd pool ran
+# PyTorch's channels_last average pool, whose gradient is wrong on the
+# card (ROADMAP F14; check_avd_pool)
 RESNEST_DTYPE_SIZE = dict(arch="resnest50", crop_size=224, batch_size=8,
                           nce_k=256)
 # SemGCN's Human3.6M joint pairs (16 joints, groups of 2)
@@ -4206,6 +4440,50 @@ SEMGCN_GROUPS = ((2, 3), (5, 6), (1, 4), (0, 7), (8, 9), (14, 15), (11, 12),
 # order 0.23-0.92; PERF.md)
 NONLOCAL_TOL = 1e-5
 A2J_RES_CROP = 64
+
+
+# ResNeSt's avd pools at the dtype check's size, (B, C, H, W, stride):
+# layer1's (is_first, stride 1) and layer2's
+AVD_POOL_CALLS = ((8, 64, 56, 56, 1), (8, 128, 56, 56, 2))
+
+
+def check_avd_pool(card: str) -> None:
+    """ResNeSt's avd pool (models/resnest.py::_avd_pool: 3x3, padding 1)
+    on the card on a channels_last tensor, in f32 and bf16: its input
+    gradient against float64 on the CPU of the same values, within 1e-6
+    (f32) or 2^-7 (bf16) of the gradient's largest magnitude.  Beside it
+    PyTorch's F.avg_pool2d on the same channels_last tensor, the pool
+    before F14 was decided, read and printed (its gradient is wrong on the
+    card)."""
+    import torch.nn.functional as F
+
+    from hcmoco_tpu_torch.models.resnest import _avd_pool
+
+    g = torch.Generator().manual_seed(21)
+    for b, c, h, w, stride in AVD_POOL_CALLS:
+        x0 = torch.relu(torch.randn((b, c, h, w), generator=g))
+        gy0 = torch.randn((b, c, (h - 1) // stride + 1,
+                           (w - 1) // stride + 1), generator=g)
+        for dt, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0 ** -7)):
+            xr = x0.to(dt).double().requires_grad_()
+            F.avg_pool2d(xr, 3, stride, 1).backward(gy0.to(dt).double())
+            errs = {}
+            for name, fn in (("_avd_pool", lambda t: _avd_pool(t, stride)),
+                             ("F.avg_pool2d channels_last",
+                              lambda t: F.avg_pool2d(t, 3, stride, 1))):
+                x = x0.to(dt).cuda().contiguous(
+                    memory_format=torch.channels_last).requires_grad_()
+                fn(x).backward(gy0.to(dt).cuda())
+                errs[name] = float((x.grad.cpu().double() - xr.grad).abs()
+                                   .max() / xr.grad.abs().max())
+            if not errs["_avd_pool"] <= tol:
+                raise AssertionError(f"avd pool {(b, c, h, w)} stride "
+                                     f"{stride} {dt}: gradient {errs}")
+            print(f"avd pool ({b},{c},{h},{w}) stride {stride} {str(dt)[6:]}"
+                  f" on the card, channels_last: input gradient vs float64 "
+                  f"(of its largest magnitude; tolerance {tol:.3g}): "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" [{card}]")
 
 
 @contextlib.contextmanager
@@ -4440,9 +4718,10 @@ def summary_check(card: str) -> dict:
 
 
 def last_modules_phase(card: str, itop: tuple) -> None:
-    """The modules of ROADMAP items 11b and 14 on the card: ResNeSt
-    (float64 MoCo and CMC-dual steps of the small ResNeSt card vs CPU, the
-    f32/bf16 dtype check with the baselines' broken controls, MoCov2 at
+    """The modules of ROADMAP items 11b and 14 on the card: ResNeSt (its
+    avd pool's gradient in channels_last, check_avd_pool; float64 MoCo and
+    CMC-dual steps of the small ResNeSt card vs CPU, the f32/bf16 dtype
+    check with the baselines' broken controls, MoCov2 at
     ResNeSt-50 224^2 bs256 K 65536 bf16), A2J's ResNet50 (a float64 train
     step card vs CPU, then downstream/a2j/train.py --arch resnet50 at 288^2
     bs12 on the ITOP fixture `itop` for 8 steps and PCK@10cm), the grouped
@@ -4455,13 +4734,13 @@ def last_modules_phase(card: str, itop: tuple) -> None:
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
+    check_avd_pool(card)
     with small_resnest():
         for label, kw in RESNEST_SMALL:
             small_baseline_check(card, label, kw)
         for label, kw in (("ResNeSt MoCov2", dict(method="MoCov2")),
                           ("ResNeSt CMC", dict(method="CMC"))):
-            baseline_dtype_check(card, label, kw, RESNEST_DTYPE_SIZE,
-                                 f32_cudnn=False)
+            baseline_dtype_check(card, label, kw, RESNEST_DTYPE_SIZE)
     t1 = time.perf_counter()
     resnest_full(card)
     t2 = time.perf_counter()
@@ -4531,10 +4810,16 @@ def main() -> int:
     k1_runs = [drive_slice(card), drive_stage2(card, "HRNet")]
     points = check_points(card)
     check_pts2depth(card)
+    check_csr_wide(card)
+    check_wide_points(card)
     small_reference_check(card, "HRNetPN")
+    small_reference_check(card, "HRNetPN", n_points=9000, size=96,
+                          batch_size=4)
     small_stage2_check(card, "HRNetPN")
-    check_build_refusal(card)
-    pn_runs = [drive_pn(card), drive_stage2(card, "HRNetPN")]
+    check_build_wide(card)
+    pn_runs = [drive_pn(card), drive_stage2(card, "HRNetPN"),
+               drive_pn(card, PN_WIDE_POINTS, PN_WIDE_BATCH),
+               drive_stage2(card, "HRNetPN", PN_WIDE_POINTS, PN_WIDE_BATCH)]
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="smoke_versatility_", dir=build)

@@ -7,12 +7,15 @@ Reference: `pycontrast/main_contrast.py` + the option surface of
 one device: the card unless `--device cpu` asks for the CPU.
 
 Data parallelism: under torchrun (WORLD_SIZE in the environment), or with
-`--multihost` over torchrun's multi-node rendezvous (the counterpart of
-jax.distributed.initialize()), each process joins the process group (NCCL
-on the card, gloo on the CPU), drives cuda:LOCAL_RANK and trains on its
-rows of the global batch; `--batch_size` stays the global batch:
+`--multihost` over torchrun's multi-node rendezvous or a SLURM job step
+(the counterpart of jax.distributed.initialize(), which finds either),
+each process joins the process group (NCCL on the card, gloo on the CPU),
+drives cuda:<local rank> and trains on its rows of the global batch;
+`--batch_size` stays the global batch:
   torchrun --nproc_per_node=4 -m hcmoco_tpu_torch.cli.main_contrast \
       --recipe first_stage/ntumpiirgbd2s_hrnet_w18 ... --batch_size 224
+  srun --nodes=2 --ntasks-per-node=4 python -m \
+      hcmoco_tpu_torch.cli.main_contrast --multihost ... --batch_size 224
 A plain `python -m` run is one process on one card.
 
 Usage:
@@ -144,8 +147,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "to this directory (TensorBoard's trace format)")
     p.add_argument("--multihost", action="store_true",
                    help="data-parallel training over torchrun's (multi-node) "
-                        "rendezvous: join the process group its environment "
-                        "describes")
+                        "rendezvous or a SLURM job step (srun): join the "
+                        "process group their environment describes")
     return p
 
 
@@ -216,8 +219,6 @@ class RunResult:
     step_s: List[float] = field(default_factory=list)
 
 
-_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_PORT")
-
 # --profile_dir traces these global steps, first and last, as the JAX CLI's
 # jax.profiler trace does
 PROFILE_STEPS = (10, 15)
@@ -274,20 +275,14 @@ class StepTrace:
 def join_ranks(args, cfg: "TrainConfig") -> tuple:
     """(rank, world size, device) of this process.  Under torchrun
     (WORLD_SIZE in the environment) or --multihost it joins the process
-    group, NCCL on the card (cuda:LOCAL_RANK) and gloo on the CPU;
-    otherwise (0, 1, --device).  Exits with the JAX CLI's error when the
-    global batch does not split over the ranks (times --microbatch)."""
+    group, NCCL on the card (cuda:<local rank>) and gloo on the CPU;
+    --multihost takes torchrun's environment where it is set, else a
+    SLURM job step's, as jax.distributed.initialize() finds one
+    (parallel/mesh.py::init_distributed raises with neither); otherwise
+    (0, 1, --device).  Exits with the JAX CLI's error when the global
+    batch does not split over the ranks (times --microbatch)."""
     from ..parallel.mesh import init_distributed
 
-    missing = [k for k in _TORCHRUN_ENV if k not in os.environ]
-    if args.multihost and missing:
-        raise NotImplementedError(
-            "--multihost joins the process group that torchrun's rendezvous "
-            f"describes, and {', '.join(missing)} is not set: launch with "
-            "torchrun (--nnodes/--rdzv_endpoint across hosts).  Finding a "
-            "cluster without it, as jax.distributed.initialize() does on "
-            "SLURM, is not ported (ROADMAP.md Queue 1 item 10 ports "
-            "torchrun's rendezvous)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
@@ -423,9 +418,8 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     try:
         return _run(args, cfg, rank, size, device, on_ready, on_step)
     finally:
-        if size > 1 or "WORLD_SIZE" in os.environ:
-            from ..parallel.mesh import destroy
-            destroy()
+        from ..parallel.mesh import leave
+        leave()
 
 
 def rank_rows(cfg: "TrainConfig", rank: int, size: int):

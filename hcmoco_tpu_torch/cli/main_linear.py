@@ -22,7 +22,6 @@ over the ranks, each rank validating its share of the images:
 
 from __future__ import annotations
 
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -102,9 +101,8 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> LinearRun:
     try:
         return _run(args, cfg, rank, size, device, on_ready)
     finally:
-        if size > 1 or "WORLD_SIZE" in os.environ:
-            from ..parallel.mesh import destroy
-            destroy()
+        from ..parallel.mesh import leave
+        leave()
 
 
 def _run(args, cfg, rank: int, size: int, device, on_ready) -> LinearRun:

@@ -31,7 +31,6 @@ classifier beside the model; cli/transfer_ckpt.py exports their encoders.
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -117,9 +116,8 @@ def main(argv=None, on_ready: Optional[Callable] = None,
     try:
         return _run(args, cfg, rank, size, device, on_ready, on_step)
     finally:
-        if size > 1 or "WORLD_SIZE" in os.environ:
-            from ..parallel.mesh import destroy
-            destroy()
+        from ..parallel.mesh import leave
+        leave()
 
 
 def _run(args, cfg, rank: int, size: int, device, on_ready,

@@ -39,8 +39,8 @@
 //     global memory each round and keeps mind in a global scratch (PPT ==
 //     0).  Its thread takes every T-th point, so a warp's loads are
 //     coalesced, and the argmax takes the lowest index among equal bits
-//     with one more redux.  No configuration of the repository reaches it
-//     (build_model refuses more than 8192 points on the card);
+//     with one more redux.  HRNetPN reaches it at SA1 (SA0 keeps every
+//     point) with pn_num_points above 8192;
 //   * the distance is written with __fsub_rn/__fmul_rn/__fadd_rn so nvcc
 //     cannot contract it into FMAs: d then matches the plain PyTorch
 //     version bit for bit and near-tie picks do not flip.

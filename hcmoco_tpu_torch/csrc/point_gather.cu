@@ -32,7 +32,9 @@
 //         warps rank their sources in order against 16-bit histograms in
 //         shared memory (__match_any_sync ranks equal destinations within
 //         32); prefixes over warps, tiles and destinations then place every
-//         source at once.
+//         source at once.  The histograms cover a window of at most 8192
+//         destinations; above that, each tile is ranked by one block a
+//         window, which skips the sources outside it, so any n_dest runs.
 //   K56b  segment_sum: each destination row's sources are added in src
 //         order, in f32 with __fadd_rn (K6: __fmul_rn by the weight
 //         first), and the row is written once in the table dtype.  Parallel
@@ -166,41 +168,55 @@ constexpr int kTile = 8192;       // sources a count block ranks
 constexpr int kCountWarps = 8;    // each ranks kTile / kCountWarps of them
 constexpr int kSub = kTile / kCountWarps;
 constexpr int kScanThreads = 1024;
-constexpr int kMaxDest = 8192;    // the count block's 16-bit histograms
+constexpr int kWindow = 8192;     // destinations the 16-bit histograms hold
+constexpr unsigned short kOutside = 0xffff;  // a source of another window
 
-// Block (t, b) ranks the sources of tile t of sample b.  The tile's
-// indices are copied to shared memory; warp w then walks its kSub sources
-// 32 at a time, in order, and ranks equal destinations with
-// __match_any_sync against its own 16-bit histogram; a prefix over the
-// warps gives rel[r], the rank of source r among the tile's sources with the
-// same destination, and tiles[b, t, d], the tile's count for d.
+// Block (t, b, z) ranks the sources of tile t of sample b whose destination
+// lies in window z, [z * kWindow, z * kWindow + nd); without kWindowed
+// (n_dest <= kWindow) there is one window, which holds every source.  The
+// tile's indices are copied to shared memory, less the window's first
+// destination; warp w then walks its kSub sources 32 at a time, in order,
+// and ranks equal destinations with __match_any_sync against its own 16-bit
+// histogram; a prefix over the warps gives rel[r], the rank of source r
+// among the tile's sources with the same destination, and tiles[b, t, d],
+// the tile's count for d.  160 KiB of shared memory at a full window.
+template <bool kWindowed>
 __global__ void __launch_bounds__(kCountWarps * 32)
 csr_count_kernel(const int* __restrict__ idx, int* __restrict__ tiles,
                  unsigned short* __restrict__ rel, int R, int n_dest) {
   extern __shared__ unsigned short sm16[];
-  unsigned short* hist = sm16;                            // [warps][n_dest]
-  unsigned short* dst = hist + kCountWarps * n_dest;      // [kTile]
+  const int lo = kWindowed ? (int)blockIdx.z * kWindow : 0;
+  const int nd = kWindowed ? min(kWindow, n_dest - lo) : n_dest;
+  unsigned short* hist = sm16;                            // [warps][nd]
+  unsigned short* dst = hist + kCountWarps * nd;          // [kTile]
   unsigned short* rank = dst + kTile;                     // [kTile]
   const int t = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int n = min(kTile, R - t * kTile);
   const int* ib = idx + (long long)b * R + t * kTile;
   uint32_t* h32 = reinterpret_cast<uint32_t*>(hist);
-  for (int i = threadIdx.x; i < (kCountWarps * n_dest + 1) / 2;
-       i += blockDim.x)
+  for (int i = threadIdx.x; i < (kCountWarps * nd + 1) / 2; i += blockDim.x)
     h32[i] = 0;  // one u16 past the histograms is dst[0], written below
   __syncthreads();
 #pragma unroll 8
   for (int k = 0; k < kTile / (kCountWarps * 32); ++k) {
     const int i = k * kCountWarps * 32 + threadIdx.x;
-    if (i < n) dst[i] = (unsigned short)ib[i];
+    if (i < n) {
+      if constexpr (kWindowed) {
+        const unsigned v = (unsigned)(ib[i] - lo);
+        dst[i] = v < (unsigned)nd ? (unsigned short)v : kOutside;
+      } else {
+        dst[i] = (unsigned short)ib[i];
+      }
+    }
   }
   __syncthreads();
-  unsigned short* h = hist + w * n_dest;
+  unsigned short* h = hist + w * nd;
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll 4
   for (int i = w * kSub + lane; i < (w + 1) * kSub; i += 32) {
-    const int d = i < n ? dst[i] : -1;
+    int d = i < n ? dst[i] : -1;
+    if (kWindowed && d == kOutside) d = -1;
     const unsigned peers = __match_any_sync(0xffffffffu, d);
     const int r = __popc(peers & below);
     const int base = d >= 0 ? h[d] : 0;
@@ -210,13 +226,13 @@ csr_count_kernel(const int* __restrict__ idx, int* __restrict__ tiles,
     if (d >= 0) rank[i] = (unsigned short)(base + r);
   }
   __syncthreads();
-  int* tb = tiles + ((long long)b * gridDim.x + t) * n_dest;
-  for (int d = threadIdx.x; d < n_dest; d += blockDim.x) {
+  int* tb = tiles + ((long long)b * gridDim.x + t) * n_dest + lo;
+  for (int d = threadIdx.x; d < nd; d += blockDim.x) {
     int run = 0;
 #pragma unroll
     for (int k = 0; k < kCountWarps; ++k) {
-      const int c = hist[k * n_dest + d];
-      hist[k * n_dest + d] = (unsigned short)run;
+      const int c = hist[k * nd + d];
+      hist[k * nd + d] = (unsigned short)run;
       run += c;
     }
     tb[d] = run;
@@ -226,8 +242,8 @@ csr_count_kernel(const int* __restrict__ idx, int* __restrict__ tiles,
 #pragma unroll 4
   for (int k = 0; k < kTile / (kCountWarps * 32); ++k) {
     const int i = k * kCountWarps * 32 + threadIdx.x;
-    if (i < n)
-      rb[i] = (unsigned short)(hist[(i / kSub) * n_dest + dst[i]] + rank[i]);
+    if (i < n && (!kWindowed || dst[i] != kOutside))
+      rb[i] = (unsigned short)(hist[(i / kSub) * nd + dst[i]] + rank[i]);
   }
 }
 
@@ -726,29 +742,32 @@ int hcmoco_interp_fwd(const void* feat, const void* idx, const void* w,
 }
 
 // idx (B, R) i32 in [0, n_dest) -> start (B, n_dest + 1) and src (B, R)
-// i32, each destination's source positions ascending (K56a).  Scratch:
-// tiles, B * n_tiles * n_dest i32 with n_tiles = ceil(R / 8192), and rel,
-// B * R u16.
+// i32, each destination's source positions ascending (K56a), for any
+// n_dest.  Scratch: tiles, B * n_tiles * n_dest i32 with n_tiles =
+// ceil(R / 8192), and rel, B * R u16.
 int hcmoco_dest_csr(const void* idx, void* start, void* src, void* tiles,
                     void* rel, int B, int R, int n_dest, int n_tiles,
                     void* stream) {
-  if (B <= 0 || R <= 0 || n_dest <= 0 || n_dest > kMaxDest ||
-      n_tiles != (R + kTile - 1) / kTile)
+  if (B <= 0 || R <= 0 || n_dest <= 0 || n_tiles != (R + kTile - 1) / kTile)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ii = static_cast<const int*>(idx);
   int* tl = static_cast<int*>(tiles);
   int* sp = static_cast<int*>(start);
   auto* rl = static_cast<unsigned short*>(rel);
+  const bool windowed = n_dest > kWindow;
+  const int windows = (n_dest + kWindow - 1) / kWindow;
   const size_t hist =
-      ((size_t)kCountWarps * n_dest + 2 * kTile) * sizeof(unsigned short);
+      ((size_t)kCountWarps * (windowed ? kWindow : n_dest) + 2 * kTile) *
+      sizeof(unsigned short);
+  const auto count = windowed ? csr_count_kernel<true>
+                              : csr_count_kernel<false>;
   if (hist > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        csr_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)hist);
+        count, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)hist);
     if (err != cudaSuccess) return (int)err;
   }
-  csr_count_kernel<<<dim3(n_tiles, B), kCountWarps * 32, hist, st>>>(
+  count<<<dim3(n_tiles, B, windows), kCountWarps * 32, hist, st>>>(
       ii, tl, rl, R, n_dest);
   csr_tiles_kernel<<<dim3((n_dest + 255) / 256, B), 256, 0, st>>>(
       tl, sp, n_dest, n_tiles);

@@ -31,7 +31,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
 import pickle
 import time
 from typing import Callable, Optional
@@ -74,7 +73,7 @@ def build_argparser():
                         "onto the CPU")
     p.add_argument("--multihost", action="store_true",
                    help="data-parallel training over torchrun's (multi-node) "
-                        "rendezvous")
+                        "rendezvous or a SLURM job step (srun)")
     return p
 
 
@@ -243,9 +242,8 @@ def main(argv=None, on_step: Optional[Callable[[int], None]] = None):
     try:
         return _run(args, rank, size, device, on_step)
     finally:
-        if size > 1 or "WORLD_SIZE" in os.environ:
-            from ...parallel.mesh import destroy
-            destroy()
+        from ...parallel.mesh import leave
+        leave()
 
 
 def _run(args, rank: int, size: int, device, on_step):

@@ -24,9 +24,10 @@ def resolve_device(name: str, cli: str) -> torch.device:
 
 def join_ranks(args, cli: str) -> tuple:
     """(rank, world size, device) of a trainer's process: resolve_device,
-    then, under torchrun, the process group and cuda:LOCAL_RANK, as the
-    pre-training CLI joins (cli/main_contrast.py::join_ranks); the global
-    --batch_size must split over the ranks."""
+    then, under torchrun or with --multihost in a SLURM job step, the
+    process group and cuda:<local rank>, as the pre-training CLI joins
+    (cli/main_contrast.py::join_ranks); the global --batch_size must
+    split over the ranks."""
     from ..cli.main_contrast import join_ranks as join
 
     resolve_device(args.device, cli)

@@ -18,7 +18,6 @@ import torch
 from torch import nn
 
 from ..core.config import HRNET_CONFIGS, TrainConfig
-from ..ops.point_gather import MAX_DEST
 from .heads import JigsawHead, ProjectionHead, linear_1x1
 from .hrnet import HRNet, merge_all_res, pool_maps
 from .pointnet2_model import HCMoCoPNModel
@@ -186,29 +185,11 @@ class CMCSharedModel(nn.Module):
         return out
 
 
-def check_card_limits(cfg: TrainConfig, device="cuda") -> None:
-    """Refuse a configuration that a card kernel of its path does not take,
-    so that it fails here and not inside a backward.  On the card, K5's
-    backward at SA0 ranks pn_num_points destinations with K56a
-    (`dest_csr_cuda`), whose histograms hold at most MAX_DEST; the CPU
-    path, like the JAX package, takes any pn_num_points."""
-    if (torch.device(device).type == "cuda" and cfg.arch == "HRNetPN"
-            and cfg.pn_num_points > MAX_DEST):
-        raise ValueError(
-            f"build_model: pn_num_points={cfg.pn_num_points} exceeds the "
-            f"{MAX_DEST} destinations that kernel K56a (dest_csr, the "
-            "destination index of the K5/K6 backwards) takes on the card; "
-            "lifting that limit is ROADMAP.md Queue 2, K56a.  Use "
-            f"pn_num_points <= {MAX_DEST} on the card, or device='cpu'")
-
-
 def build_model(cfg: TrainConfig, device="cuda") -> nn.Module:
     """Registry dispatch on modal + arch (build_backbone.py:516-546); the
     model's parameters are created on `device`: the card unless the
-    caller asks for another device, as the CPU tests do.  Raises for a
-    configuration the card's kernels do not take (`check_card_limits`)."""
+    caller asks for another device, as the CPU tests do."""
     device = torch.device(device)
-    check_card_limits(cfg, device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device is available; pass "
                            "device='cpu' to build on the CPU")

@@ -296,6 +296,9 @@ class HCMoCoPNModel(nn.Module):
         self.n_points = n_points
         self.linear_feat_map = linear_feat_map
         self.dtype = dtype
+        # any n_points on the card: SA0's grouping backward and pts2depth's
+        # interpolation backward send their sources into n_points rows,
+        # which K56a ranks in windows of 8192 past 8192
         npoints = tuple(max(n_points // (4 ** k), 1) for k in range(4))
         self.encoder1 = HRNet(hr_cfg, 3, dtype)
         # the MLPs run in the compute dtype; FPS, ball query and three-NN

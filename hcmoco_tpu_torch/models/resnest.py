@@ -36,6 +36,19 @@ from .hrnet import conv_bn, stat_dtype
 from .resnet import _bn, _max_pool, _pool
 
 
+def _avd_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """The avd position's 3x3 average pool, padding 1, the padded zeros
+    counted (JAX's avg_pool).  On a CUDA tensor in channels_last,
+    PyTorch's gradient of this pool is wrong (ROADMAP.md Queue 3, F14: the
+    input gradient off by about its own magnitude in f32, bf16 and
+    float64, the forward right), so there it pools an NCHW copy and hands
+    back channels_last."""
+    if x.is_cuda and not x.is_contiguous():
+        y = F.avg_pool2d(x.contiguous(), 3, stride, 1)
+        return y.contiguous(memory_format=torch.channels_last)
+    return F.avg_pool2d(x, 3, stride, 1)
+
+
 def _conv(cin: int, cout: int, kernel: int = 1, stride: int = 1,
           groups: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups,
@@ -114,7 +127,7 @@ class ResNeStBottleneck(nn.Module):
         out = conv_bn(self.conv1, self.bn1, x, True, d)
         if self.use_avd:
             # the stride moves into a 3x3 average pool before the conv
-            out = F.avg_pool2d(out, 3, self.stride, 1)
+            out = _avd_pool(out, self.stride)
         out = self.conv2(out)
         out = conv_bn(self.conv3, self.bn3, out, False, d)
         res = x

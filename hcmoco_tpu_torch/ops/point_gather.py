@@ -42,7 +42,6 @@ from . import _points
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CSR_TILE = 8192  # sources a K56a block ranks (csrc/point_gather.cu kTile)
-MAX_DEST = 8192  # its 16-bit histograms live in shared memory (kMaxDest)
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -110,13 +109,14 @@ def segment_rows_sum_plain(rows: torch.Tensor, start: torch.Tensor,
 
 
 def dest_csr_cuda(idx: torch.Tensor, n_dest: int):
-    """Launch K56a on idx (B, R) int32 in [0, n_dest); returns (start, src)
-    as `dest_csr_plain` does, bit for bit; counts in
-    `dest_csr_cuda.launches`."""
+    """Launch K56a on idx (B, R) int32 in [0, n_dest), any n_dest >= 1;
+    returns (start, src) as `dest_csr_plain` does, bit for bit; counts in
+    `dest_csr_cuda.launches`.  Its scratch holds B * ceil(R / 8192) *
+    n_dest int32 tile counts."""
     _points.check_cuda("dest_csr_cuda", [("idx", idx, (torch.int32,))])
-    if idx.dim() != 2 or not 0 < n_dest <= MAX_DEST:
+    if idx.dim() != 2 or n_dest < 1:
         raise ValueError(f"dest_csr_cuda: idx {tuple(idx.shape)} must be "
-                         f"(B, R) and n_dest {n_dest} in [1, {MAX_DEST}]")
+                         f"(B, R) and n_dest {n_dest} at least 1")
     b, r = idx.shape
     start = torch.empty((b, n_dest + 1), dtype=torch.int32, device=idx.device)
     src = torch.empty((b, r), dtype=torch.int32, device=idx.device)

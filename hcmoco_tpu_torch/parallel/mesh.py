@@ -5,7 +5,8 @@ The JAX package runs one global-batch program over a ('data', 'model')
 mesh: the batch is sharded over 'data', parameters and memory banks are
 replicated, BN statistics are those of the global batch, and the gradient
 is that of the global-mean loss.  The port runs one process a rank (one
-card each, launched by torchrun) and holds each rank to the same global
+card each, launched by torchrun or by a SLURM job step's `srun`,
+`cluster_env`) and holds each rank to the same global
 step: rank r holds rows of the global batch (`shard_rows`), and the few
 places that see the batch as a whole go through the collectives here:
 
@@ -56,30 +57,91 @@ def _counted():
         STATS["seconds"] += time.perf_counter() - t0
 
 
+# torchrun's rendezvous variables, and a SLURM job step's that
+# jax.distributed.initialize() reads (jax/_src/clusters/slurm_cluster.py)
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_PORT")
+SLURM_ENV = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+             "SLURM_PROCID", "SLURM_LOCALID")
+
+# where init_distributed joined (launcher, rank, world, local_rank,
+# address); empty once the group is left
+JOINED: Dict = {}
+
+
+def slurm_first_host(node_list: str) -> str:
+    """The first host of a SLURM node list, as JAX's SlurmCluster reads
+    it: 'node001', 'node001,host2', 'node[001-0015],host2' and
+    'node[001,007-015],host2' all give 'node001'."""
+    cut = next((i for i, ch in enumerate(node_list) if ch in ",["),
+               len(node_list))
+    if cut == len(node_list) or node_list[cut] == ",":
+        return node_list[:cut]
+    rest = node_list[cut + 1:]
+    end = next((i for i, ch in enumerate(rest) if ch in ",-]"), len(rest))
+    return node_list[:cut] + rest[:end]
+
+
+def cluster_env() -> Optional[Dict]:
+    """Where this process joins, from the environment: torchrun's where
+    RANK, WORLD_SIZE and MASTER_PORT are set; else a
+    SLURM job step's where all of SLURM_ENV are: rank SLURM_PROCID of
+    SLURM_NTASKS, local rank SLURM_LOCALID, the first host of
+    SLURM_STEP_NODELIST at MASTER_PORT, or at SLURM_JOB_ID % 4096 + 61440
+    as jax.distributed.initialize() takes it.  -> {launcher, rank, world,
+    local_rank, addr, port}, or None with neither."""
+    env = os.environ
+    if all(k in env for k in TORCHRUN_ENV):
+        return dict(launcher="torchrun", rank=int(env["RANK"]),
+                    world=int(env["WORLD_SIZE"]),
+                    local_rank=int(env.get("LOCAL_RANK", "0")),
+                    addr=env.get("MASTER_ADDR", "localhost"),
+                    port=int(env["MASTER_PORT"]))
+    if all(k in env for k in SLURM_ENV):
+        port = env.get("MASTER_PORT") or (int(env["SLURM_JOB_ID"]) % 4096
+                                          + 61440)
+        return dict(launcher="slurm", rank=int(env["SLURM_PROCID"]),
+                    world=int(env["SLURM_NTASKS"]),
+                    local_rank=int(env["SLURM_LOCALID"]),
+                    addr=slurm_first_host(env["SLURM_STEP_NODELIST"]),
+                    port=int(port))
+    return None
+
+
 def init_distributed(backend: Optional[str] = None,
                      timeout_s: float = DEFAULT_TIMEOUT_S,
                      device: Optional[str] = None) -> Tuple[int, int]:
-    """Join the process group that torchrun describes in the environment
-    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): the
-    counterpart of jax.distributed.initialize().
+    """Join the process group that torchrun's or a SLURM job step's
+    environment describes (`cluster_env`): the counterpart of
+    jax.distributed.initialize().
 
     backend: 'nccl' or 'gloo'; None takes NCCL on the card and gloo on the
     CPU (`device` 'cpu').  On the card the current device becomes
-    cuda:LOCAL_RANK.  Returns (rank, world size)."""
-    rank = int(os.environ["RANK"])
-    size = int(os.environ["WORLD_SIZE"])
-    local = int(os.environ.get("LOCAL_RANK", "0"))
+    cuda:<local rank>, or cuda:0 where the launcher shows each task one
+    card.  Records where it joined in JOINED.  Returns (rank, world
+    size)."""
+    where = cluster_env()
+    if where is None:
+        raise RuntimeError(
+            "no process group to join: neither torchrun's environment ("
+            f"{', '.join(TORCHRUN_ENV)}) nor a SLURM job step's "
+            f"({', '.join(SLURM_ENV)}) is set; launch with torchrun "
+            "(--nnodes/--rdzv_endpoint across hosts) or with srun")
+    rank, size, local = where["rank"], where["world"], where["local_rank"]
     on_cpu = device is not None and torch.device(device).type == "cpu"
     if backend is None:
         backend = "gloo" if on_cpu else "nccl"
     if not on_cpu:
-        torch.cuda.set_device(local)
+        torch.cuda.set_device(local if torch.cuda.device_count() > 1
+                              else 0)
     if not dist.is_initialized():
-        addr = os.environ.get("MASTER_ADDR", "localhost")
-        port = os.environ["MASTER_PORT"]
         dist.init_process_group(
-            backend, init_method=f"tcp://{addr}:{port}", rank=rank,
-            world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
+            backend, init_method=f"tcp://{where['addr']}:{where['port']}",
+            rank=rank, world_size=size,
+            timeout=datetime.timedelta(seconds=timeout_s))
+    JOINED.clear()
+    JOINED.update(launcher=where["launcher"], rank=rank, world=size,
+                  local_rank=local,
+                  address=f"{where['addr']}:{where['port']}")
     return rank, size
 
 
@@ -94,9 +156,26 @@ def world_size() -> int:
     return world()[1]
 
 
+def slurm_tasks_on_node(tasks_per_node: str, node: int) -> int:
+    """Node `node`'s entry of SLURM_STEP_TASKS_PER_NODE: '4(x2)' is 4 on
+    each of two nodes, '2,1' 2 on the first and 1 on the second."""
+    counts = []
+    for part in tasks_per_node.split(","):
+        n, _, rep = part.partition("(x")
+        counts += [int(n)] * (int(rep.rstrip(")")) if rep else 1)
+    return counts[min(node, len(counts) - 1)]
+
+
 def local_world_size() -> int:
-    """The ranks on this host (torchrun's LOCAL_WORLD_SIZE), 1 without."""
-    return int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    """The ranks on this host: torchrun's LOCAL_WORLD_SIZE, else this
+    node's entry (SLURM_NODEID) of a SLURM step's
+    SLURM_STEP_TASKS_PER_NODE; 1 without either."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    if "SLURM_STEP_TASKS_PER_NODE" in os.environ:
+        return slurm_tasks_on_node(os.environ["SLURM_STEP_TASKS_PER_NODE"],
+                                   int(os.environ.get("SLURM_NODEID", "0")))
+    return 1
 
 
 def shard_positions(batch_size: int, rank: int, size: int,
@@ -268,3 +347,11 @@ def destroy() -> None:
     """Leave the process group, if one was joined."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    JOINED.clear()
+
+
+def leave() -> None:
+    """Leave the process group if init_distributed joined one: the entry
+    points' teardown, whichever launcher started them."""
+    if JOINED:
+        destroy()

@@ -9,8 +9,9 @@ bound and d2 in f32 torch ops in the kernel's order
 (`ball_query.tile_bounds`, `_points.sq_dists`), and a scan that skips
 tiles as the kernel does returns `ball_query_plain`'s indices.
 
-`build_model` refuses on the card a cloud larger than the destinations
-K56a ranks, and names the limit; the CPU path takes any size.
+`build_model` takes any cloud size, on the card as on the CPU: K56a
+(csrc/point_gather.cu) ranks any number of destinations, so nothing is
+refused before the device check.
 """
 
 import numpy as np
@@ -20,10 +21,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from hcmoco_tpu_torch.core.config import TrainConfig, resolve_config
-from hcmoco_tpu_torch.models.build import build_model, check_card_limits
+from hcmoco_tpu_torch.models.build import build_model
 from hcmoco_tpu_torch.ops import ball_query as bq
 from hcmoco_tpu_torch.ops._points import sq_dists
-from hcmoco_tpu_torch.ops.point_gather import MAX_DEST
 
 _F32 = np.float32
 
@@ -142,16 +142,19 @@ def _pn_cfg(points: int) -> TrainConfig:
                                       width=4, pn_num_points=points))
 
 
-def test_build_model_refuses_k56a_limit_on_card():
-    cfg = _pn_cfg(MAX_DEST + 1)
-    for call in (lambda: check_card_limits(cfg, "cuda"),
-                 lambda: build_model(cfg, device="cuda")):
-        with pytest.raises(ValueError, match=f"K56a.*{MAX_DEST}"):
-            call()
-    check_card_limits(_pn_cfg(MAX_DEST), "cuda")  # at the limit: taken
+def test_build_model_refuses_k56a_limit_on_card(monkeypatch):
+    """Past K56a's former 8192-destination limit, build_model on the card
+    refuses nothing before its device check: without a card it raises
+    only that no CUDA device is available (with one, it builds:
+    chip_smoke.py::check_build_wide)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for points in (8193, 16384):
+        with pytest.raises(RuntimeError,
+                           match="no CUDA device is available"):
+            build_model(_pn_cfg(points), device="cuda")
 
 
 def test_build_model_takes_large_cloud_on_cpu():
-    model = build_model(_pn_cfg(MAX_DEST + 1), device="cpu")
-    assert model.n_points == MAX_DEST + 1
-    assert model.encoder2.SA_modules[0].npoint == MAX_DEST + 1
+    model = build_model(_pn_cfg(8193), device="cpu")
+    assert model.n_points == 8193
+    assert model.encoder2.SA_modules[0].npoint == 8193

@@ -35,6 +35,7 @@ from hcmoco_tpu_torch.core import config
 from hcmoco_tpu_torch.data.fixtures import (make_image_folder_fixture,
                                             make_mpii_fixture,
                                             make_ntu_fixture)
+from hcmoco_tpu_torch.parallel import mesh
 from hcmoco_tpu_torch.train.checkpoint import CheckpointManager
 from hcmoco_tpu_torch.train.contrast_step import STAGE2_METRICS
 from hcmoco_tpu_torch.utils.meters import MetricLogger
@@ -71,13 +72,19 @@ def test_config_from_args_matches_jax(recipe, overrides):
     assert got.model_name == want.model_name
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--multihost"], "item 10"),
-    (["--supervise_type", "1"], "item 12"),
-    (["--n_class", "3"], "item 12"),
+@pytest.mark.parametrize("argv,exc,match", [
+    # --multihost with neither torchrun's nor a SLURM step's environment
+    pytest.param(["--multihost"], RuntimeError, "torchrun.*SLURM.*srun",
+                 id="argv0-item 10"),
+    pytest.param(["--supervise_type", "1"], NotImplementedError, "item 12",
+                 id="argv1-item 12"),
+    pytest.param(["--n_class", "3"], NotImplementedError, "item 12",
+                 id="argv2-item 12"),
 ])
-def test_unported_flags_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise(argv, exc, match, monkeypatch):
+    for k in mesh.TORCHRUN_ENV + mesh.SLURM_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(exc, match=match):
         cli.main(["--synthetic", "8", "--device", "cpu"] + argv)
 
 

@@ -9,7 +9,9 @@
   (NTUSegJoint), and a pack (through NTUMPIIGCN and through the slot
   writer).
 * The CLIs under torchrun's environment on two gloo ranks (`--multihost
-  --device cpu`): a 2-step pre-training run writes one checkpoint (rank
+  --device cpu`), and the pre-training CLI under a SLURM job step's
+  (the same states, checkpoint and metrics as under torchrun, bit for
+  bit): a 2-step pre-training run writes one checkpoint (rank
   0), its ranks end equal bit for bit; resuming it on two ranks and in
   one process (BN with the ranks' variance formula,
   torch_dp_common.ranks_formula) restores the saved state bit for
@@ -266,6 +268,44 @@ def test_multihost_cli_checkpoint_and_resume(cli_runs):
         if v.is_floating_point():
             np.testing.assert_allclose(v.numpy(), end["model"][k].numpy(),
                                        rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_multihost_cli_under_slurm(cli_runs, tmp_path):
+    """The same 2-step pre-training run on two ranks launched with a
+    SLURM job step's variables and none of torchrun's: each joins as
+    rank SLURM_PROCID of SLURM_NTASKS at the node list's first host and
+    SLURM_JOB_ID's port, and the run ends where the torchrun run did:
+    the same states, checkpoint and metrics, bit for bit."""
+    save = str(tmp_path / "save")
+    argv = [a if a != cli_runs["save"] else save for a in cli_runs["argv"]]
+    ranks = run_ranks(None, str(tmp_path), clis=[
+        ("contrast", argv + ["--epochs", "1", "--max_steps", "2"])],
+        launcher="slurm")
+    runs = [r[0] for r in ranks]
+    for r, run in enumerate(runs):
+        joined = run["joined"]
+        assert (joined["launcher"], joined["rank"], joined["world"]) == (
+            "slurm", r, 2)
+        assert joined["address"].startswith("localhost:")
+        assert int(joined["address"].split(":")[1]) >= 61440
+    assert runs[0]["joined"]["address"] == runs[1]["joined"]["address"]
+    torchrun = cli_runs["contrast"][0]
+    for run in runs:
+        assert run["steps"] == 2
+        _states_equal(run["ready"], torchrun["ready"])
+        _states_equal(run["end"], torchrun["end"])
+    files = []
+    for root in (save, cli_runs["save"]):
+        (run_dir,) = os.listdir(root)
+        run_dir = os.path.join(root, run_dir)
+        ckpt = torch.load(os.path.join(run_dir, "epoch_1.pt"),
+                          weights_only=True)
+        with open(os.path.join(run_dir, "metrics.tsv")) as f:
+            epoch1 = f.read().splitlines()[:2]  # header and epoch 1
+        files.append(({"model": ckpt["model"], "banks": ckpt["banks"],
+                       "step": ckpt["step"]}, epoch1))
+    _states_equal(files[0][0], files[1][0])
+    assert files[0][1] == files[1][1]
 
 
 def test_multihost_segmentor_cli(cli_runs):

@@ -33,6 +33,7 @@ from hcmoco_tpu_torch.data.pipeline import DataSource
 from hcmoco_tpu_torch.downstream.a2j import data as a2j_data
 from hcmoco_tpu_torch.downstream.seg.datasets import ParsingDataset
 from hcmoco_tpu_torch.downstream.seg import train as seg_train
+from hcmoco_tpu_torch.parallel import mesh
 from hcmoco_tpu_torch.parallel.mesh import shard_positions
 
 from torch_dp_common import ranks_formula, ranks_running
@@ -158,6 +159,10 @@ def test_trainer_on_two_ranks_is_one_process(trainer_runs, name):
     assert n_out <= 1e-3 * max(n_all, 1), (n_out, n_all)
 
 
-def test_multihost_without_torchrun_raises():
-    with pytest.raises(NotImplementedError, match="torchrun"):
+def test_multihost_without_torchrun_raises(monkeypatch):
+    """With neither torchrun's nor a SLURM job step's environment,
+    --multihost raises and names both launchers."""
+    for k in mesh.TORCHRUN_ENV + mesh.SLURM_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun.*SLURM.*srun"):
         seg_train.main(SEG + ["--multihost"])

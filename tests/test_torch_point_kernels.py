@@ -287,18 +287,24 @@ def test_point_gather_kernels_match_plain_on_card(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["random", "empty_buckets", "zero_cloud",
-                                  "ragged_tile"])
+                                  "ragged_tile", "windows_8193",
+                                  "windows_65537", "windows_zero_cloud"])
 def test_dest_csr_kernel_matches_plain_on_card(case):
-    """K56a against `dest_csr_plain`: start and src equal."""
+    """K56a against `dest_csr_plain`: start and src equal; past 8192
+    destinations (windows_*) each tile is ranked by one block a window of
+    8192 destinations."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(2)
     b, r, n = {"random": (4, 32768, 1024), "empty_buckets": (3, 5000, 4096),
                "zero_cloud": (2, 131072, 4096),
-               "ragged_tile": (3, 3 * 4096 + 37, 1024)}[case]
+               "ragged_tile": (3, 3 * 4096 + 37, 1024),
+               "windows_8193": (3, 8193 * 4 + 11, 8193),
+               "windows_65537": (2, 200000, 65537),
+               "windows_zero_cloud": (2, 16384 * 32, 16384)}[case]
     hi = n // 3 if case == "empty_buckets" else n
     idx = torch.randint(0, hi, (b, r), generator=g, device="cuda",
                         dtype=torch.int32)
-    if case == "zero_cloud":  # K5 at sa0: every center's slots 0..31
+    if case.endswith("zero_cloud"):  # K5 at sa0: every center's slots 0..31
         idx[-1] = torch.arange(r, device="cuda", dtype=torch.int32) % 32
     start, src = pg.dest_csr_cuda(idx, n)
     pstart, psrc = pg.dest_csr_plain(idx.cpu(), n)

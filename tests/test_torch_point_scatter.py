@@ -155,6 +155,59 @@ def test_segment_sum_matches_jax_gradients():
             <= 1e-5 * scale + 1e-5).all()
 
 
+@pytest.mark.parametrize("kind", ["K5", "K6"])
+@pytest.mark.parametrize("n_dest", [8193, 16384, 65537])
+def test_plain_backwards_past_8192_destinations(n_dest, kind):
+    """Past K56a's former 8192-destination limit (HRNetPN above 8192
+    points): `dest_csr_plain` lists each destination's sources in
+    ascending order, `segment_rows_sum_plain` over it equals the plain
+    backward bit for bit, and both agree with the gradient of the JAX
+    package's XLA gather.  Two samples: random indices (the last 8 rows
+    get none) and a zero cloud's (K5: every center's slots 0..S-1; K6:
+    every pixel's rows 0, 1 and 2)."""
+    rng = np.random.default_rng(n_dest)
+    b, c = 2, 2
+    if kind == "K5":
+        m, s = 512, 32
+        idx = _gidx(rng, b, m, s, n_dest)
+        cot = _rows(rng, (b, m, s, c), torch.float32)
+        plain = pg.group_rows_bwd_plain(cot, idx, n_dest)
+        rows, w = cot.reshape(b, -1, c), None
+        table = rng.standard_normal((b, n_dest, c)).astype(np.float32)
+        want = jax.grad(lambda t: jnp.sum(jax_ops.group_points(
+            t, jnp.asarray(idx.numpy())) * cot.numpy()))(jnp.asarray(table))
+        scale = pg.group_rows_bwd_plain(cot.abs(), idx, n_dest)
+    else:
+        n = 1024
+        idx = torch.from_numpy(rng.integers(0, n_dest - 8, (b, n, 3)).astype(
+            np.int32))
+        idx[-1] = torch.arange(3, dtype=torch.int32)
+        w = torch.from_numpy(rng.random((b, n, 3)).astype(np.float32) + 1e-3)
+        w = w / w.sum(-1, keepdim=True)
+        cot = _rows(rng, (b, n, c), torch.float32)
+        plain = pg.interpolate_rows_bwd_plain(cot, idx, w, n_dest)
+        rows = cot
+        feats = rng.standard_normal((b, n_dest, c)).astype(np.float32)
+        want = jax.grad(lambda f: jnp.sum(jax_ops.three_interpolate(
+            f, jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()))
+            * cot.numpy()))(jnp.asarray(feats))
+        scale = pg.interpolate_rows_bwd_plain(cot.abs(), idx, w, n_dest)
+    flat = idx.reshape(b, -1)
+    start, src = pg.dest_csr_plain(flat, n_dest)
+    r = flat.shape[1]
+    for i in range(b):
+        counts = torch.bincount(flat[i].long(), minlength=n_dest)
+        assert torch.equal(start[i, 1:] - start[i, :-1], counts.int())
+        # sorted by (destination, position): each bucket ascending
+        key = flat[i].long()[src[i].long()] * r + src[i].long()
+        assert bool((key[1:] > key[:-1]).all())
+    got = pg.segment_rows_sum_plain(rows, start, src, n_dest, w)
+    assert torch.equal(got, plain)
+    assert not got[0, n_dest - 8:].any()
+    assert (np.abs(got.numpy() - np.asarray(want))
+            <= 1e-5 * scale.numpy() + 1e-5).all()
+
+
 _IDX = torch.zeros((2, 12), dtype=torch.int32)
 _ROWS = torch.zeros((2, 4, 8))
 _START = torch.zeros((2, 9), dtype=torch.int32)

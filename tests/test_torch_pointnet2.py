@@ -172,9 +172,21 @@ def test_sa_module_matches_jax(level):
     """SA0's shape (xyz only, npoint == N: the identity shortcut) and SA1's
     (features, FPS centers sorted ascending), radii and MLPs of the
     encoder's first two levels."""
+    _check_sa_module(level, 3, 128)
+
+
+def test_sa0_module_past_8192_points_matches_jax():
+    """SA0 on one cloud of 9000 points: its grouping's backward sends
+    9000 x 32 sources into 9000 rows, past K56a's former 8192-destination
+    limit (on the card; here the plain versions)."""
+    _check_sa_module(0, 1, 9000, zero_cloud=False)
+
+
+def _check_sa_module(level, b, n, zero_cloud=True):
     rng = np.random.default_rng(1)
-    b, n = 3, 128
     xyz = _cloud(rng, b, n)
+    if not zero_cloud:
+        xyz = ((rng.random((b, n, 3)) - 0.5) * 0.3).astype(np.float32)
     npoint = n if level == 0 else n // 4
     cin = 0 if level == 0 else 32
     feats = rng.standard_normal((b, n, cin)) if cin else None
@@ -215,7 +227,7 @@ def test_sa_module_matches_jax(level):
     nx, out = m(_t(xyz), ft)
     (out * _t(cot)).sum().backward()
     np.testing.assert_array_equal(nx.numpy(), jnx)
-    assert not nx[-1].any()  # the zero cloud's centers
+    assert not zero_cloud or not nx[-1].any()  # the zero cloud's centers
     close(out.detach(), jout)
     if ft is not None:
         close(ft.grad, jgf)

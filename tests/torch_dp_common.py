@@ -4,9 +4,13 @@ Each rank is a fresh `python tests/torch_dp_worker.py` (torch and the
 port only), joined over localhost; the process group has a 100 s timeout
 and the test waits at most `timeout` seconds for its ranks, killing them
 on expiry, so a stuck collective fails the test instead of hanging it.
+The ranks get torchrun's environment, or with launcher 'slurm' a SLURM
+job step's and none of torchrun's (the port then derives from
+SLURM_JOB_ID, as jax.distributed.initialize() does).
 """
 
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -43,28 +47,56 @@ def free_port() -> int:
     return port
 
 
+# SLURM's coordinator port: 61440 + SLURM_JOB_ID % 4096
+SLURM_PORT0 = 61440
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT")
+
+
+def free_slurm_port() -> int:
+    """A free localhost port that a SLURM job id maps to."""
+    for port in random.sample(range(SLURM_PORT0, 65536), 65536 - SLURM_PORT0):
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port in SLURM's range")
+
+
 class _Ranks:
     """The worker processes of one run_ranks call."""
 
-    def __init__(self, spec, tmp_dir, world, timeout, clis):
+    def __init__(self, spec, tmp_dir, world, timeout, clis, launcher):
+        pick = free_slurm_port if launcher == "slurm" else free_port
         spec_path = os.path.join(tmp_dir, "spec.pt")
         if clis is None:
             torch.save(spec, spec_path)
         else:  # one port a run: each CLI joins and leaves its own group
             ports = set()
             while len(ports) < len(clis):
-                ports.add(free_port())
+                ports.add(pick())
             torch.save([(which, list(argv), port) for (which, argv), port
                         in zip(clis, sorted(ports))], spec_path)
-        port = free_port()
+        port = pick()
         self.tmp_dir, self.procs, self.outs = tmp_dir, [], []
         for r in range(world):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                       LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                       OMP_NUM_THREADS="1",
+            env = dict(os.environ, OMP_NUM_THREADS="1",
                        PYTHONPATH=ROOT + os.pathsep
                        + os.environ.get("PYTHONPATH", ""))
+            if launcher == "slurm":
+                for k in TORCHRUN_VARS:
+                    env.pop(k, None)
+                env.update(SLURM_JOB_ID=str(port - SLURM_PORT0),
+                           SLURM_STEP_NODELIST="localhost",
+                           SLURM_NTASKS=str(world), SLURM_PROCID=str(r),
+                           SLURM_LOCALID=str(r), SLURM_NODEID="0",
+                           SLURM_STEP_TASKS_PER_NODE=str(world))
+            else:
+                env.update(RANK=str(r), WORLD_SIZE=str(world),
+                           LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world),
+                           MASTER_ADDR="localhost", MASTER_PORT=str(port))
             out = os.path.join(tmp_dir, f"rank{r}.pt")
             self.outs.append(out)
             cmd = ([sys.executable, WORKER]
@@ -100,14 +132,16 @@ class _Ranks:
 
 @contextmanager
 def ranks_running(spec, tmp_dir, world: int = 2, timeout: float = 120.0,
-                  clis=None):
+                  clis=None, launcher: str = "torchrun"):
     """Start `world` ranks of the worker on `spec` (a list of cases, see
     torch_dp_worker.run_case) and yield a function that waits for them
     and returns their results, rank order; the caller may work meanwhile.
     clis: a list of (which, argv): run those CLIs in turn instead (spec
     unused, see torch_dp_worker.run_clis); a rank's result is then the
-    list of their snapshots.  Ranks still running on exit are killed."""
-    ranks = _Ranks(spec, tmp_dir, world, timeout, clis)
+    list of their snapshots.  launcher: 'torchrun' or 'slurm', whose
+    environment the ranks get.  Ranks still running on exit are
+    killed."""
+    ranks = _Ranks(spec, tmp_dir, world, timeout, clis, launcher)
     try:
         yield ranks.results
     finally:
@@ -115,7 +149,8 @@ def ranks_running(spec, tmp_dir, world: int = 2, timeout: float = 120.0,
 
 
 def run_ranks(spec, tmp_dir, world: int = 2, timeout: float = 120.0,
-              clis=None):
+              clis=None, launcher: str = "torchrun"):
     """ranks_running's results, waited for at once."""
-    with ranks_running(spec, tmp_dir, world, timeout, clis) as results:
+    with ranks_running(spec, tmp_dir, world, timeout, clis,
+                       launcher) as results:
         return results()

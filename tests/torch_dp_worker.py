@@ -15,9 +15,10 @@ process group, for the one-process run.
 runs, in turn, each (which, argv, port) of SPEC instead:
 cli/main_contrast.py's main (`contrast`; main_segmentor's with
 `segmentor`, a downstream trainer's with `seg` or `a2j`) on argv, which
-joins a group at that MASTER_PORT and leaves it, and saves the list of
-this rank's states as each main() restored it (before the first step)
-and as it ended.
+joins a group at that MASTER_PORT (under a SLURM job step's variables:
+at the SLURM_JOB_ID that maps to that port) and leaves it, and saves the
+list of this rank's states as each main() restored it (before the first
+step) and as it ended, and where it joined.
 """
 
 import os
@@ -42,7 +43,7 @@ from hcmoco_tpu_torch.train.contrast_step import (  # noqa: E402
 from hcmoco_tpu_torch.train.segment_step import (  # noqa: E402
     make_segment_train_step)
 from hcmoco_tpu_torch.train.state import create_train_state  # noqa: E402
-from torch_dp_common import ranks_formula  # noqa: E402
+from torch_dp_common import SLURM_PORT0, ranks_formula  # noqa: E402
 
 
 def _load_params(module, sd):
@@ -226,7 +227,7 @@ def run_cli(which: str, argv: list) -> dict:
         from hcmoco_tpu_torch.cli.main_contrast import main as cli_main
     seen = {}
     result = cli_main(argv, on_ready=lambda st: seen.update(
-        ready=_snapshot(st)))
+        ready=_snapshot(st), joined=dict(mesh.JOINED)))
     seen["end"] = _snapshot(result.state)
     seen["steps"] = len(result.step_s)
     return seen
@@ -238,7 +239,10 @@ def run_clis(spec_path: str, out_path: str) -> None:
     torch.set_num_threads(1)
     out = []
     for which, argv, port in torch.load(spec_path, weights_only=False):
-        os.environ["MASTER_PORT"] = str(port)
+        if "RANK" in os.environ:
+            os.environ["MASTER_PORT"] = str(port)
+        else:  # a SLURM job step: the port follows from the job id
+            os.environ["SLURM_JOB_ID"] = str(port - SLURM_PORT0)
         out.append(run_cli(which, argv))
     torch.save(out, out_path)
 
