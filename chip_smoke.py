@@ -10,6 +10,15 @@ shapes, and drives the train steps the port has through its entry points:
     320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
     steps under torch.profiler (device ms per kernel class); K56a past
     8192 destinations, and both stages at 16384 points bs32;
+  * recomputation in the backward (remat_phase, train/remat.py):
+    HRNet-W18 stage 1 at bs32 fused without it, with remat_policy
+    'conv_out' and with 'dots', and stage 2 with 'conv_out', each run
+    equal bit for bit to the run without (deterministic algorithms), with
+    its peak memory, host and device ms, K1/K1b launches and convolutions
+    a step; stage 1 at the recipes' global batch of 224 on one card with
+    'conv_out' and without; HRNetPN at 4096 points bs64 with pn_remat off
+    and on (K5's forward once more at each scale of SA levels 0-1), and
+    at 16384 points bs64 with it.  Its launches add to the kernels';
   * stage 2 of both, and then the pre-training CLI (cli/main_contrast.py)
     in process from a tree of Kinect-size frames written from a seed:
     stage-1 HRNet bs32 fused for an epoch, its resume, stage 2 grafted
@@ -44,9 +53,10 @@ shapes, and drives the train steps the port has through its entry points:
     one card over gloo (`chip_smoke.py --dp-rank`, NCCL refusing two
     ranks on one device) against one process: HRNet-W18 stage 1 at
     320^2 bs32 fused (K1 and K1b on each rank's rows, K1's sums
-    all-reduced), stage 2 and HRNetPN (K2-K6) at bs16 in f32; the ranks
-    equal bit for bit after every step, the collectives a step and their
-    host time.  Both ranks' launches add to the kernels';
+    all-reduced), the same with remat (no more collectives a step),
+    stage 2 and HRNetPN (K2-K6) at bs16 in f32; the ranks equal bit for
+    bit after every step, the collectives a step and their host time.
+    Both ranks' launches add to the kernels';
   * the baseline methods (ResNet encoders; no kernel of the port lies on
     their path, and the phase checks that it launches none): one float64
     step each of InsDis, PIRL, CMC (dual and the shared trunk), MoCo and
@@ -1843,6 +1853,360 @@ def drive_stage2(card: str, arch: str, n_points: int = 4096,
     return launches
 
 
+# ---- recomputation in the backward (TrainConfig.remat, pn_remat) ---------
+
+# train/remat.py: the HRNet step's model forward under remat_policy
+# 'conv_out' (every conv output saved, K1's y and sums too) or 'dots' (the
+# 2-D matmuls alone), and HRNetPN's SA levels 0-1 under pn_remat.  Steps
+# of each run from one state and batch, under cuDNN's and torch's
+# deterministic algorithms, held to the run without recomputation
+REMAT_STEPS = 2
+# the first-stage recipes' global batch, on one card
+REMAT_BIG_BATCH = 224
+REMAT_BIG_STEPS = 3
+# where two runs without recomputation part, a recomputed run may part
+# from them by this much of each tensor's largest magnitude
+REMAT_RTOL = 1e-6
+
+
+def remat_parts(state) -> dict:
+    """What a step writes: parameters, their gradients, BN running
+    statistics and num_batches_tracked, banks (clones, on the card)."""
+    model = state.model
+    out = {f"param {k}": p.detach().clone()
+           for k, p in model.named_parameters()}
+    out.update({f"grad {k}": p.grad.detach().clone()
+                for k, p in model.named_parameters() if p.grad is not None})
+    out.update({f"buffer {k}": b.detach().clone()
+                for k, b in model.named_buffers()})
+    out["banks"] = state.banks.detach().clone()
+    return out
+
+
+def remat_gap(a: dict, b: dict) -> tuple:
+    """(largest difference relative to the tensor's largest magnitude,
+    its name) between two remat_parts + metrics results; (0, '') when
+    they are equal bit for bit."""
+    if a["parts"].keys() != b["parts"].keys():
+        raise AssertionError("the runs wrote different tensors")
+    worst, where = 0.0, ""
+    for k, t in a["parts"].items():
+        u = b["parts"][k]
+        if torch.equal(t, u):
+            continue
+        d = float((t.double() - u.double()).abs().max()
+                  / max(float(t.double().abs().max()), 1e-30))
+        if d >= worst:
+            worst, where = max(d, 1e-300), k
+    for s, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
+        for k, v in ma.items():
+            if mb[k] != v:
+                d = abs(mb[k] - v) / max(abs(v), 1e-30)
+                if d >= worst:
+                    worst, where = max(d, 1e-300), f"step {s} {k}"
+    return worst, where
+
+
+def conv_rows(prof) -> dict:
+    """Forward and backward convolutions in a profiled run, from its CPU
+    op rows."""
+    from torch.autograd import DeviceType
+
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CPU]
+    return {"fwd": names.count("aten::convolution"),
+            "bwd": names.count("aten::convolution_backward")}
+
+
+def fresh_state(cfg):
+    """build_model and create_train_state of cfg on the card from fixed
+    seeds: every call gives the same weights and banks."""
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.train.state import create_train_state
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    model = build_model(cfg).to(memory_format=torch.channels_last)
+    return create_train_state(cfg, model, torch.Generator(dev).manual_seed(0),
+                              n_data=N_DATA, steps_per_epoch=100)
+
+
+def remat_run(card: str, label: str, cfg, batch, wrappers: dict,
+              steps: int = REMAT_STEPS) -> dict:
+    """`steps` steps of cfg's train step from fresh_state(cfg) on `batch`
+    under deterministic algorithms (the generators seeded alike in every
+    run), then two timed steps and one profiled step with them off.
+    Returns the metrics and remat_parts after the deterministic steps,
+    the wrappers' launches over all the steps, their count, the peak
+    memory and the median host ms of the timed steps, the device ms and
+    convolutions of the profiled step, and the ops that torch warned
+    have no deterministic implementation."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+
+    dev = torch.device("cuda")
+    st = fresh_state(cfg)
+    step = make_contrast_train_step(cfg, st.model, steps_per_epoch=100)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    k1 = k1_wrappers()["mm_bn_stats"]
+    k1.generic_launches = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    metrics = []
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for i in range(steps):
+                m = step(st, batch, torch.Generator(dev).manual_seed(10 + i))
+                metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+    for s, mm in enumerate(metrics):
+        if not all(np.isfinite(v) for v in mm.values()):
+            raise AssertionError(f"{label} step {s}: non-finite {mm}")
+    nondet = sorted({str(w.message).split(" ")[0] for w in seen
+                     if "deterministic implementation" in str(w.message)})
+    parts = remat_parts(st)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        step(st, batch, torch.Generator(dev).manual_seed(20 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(st, batch, torch.Generator(dev).manual_seed(30))
+        torch.cuda.synchronize()
+    device_ms = sum(us for _, us in device_rows(prof)) / 1e3
+    n = steps + 3
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if "mm_bn_stats" in launches:
+        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                    "mm_bn_stats generic": k1.generic_launches, **launches}
+    out = dict(metrics=metrics, parts=parts, launches=launches, steps=n,
+               peak=peak, host_ms=statistics.median(times) * 1e3,
+               device_ms=device_ms, convs=conv_rows(prof), nondet=nondet)
+    del st, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_case(card: str, label: str, cfg, variants: dict, batch,
+               wrappers: dict, expect: dict, rerun_convs: int = 0,
+               off_twice: bool = False) -> list:
+    """One batch, each of `variants` (name -> TrainConfig fields; 'off' is
+    no recomputation, run twice with `off_twice`) through remat_run;
+    every recomputed run is held to 'off': equal bit for bit unless two
+    'off' runs part, then within REMAT_RTOL, naming the ops torch found
+    no deterministic implementation of.  expect: name -> {wrapper: launches a
+    step}; under 'conv_out' the forward convolutions a step are those
+    without recomputation + `rerun_convs` (convs outside the ConvBN sites,
+    which the policy, as JAX's, does not keep), the backward's the same.
+    Prints each run's peak memory, host and device ms a step, launches a
+    step and convolutions a step; returns each run's launches (every step
+    of it)."""
+    runs = {}
+    for name in (["off"] + ["off again"] * off_twice
+                 + [v for v in variants if v != "off"]):
+        kw = variants.get(name, variants["off"])
+        runs[name] = remat_run(card, f"{label} {name}",
+                               dataclasses.replace(cfg, **kw), batch,
+                               wrappers)
+    floor, floor_at = (remat_gap(runs["off"], runs["off again"])
+                       if off_twice else (0.0, ""))
+    for name, r in runs.items():
+        per_step = {k: v / r["steps"] for k, v in r["launches"].items()}
+        want = expect.get(name.replace(" again", ""), {})
+        for k, v in want.items():
+            if per_step[k] != v:
+                raise AssertionError(f"{label} {name}: {k} launched "
+                                     f"{per_step[k]} times a step, expected "
+                                     f"{v}")
+        if name.startswith("off"):
+            verdict = ""
+        else:
+            gap, at = remat_gap(runs["off"], r)
+            if floor == 0.0 and gap != 0.0:
+                raise AssertionError(
+                    f"{label} {name}: parts from the run without "
+                    f"recomputation by {gap:.3g} at {at}, where two runs "
+                    "without it are equal bit for bit")
+            if gap > REMAT_RTOL:
+                raise AssertionError(
+                    f"{label} {name}: {gap:.3g} at {at} from the run "
+                    f"without recomputation, above {REMAT_RTOL}")
+            verdict = ("; loss, gradients, parameters, running statistics "
+                       "and banks equal bit for bit to 'off'" if gap == 0.0
+                       else f"; largest difference from 'off' {gap:.3g} "
+                       f"relative at {at} (two 'off' runs: {floor:.3g} at "
+                       f"{floor_at}; ops without a deterministic "
+                       f"implementation: {r['nondet']}), within "
+                       f"{REMAT_RTOL}")
+        print(f"remat {label} {name}: peak {r['peak']:.2f} GiB, host "
+              f"{r['host_ms']:.1f} ms and device {r['device_ms']:.1f} ms a "
+              f"step, convolutions a step {r['convs']['fwd']} forward "
+              f"{r['convs']['bwd']} backward (profiler rows), launches a "
+              f"step {per_step}; losses "
+              + ", ".join(f"{m['loss']:.6f}" for m in r["metrics"])
+              + verdict + f" [{card}]")
+    if floor:
+        print(f"remat {label}: two runs without recomputation part by "
+              f"{floor:.3g} at {floor_at}; ops without a deterministic "
+              f"implementation: {runs['off']['nondet']} [{card}]")
+    if not runs["off"]["convs"]["fwd"]:
+        raise AssertionError(f"{label}: the profiler saw no convolution")
+    off = runs["off"]["convs"]
+    for name, r in runs.items():
+        kw = variants.get(name, {})
+        if kw.get("remat") and kw.get("remat_policy",
+                                      "conv_out") == "conv_out" and \
+                r["convs"] != dict(off, fwd=off["fwd"] + rerun_convs):
+            raise AssertionError(f"{label} {name}: convolutions {r['convs']}"
+                                 f", without recomputation {off}, "
+                                 f"{rerun_convs} more expected")
+    launches = [r["launches"] for r in runs.values()]
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_big(card: str, cfg, batch, wrappers: dict, label: str) -> dict:
+    """REMAT_BIG_STEPS timed steps of a fresh state: median host ms of
+    the steps after the first, peak memory, the profile of one more step
+    (profile_steps); returns the wrappers' launches."""
+    from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
+
+    dev = torch.device("cuda")
+    state = fresh_state(cfg)
+    gen = torch.Generator(dev).manual_seed(0)
+    step = make_contrast_train_step(cfg, state.model, steps_per_epoch=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    k1 = k1_wrappers()["mm_bn_stats"]
+    k1.generic_launches = 0
+    steady, metrics = timed_steps(step, state, batch, gen, REMAT_BIG_STEPS,
+                                  label, card)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if "mm_bn_stats" in launches:
+        launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
+                    "mm_bn_stats generic": k1.generic_launches, **launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    device_ms, _ = profile_steps(card, step, state, batch, gen, steady, n=1)
+    print(f"remat {label}: {REMAT_BIG_STEPS} steps, median host "
+          f"{steady * 1e3:.1f} ms a step = {cfg.batch_size / steady:.2f} "
+          f"samples/s, device {device_ms:.1f} ms a step, peak "
+          f"{peak:.2f} GiB; losses "
+          + ", ".join(f"{m['loss']:.5f}" for m in metrics)
+          + f"; launches {launches} [{card}]")
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak=peak)
+
+
+def remat_phase(card: str) -> tuple:
+    """TrainConfig.remat (HRNet, both policies) and pn_remat (HRNetPN) on
+    the card: W18 320^2 stage 1 at bs32 fused without recomputation,
+    'conv_out' and 'dots', and stage 2 with 'conv_out', each held to the
+    run without (remat_case); stage 1 at the recipes' global batch of 224
+    with 'conv_out', and without if bs32's peak times 7 fits; HRNetPN at
+    4096 points bs64 with pn_remat off and on, held alike, and at 16384
+    points bs64 with it.  Returns the K1/K1b and the point kernels'
+    launches of every run."""
+    from hcmoco_tpu_torch.core.config import RECIPES
+    from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
+    from hcmoco_tpu_torch.models.build import build_model
+    from hcmoco_tpu_torch.models.hrnet import fused_sites
+
+    dev = torch.device("cuda")
+    k1w = k1_wrappers()
+    pnw = {name: fn for name, (fn, _) in point_wrappers().items()}
+    k1_runs, pn_runs = [], []
+    os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
+    try:
+        probe = build_model(make_cfg(), device=dev)
+        sites = fused_sites(probe.encoder1) + fused_sites(probe.encoder2)
+        del probe
+        # K1b's forward runs again in each recompute; 'dots' also reruns K1
+        once = {name: sites for name in k1w}
+        expect = {"off": once,
+                  "conv_out": dict(once, **{"bn_apply fwd": 2 * sites}),
+                  "dots": dict(once, **{"mm_bn_stats": 2 * sites,
+                                        "bn_apply fwd": 2 * sites})}
+        variants = {"off": {}, "conv_out": dict(remat=True),
+                    "dots": dict(remat=True, remat_policy="dots")}
+        batch = to_device(synthetic_contrast_batch(
+            np.random.default_rng(0), BATCH, size=320, num_joints=16,
+            n_data=N_DATA), dev)
+        k1_runs += remat_case(card, f"stage-1 HRNet-W18 320^2 bs{BATCH} "
+                              "fused", make_cfg(), variants, batch, k1w,
+                              expect, off_twice=True)
+        cfg2 = dataclasses.replace(
+            RECIPES[STAGE2_RECIPES["HRNet"]], batch_size=BATCH)
+        # stage 2's two linear_merge heads (1x1 convs with a bias, not
+        # ConvBN sites) run again under 'conv_out'
+        k1_runs += remat_case(
+            card, f"stage-2 HRNet-W18 320^2 bs{BATCH} fused", cfg2,
+            {"off": {}, "conv_out": dict(remat=True)}, batch, k1w, expect,
+            rerun_convs=2)
+        del batch
+        torch.cuda.empty_cache()
+        big = to_device(synthetic_contrast_batch(
+            np.random.default_rng(1), REMAT_BIG_BATCH, size=320,
+            num_joints=16, n_data=N_DATA), dev)
+        cfg_big = make_cfg(batch_size=REMAT_BIG_BATCH)
+        run = remat_big(card, dataclasses.replace(cfg_big, remat=True), big,
+                        k1w, f"stage-1 HRNet-W18 bs{REMAT_BIG_BATCH} fused "
+                        "conv_out")
+        k1_runs.append(run["launches"])
+        free, total = torch.cuda.mem_get_info()
+        print(f"remat: card memory {total / 2**30:.2f} GiB [{card}]")
+        k1_runs.append(remat_big(
+            card, cfg_big, big, k1w,
+            f"stage-1 HRNet-W18 bs{REMAT_BIG_BATCH} fused without "
+            "recomputation")["launches"])
+        del big
+    finally:
+        os.environ.pop("HCMOCO_CONVBN_FUSE", None)
+    torch.cuda.empty_cache()
+    per_step = {name: n for name, (_, n) in point_wrappers().items()}
+    pn_expect = {"off": per_step,
+                 "pn_remat": dict(per_step, **{
+                     "group_rows fwd": per_step["group_rows fwd"] + 4})}
+    cfg_pn = make_cfg(arch="HRNetPN", batch_size=PN_BATCH)
+    batch = to_device(synthetic_contrast_batch(
+        np.random.default_rng(0), PN_BATCH, size=320, num_joints=16,
+        n_data=N_DATA), dev)
+    pn_runs += remat_case(card, f"stage-1 HRNetPN 4096 points bs{PN_BATCH}",
+                          cfg_pn, {"off": {}, "pn_remat": dict(pn_remat=True)},
+                          batch, pnw, pn_expect)
+    del batch
+    torch.cuda.empty_cache()
+    batch = to_device(synthetic_contrast_batch(
+        np.random.default_rng(0), PN_BATCH, size=320, num_joints=16,
+        n_data=N_DATA), dev)
+    pn_runs.append(remat_big(
+        card, make_cfg(arch="HRNetPN", batch_size=PN_BATCH,
+                       pn_num_points=PN_WIDE_POINTS, pn_remat=True),
+        batch, pnw, f"stage-1 HRNetPN {PN_WIDE_POINTS} points bs{PN_BATCH} "
+        "pn_remat")["launches"])
+    del batch
+    torch.cuda.empty_cache()
+    return k1_runs, pn_runs
+
+
 CLI_FRAMES = 512   # NTU frames of the CLI phase's tree
 RESUME_STEPS = 6   # steps of the resumed stage-1 CLI run
 CLI_MPII = 64      # MPII images of it
@@ -3291,7 +3655,12 @@ def downstream_phase(card: str, encoder2: str, tmp: str) -> list:
 # ---- data parallelism: two ranks on one card over gloo ----------------------
 
 # (label, arch, stage, global batch, steps, HCMOCO_CONVBN_FUSE, dtype)
+# (label, arch, stage, global batch, steps, fuse, dtype[, TrainConfig
+# fields]); 'remat' recomputes in the backward, its BN sums' all-reduces
+# kept from the forward (train/remat.py)
 DP_CASES = (("stage-1 HRNet", "HRNet", 1, 32, 3, True, "bfloat16"),
+            ("stage-1 HRNet remat", "HRNet", 1, 32, 2, True, "bfloat16",
+             dict(remat=True)),
             ("stage-2 HRNet f32", "HRNet", 2, 16, 2, False, "float32"),
             ("stage-1 HRNetPN f32", "HRNetPN", 1, 16, 2, False, "float32"))
 DP_LR = 0.03
@@ -3349,6 +3718,8 @@ def record_fused_sites(sites: list):
     apply = hrnet.bn_apply_stats
 
     def recording(y, s1, s2, scale, bias, eps, running=None, n=None):
+        if running is None:  # a recompute (TrainConfig.remat)
+            return apply(y, s1, s2, scale, bias, eps, running, n)
         rm, rv = running[0].clone(), running[1].clone()
         out = apply(y, s1, s2, scale, bias, eps, running, n)
         sites.append({"s1": s1.detach().cpu(), "s2": s2.detach().cpu(),
@@ -3408,9 +3779,10 @@ def dp_run(case: tuple, rank: int, size: int) -> dict:
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
 
-    label, arch, stage, bsz, steps, fuse, dtype = case
+    label, arch, stage, bsz, steps, fuse, dtype, *fields = case
     dev = torch.device("cuda")
-    cfg = dp_cfg(arch, stage, bsz, dtype)
+    cfg = dataclasses.replace(dp_cfg(arch, stage, bsz, dtype),
+                              **(fields[0] if fields else {}))
     if fuse:
         os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
     else:
@@ -3615,7 +3987,7 @@ def check_data_parallel(card: str) -> tuple:
     t2 = time.perf_counter()
     k1_total, pn_total = {}, {}
     for case in DP_CASES:
-        label, _, _, bsz, steps, fuse, dtype = case
+        label, _, _, bsz, steps, fuse, dtype, *_ = case
         a, b = one[label], ranks[0][label]
         worst = 0.0
         for s, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
@@ -3674,6 +4046,14 @@ def check_data_parallel(card: str) -> tuple:
               f"{b['coll_s'] * 1e3:.1f} ms a step in their calls (host "
               f"clock) -- two ranks on one card over gloo: not a multi-card "
               f"figure [{card}]")
+    plain, remat = (ranks[0][k]["calls"] for k in ("stage-1 HRNet",
+                                                   "stage-1 HRNet remat"))
+    if remat != plain:
+        raise AssertionError(f"DP: {remat} collectives a remat step, "
+                             f"{plain} without recomputation")
+    print(f"DP stage-1 HRNet remat: {remat:.0f} collectives a step, as "
+          "without recomputation: the recompute takes the forward's BN "
+          f"sums back instead of all-reducing them again [{card}]")
     print(f"DP phase: one-process references {t1 - t0:.1f} s, two ranks "
           f"(start, build, {len(DP_CASES)} cases) {t2 - t1:.1f} s [{card}]")
     return k1_total, pn_total
@@ -4820,6 +5200,12 @@ def main() -> int:
     pn_runs = [drive_pn(card), drive_stage2(card, "HRNetPN"),
                drive_pn(card, PN_WIDE_POINTS, PN_WIDE_BATCH),
                drive_stage2(card, "HRNetPN", PN_WIDE_POINTS, PN_WIDE_BATCH)]
+    t_remat = time.perf_counter()
+    remat_k1, remat_pn = remat_phase(card)
+    k1_runs += remat_k1
+    pn_runs += remat_pn
+    print(f"remat phase wall time: {time.perf_counter() - t_remat:.1f} s "
+          f"[{card}]")
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="smoke_versatility_", dir=build)

@@ -136,6 +136,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--microbatch", type=int, default=None,
                    help="split each batch into N sequential microbatches, "
                         "one optimizer step (N must divide the batch)")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="HRNet step: recompute the model's forward in the "
+                        "backward (activation memory for compute)")
+    p.add_argument("--remat_policy", type=str, default=None,
+                   choices=("conv_out", "dots"),
+                   help="what --remat keeps: 'conv_out' every ConvBN conv's "
+                        "output (no such conv runs twice; default), 'dots' "
+                        "nothing inside a block (the convs run again)")
+    p.add_argument("--pn_remat", action="store_true", default=None,
+                   help="HRNetPN: recompute SA levels 0-1's grouped MLPs "
+                        "in the backward")
     p.add_argument("--num_workers", "-j", type=int, default=8)
     p.add_argument("--max_steps", type=int, default=0,
                    help="stop after N optimizer steps (smoke runs)")

@@ -191,8 +191,8 @@ class TrainConfig:
 
     # HRNetPN point-cloud branch: the original depth frame size for the
     # back-projection intrinsics (Kinect, 424x512) and the points sampled
-    # per cloud.  pn_remat (recompute the SA MLPs in the backward) is not
-    # ported: the step raises on it.
+    # per cloud.  pn_remat recomputes each scale of SA levels 0 and 1 (the
+    # grouped MLP and its max) in the backward (train/remat.py).
     pn_ori_h: float = 424.0
     pn_ori_w: float = 512.0
     pn_num_points: int = 4096
@@ -200,7 +200,13 @@ class TrainConfig:
 
     # precision / step structure
     microbatch: int = 1
+    # remat: the HRNet step's model forward recomputes in the backward
+    # (train/remat.py).  remat_policy 'conv_out' keeps every ConvBN conv's
+    # output (K1's y and sums included), so BN, ReLU, resizes and adds run
+    # again and no ConvBN conv does; 'dots' keeps nothing inside a block,
+    # and the convs run again.
     remat: bool = False
+    remat_policy: str = "conv_out"
     compute_dtype: str = "bfloat16"  # params are always f32
 
     # io (cli/main_contrast.py, train/checkpoint.py)

@@ -82,8 +82,9 @@ class DataSource:
         if rows is not None and len(rows) < batch_size:
             if not hasattr(dataset, "skip_draws"):
                 raise NotImplementedError(
-                    f"{type(dataset).__name__} cannot skip another rank's "
-                    "rows (no skip_draws): it is not sharded yet")
+                    f"{type(dataset).__name__} has no skip_draws, so a "
+                    "rank cannot consume the draws of another rank's rows: "
+                    "give it one to shard it")
             self.rows = [int(r) for r in rows]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -195,6 +195,32 @@ class _LegacySegDataset:
                 label = do_flip_swap(label)
         return img, label
 
+    def _skip_gen_sample(self, hw, flip=None) -> None:
+        """Consume the draws _gen_sample makes for a label of size hw =
+        (h, w), without decoding: the scale, the crop (whose ranges follow
+        from the resized, padded size), the flip."""
+        rng = self._rng
+        if self.multi_scale:
+            rand_scale = 0.5 + int(rng.integers(0, self.scale_factor + 1)) \
+                / 10.0
+            long_size = int(self.base_size * rand_scale + 0.5)
+            h, w = hw
+            if h > w:
+                nh, nw = long_size, int(w * long_size / h + 0.5)
+            else:
+                nw, nh = long_size, int(h * long_size / w + 0.5)
+            ch, cw = self.crop_size
+            rng.integers(0, max(nh, ch) - ch + 1)
+            rng.integers(0, max(nw, cw) - cw + 1)
+        if self.flip if flip is None else flip:
+            rng.integers(0, 2)
+
+    def _label_hw(self, rel: str) -> Tuple[int, int]:
+        """A label file's (h, w), from its header (PIL opens lazily)."""
+        with Image.open(os.path.join(self.root, rel)) as im:
+            w, h = im.size
+        return h, w
+
     def _rand_crop(self, img, label):
         h, w = label.shape
         ch, cw = self.crop_size
@@ -246,6 +272,16 @@ class CityscapesParsing(_LegacySegDataset):
         img, label = self._gen_sample(img, label)
         return self._pack(img, label, orig_size, index)
 
+    def skip_draws(self, index) -> None:
+        """Consume a sample's draws without decoding it (a data-parallel
+        rank skipping another rank's row): the test split's image-only
+        entries and evaluation draw nothing."""
+        rels = self.img_list[index]
+        if len(rels) == 1 or not self.is_train:
+            return
+        self._skip_gen_sample(self._label_hw(os.path.join("cityscapes",
+                                                          rels[1])))
+
     def save_pred(self, pred_classes: np.ndarray, sv_path: str, name: str):
         """Palette'd PNG with the INVERSE label map (cityscapes.py:192-204)."""
         raw = cityscapes_convert_label(pred_classes.astype(np.int32),
@@ -291,6 +327,15 @@ class LIPParsing(_LegacySegDataset):
         img, label = self._gen_sample(img, label, flip=False)
         return self._pack(img, label, orig_size, index)
 
+    def skip_draws(self, index) -> None:
+        """Consume a training sample's draws without decoding it: the flip,
+        then _gen_sample's on the label resized to crop_size."""
+        if not self.is_train:
+            return
+        if self.flip:
+            self._rng.integers(0, 2)
+        self._skip_gen_sample(self.crop_size, flip=False)
+
 
 class PascalContextParsing(_LegacySegDataset):
     """pascal_ctx.py semantics over pre-extracted detail masks: list
@@ -322,3 +367,9 @@ class PascalContextParsing(_LegacySegDataset):
             return self._pack(img, label, orig_size, index)
         img, label = self._gen_sample(img, label)
         return self._pack(img, label, orig_size, index)
+
+    def skip_draws(self, index) -> None:
+        """Consume a training sample's draws without decoding it."""
+        if self.is_train:
+            self._skip_gen_sample(self._label_hw(os.path.join(
+                "pascal_ctx", self.img_list[index][1])))

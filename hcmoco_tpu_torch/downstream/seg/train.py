@@ -77,6 +77,10 @@ def build_argparser():
                    help="torch weights file: written at each best mIoU, "
                         "read by --test_only")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num_workers", "-j", type=int, default=8,
+                   help="decode threads (a host's, shared by its ranks); "
+                        "with one, the legacy sets' shared augmentation "
+                        "generator draws in batch order")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run; 'cpu' is the one way "
                         "onto the CPU")
@@ -272,7 +276,8 @@ def _run(args, rank: int, size: int, device, on_step):
     from .model import SegHRNet, load_pretrained
 
     say = print if rank == 0 else (lambda *a: None)
-    threads = 8 if size == 1 else max(8 // local_world_size(), 1)
+    threads = (args.num_workers if size == 1
+               else max(args.num_workers // local_world_size(), 1))
     train_ds, val_ds, weights = build_datasets(args)
     class_weights = (None if weights is None else
                      torch.as_tensor(weights, dtype=torch.float32,

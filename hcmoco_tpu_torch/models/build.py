@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..core.config import HRNET_CONFIGS, TrainConfig
+from ..train.remat import region
 from .heads import JigsawHead, ProjectionHead, linear_1x1
 from .hrnet import HRNet, merge_all_res, pool_maps
 from .pointnet2_model import HCMoCoPNModel
@@ -36,7 +37,8 @@ class HCMoCoModel(nn.Module):
     linear_feat_map also merge1/merge2 (`merge_all_res`, 270 channels at
     W18, stride 4) and linear_merge1/linear_merge2, their 1x1 heads
     encoder{1,2}_linear run in the compute dtype, as (B, 128, H/4, W/4)
-    f32."""
+    f32.  Under train/remat.py's `recompute`, SemGCN and the heads are
+    regions recomputed in the backward, as the encoders' blocks are."""
 
     def __init__(self, width: int = 18, feat_dim: int = 128,
                  head: str = "linear",
@@ -66,7 +68,17 @@ class HCMoCoModel(nn.Module):
         c1, c2 = self.in_channel_list
         fm1 = self.encoder1(rgbd[:, :c1])
         fm2 = self.encoder2(rgbd[:, c1:c1 + c2])
-        fj = self.encoder3(skeleton)
+        fj = region(self.encoder3, skeleton)
+        out = region(self._heads, return_fm, len(fm1), *fm1, *fm2, fj)
+        if return_fm:
+            out.update(fm1=fm1, fm2=fm2, fm3=fj)
+        return out
+
+    def _heads(self, return_fm: bool, n: int, *maps: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+        """The pooled features and their heads, and with return_fm and
+        linear_feat_map the merges; maps: fm1's n maps, fm2's, then fj."""
+        fm1, fm2, fj = list(maps[:n]), list(maps[n:2 * n]), maps[-1]
         out = {
             "pooled1": pool_maps(fm1, self.pool_method),
             "pooled2": pool_maps(fm2, self.pool_method),
@@ -75,15 +87,13 @@ class HCMoCoModel(nn.Module):
         out["feat1"] = self.head1(out["pooled1"])
         out["feat2"] = self.head2(out["pooled2"])
         out["feat3"] = self.head3(out["pooled3"])
-        if return_fm:
-            out.update(fm1=fm1, fm2=fm2, fm3=fj)
-            if self.linear_feat_map:
-                out["merge1"] = merge_all_res(fm1)
-                out["merge2"] = merge_all_res(fm2)
-                out["linear_merge1"] = linear_1x1(
-                    self.encoder1_linear, out["merge1"], self.dtype)
-                out["linear_merge2"] = linear_1x1(
-                    self.encoder2_linear, out["merge2"], self.dtype)
+        if return_fm and self.linear_feat_map:
+            out["merge1"] = merge_all_res(fm1)
+            out["merge2"] = merge_all_res(fm2)
+            out["linear_merge1"] = linear_1x1(
+                self.encoder1_linear, out["merge1"], self.dtype)
+            out["linear_merge2"] = linear_1x1(
+                self.encoder2_linear, out["merge2"], self.dtype)
         return out
 
 
@@ -207,9 +217,6 @@ def build_model(cfg: TrainConfig, device="cuda") -> nn.Module:
         )
         return model.to(device)
     if cfg.modal == "RGBD2S" and cfg.arch == "HRNetPN":
-        if cfg.pn_remat:
-            raise NotImplementedError(
-                "pn_remat is not ported yet: ROADMAP.md Queue 1 item 15")
         model = HCMoCoPNModel(
             width=cfg.width,
             feat_dim=cfg.feat_dim,
@@ -218,6 +225,7 @@ def build_model(cfg: TrainConfig, device="cuda") -> nn.Module:
             pool_method=cfg.pool_method,
             skeleton_meta=cfg.skeleton_meta_name,
             n_points=cfg.pn_num_points,
+            pn_remat=cfg.pn_remat,
             dtype=dtype,
         )
         return model.to(device)

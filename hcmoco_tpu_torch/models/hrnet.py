@@ -18,6 +18,11 @@ epilogue, and normalise with them in one pass each way (on the card, kernels
 K1 and K1b); `set_convbn_fuse` switches a built model.  Both paths update the
 BN running statistics with torch semantics (unbiased running variance); the
 fused path does it inside bn_apply_stats.
+
+Under TrainConfig.remat (train/remat.py) the stem, each residual block,
+each standalone ConvBN and each fused output of an HRModule is a region
+recomputed in the backward; conv_bn is where 'conv_out' keeps the conv
+output (K1's y and sums on the fused path).
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from ..core.config import HRNetConfig, HRNetStageSpec
 from ..ops.matmul_bn import bn_apply_stats, conv1x1_bn_stats
 from ..parallel.batchnorm import GlobalBatchNorm2d
 from ..parallel.mesh import all_reduce_sum, world_size
+from ..train import remat
+from ..train.remat import region
 
 # flax momentum 0.99 (hrnet.py bn_momentum) == torch momentum 0.01
 BN_MOMENTUM = 0.01
@@ -62,6 +69,30 @@ def _is_fusable(conv: nn.Conv2d) -> bool:
     return conv.kernel_size == (1, 1) and conv.stride == (1, 1)
 
 
+class _KeptConv(torch.autograd.Function):
+    """A ConvBN site's bias-free conv in a region that recomputes under
+    remat_policy 'conv_out' (train/remat.py): the recompute takes the
+    output back from the first run instead of convolving again.  The
+    backward is autograd's own for F.conv2d."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, dilation, groups)
+        return remat.kept(lambda: F.conv2d(x, w, None, stride, padding,
+                                           dilation, groups))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conv
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy, x, w, None, stride, padding, dilation, False, (0, 0),
+            groups, (ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                     False))
+        return dx, dw, None, None, None, None
+
+
 def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
             relu: bool, dtype: torch.dtype, fuse: bool = False
             ) -> torch.Tensor:
@@ -70,7 +101,10 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
     Under data parallelism BN takes the global batch's statistics: the
     fused path all-reduces K1's channel sums (one all-reduce of the packed
     (2C,) sums) before K1b normalises by the global row count, the plain
-    path through GlobalBatchNorm2d."""
+    path through GlobalBatchNorm2d.  The conv's output (K1's y and sums
+    on the fused path) is what remat_policy 'conv_out' keeps for the
+    recompute (train/remat.py), where JAX's checkpoint_name(y,
+    "conv_out") anchors."""
     w = conv.weight.to(dtype)
     if fuse and bn.training and _is_fusable(conv):
         b, cin, h, wd = x.shape
@@ -86,14 +120,19 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
             sums = all_reduce_sum(torch.cat([s1, s2]))
             s1, s2 = sums[:c], sums[c:]
             n = y2d.shape[0] * size
-        out2d, _, _ = bn_apply_stats(
-            y2d, s1, s2, bn.weight, bn.bias, bn.eps,
-            running=(bn.running_mean, bn.running_var, bn.num_batches_tracked,
-                     bn.momentum), n=n)
+        # a recompute leaves the running statistics as the first run set
+        # them
+        running = None if remat.replaying() else (
+            bn.running_mean, bn.running_var, bn.num_batches_tracked,
+            bn.momentum)
+        out2d, _, _ = bn_apply_stats(y2d, s1, s2, bn.weight, bn.bias, bn.eps,
+                                     running=running, n=n)
         y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
     else:
-        y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding,
-                     conv.dilation, conv.groups)
+        xd = x.to(dtype)
+        conf = (conv.stride, conv.padding, conv.dilation, conv.groups)
+        y = (_KeptConv.apply(xd, w, *conf) if remat.keeps_conv_out()
+             else F.conv2d(xd, w, None, *conf))
         y = bn(y.to(stat_dtype(y.dtype))).to(dtype)
     return F.relu(y) if relu else y
 
@@ -114,6 +153,9 @@ class ConvBN(nn.Sequential):
         self.convbn_fuse = convbn_fuse_enabled()
 
     def forward(self, x):
+        return region(self._forward, x)
+
+    def _forward(self, x):
         return conv_bn(self[0], self[1], x, self.relu, self.compute_dtype,
                        self.convbn_fuse)
 
@@ -135,6 +177,9 @@ class BasicBlock(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x):
+        return region(self._forward, x)
+
+    def _forward(self, x):
         d = self.compute_dtype
         out = conv_bn(self.conv1, self.bn1, x, True, d)
         out = conv_bn(self.conv2, self.bn2, out, False, d)
@@ -163,6 +208,9 @@ class Bottleneck(nn.Module):
         self.convbn_fuse = convbn_fuse_enabled()
 
     def forward(self, x):
+        return region(self._forward, x)
+
+    def _forward(self, x):
         d, fuse = self.compute_dtype, self.convbn_fuse
         out = conv_bn(self.conv1, self.bn1, x, True, d, fuse)
         out = conv_bn(self.conv2, self.bn2, out, True, d)
@@ -265,17 +313,20 @@ class HRModule(nn.Module):
         ys = [branch(x) for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return ys
-        fused = []
-        for i, row in enumerate(self.fuse_layers):
-            h, w = ys[i].shape[2], ys[i].shape[3]
-            acc = ys[i]
-            for j, layer in enumerate(row):
-                if j > i:
-                    acc = acc + _resize_bilinear(layer(ys[j]), h, w)
-                elif j < i:
-                    acc = acc + layer(ys[j])
-            fused.append(F.relu(acc))
-        return fused
+        return [region(self._fuse, i, *ys)
+                for i in range(len(self.fuse_layers))]
+
+    def _fuse(self, i: int, *ys: torch.Tensor) -> torch.Tensor:
+        """Fused output i: the sum of every branch brought to branch i's
+        resolution, ReLU."""
+        h, w = ys[i].shape[2], ys[i].shape[3]
+        acc = ys[i]
+        for j, layer in enumerate(self.fuse_layers[i]):
+            if j > i:
+                acc = acc + _resize_bilinear(layer(ys[j]), h, w)
+            elif j < i:
+                acc = acc + layer(ys[j])
+        return F.relu(acc)
 
 
 class HRNet(nn.Module):
@@ -320,9 +371,7 @@ class HRNet(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         d = self.compute_dtype
         x = x.to(dtype=d, memory_format=torch.channels_last)
-        x = conv_bn(self.conv1, self.bn1, x, True, d)
-        x = conv_bn(self.conv2, self.bn2, x, True, d)
-        xs = [self.layer1(x)]
+        xs = [self.layer1(region(self._stem, x))]
         for si in (2, 3, 4):
             new = []
             for i, t in enumerate(getattr(self, f"transition{si - 1}")):
@@ -331,6 +380,11 @@ class HRNet(nn.Module):
                 new.append(src if t is None else t(src))
             xs = getattr(self, f"stage{si}")(new)
         return xs
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        x = conv_bn(self.conv1, self.bn1, x, True, d)
+        return conv_bn(self.conv2, self.bn2, x, True, d)
 
 
 def fused_sites(encoder: HRNet) -> int:

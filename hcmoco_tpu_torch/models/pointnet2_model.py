@@ -43,6 +43,7 @@ from ..parallel.mesh import my_rows, world_size
 from ..ops.point_ops import (ball_query, furthest_point_sample, gather_points,
                              group_points, interpolation_weights,
                              three_interpolate, three_nn)
+from ..train.remat import run_region
 from .heads import ProjectionHead, linear_1x1
 from .hrnet import HRNet, merge_all_res, nearest_resize, pool_maps
 from .sgcn import SemGCN
@@ -121,15 +122,26 @@ class SharedMLP(nn.Sequential):
         return x
 
 
+def _scale(mlp: "SharedMLP", table: torch.Tensor, gidx: torch.Tensor,
+           center: torch.Tensor) -> torch.Tensor:
+    """One scale of an SA level: the shared MLP on the grouped rows, then
+    the max over the samples."""
+    return mlp(table, gidx=gidx, center=center).amax(dim=2)
+
+
 class SAModuleMSG(nn.Module):
     """Set abstraction with multi-scale grouping: FPS centers (sorted
     ascending), then per scale a ball query, the project-then-group
-    shared MLP and a max over the samples."""
+    shared MLP and a max over the samples.  With `remat` each scale's
+    MLP and max run as a region that saves nothing inside
+    (train/remat.py): the backward gathers (K5) and runs the MLP again,
+    as JAX's `nn.remat(scale)`."""
 
     def __init__(self, npoint: int, radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
-                 in_channels: int, dtype: torch.dtype):
+                 in_channels: int, dtype: torch.dtype, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.npoint = npoint
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
@@ -151,8 +163,10 @@ class SAModuleMSG(nn.Module):
         outs = []
         for mlp, r, s in zip(self.mlps, self.radii, self.nsamples):
             gidx = ball_query(xyz, new_xyz, r, s)
-            h = mlp(table, gidx=gidx, center=new_xyz)
-            outs.append(h.amax(dim=2))  # max over the samples
+            if self.remat:
+                outs.append(run_region(_scale, mlp, table, gidx, new_xyz))
+            else:
+                outs.append(_scale(mlp, table, gidx, new_xyz))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -178,18 +192,22 @@ class FPModule(nn.Module):
 
 class Pointnet2MSG(nn.Module):
     """(B, N, 3[+C]) -> (B, N, 128) per-point features; the reference's
-    SA_modules / FP_modules."""
+    SA_modules / FP_modules.  remat_levels: the SA levels whose scales
+    recompute in the backward ((0, 1) under TrainConfig.pn_remat, where
+    the grouped (B, M, S, F) tensors are largest)."""
 
     def __init__(self, input_channels: int = 0,
                  npoints: Tuple[int, ...] = NPOINTS,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 remat_levels: Tuple[int, ...] = ()):
         super().__init__()
         self.SA_modules = nn.ModuleList()
         skip = [input_channels]
         cin = input_channels
         for k, npoint in enumerate(npoints):
             self.SA_modules.append(SAModuleMSG(
-                npoint, RADIUS[k], NSAMPLE[k], MLPS[k], cin, dtype))
+                npoint, RADIUS[k], NSAMPLE[k], MLPS[k], cin, dtype,
+                remat=k in remat_levels))
             cin = sum(m[-1] for m in MLPS[k])
             skip.append(cin)
         self.FP_modules = nn.ModuleList()
@@ -283,13 +301,15 @@ class HCMoCoPNModel(nn.Module):
     and linear_merge2: encoder2_linear (Conv1d + BN + ReLU on the points,
     build_backbone.py:368) in the compute dtype, cast to f32, carried onto
     every pixel by `pts2depth` and resized to linear_merge1's size by
-    nearest-exact (ROADMAP.md Queue 3, F2), as (B, 128, H/4, W/4)."""
+    nearest-exact (ROADMAP.md Queue 3, F2), as (B, 128, H/4, W/4).
+    pn_remat: PointNet++'s SA levels 0 and 1 recompute in the backward
+    (Pointnet2MSG's remat_levels)."""
 
     def __init__(self, width: int = 18, feat_dim: int = 128,
                  head: str = "linear", linear_feat_map: bool = False,
                  pool_method: str = "mean", skeleton_meta: str = "mpii",
                  sgcn_dim: int = 128, pn_dim: int = 128, n_points: int = 4096,
-                 dtype: torch.dtype = torch.bfloat16):
+                 pn_remat: bool = False, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         hr_cfg = HRNET_CONFIGS[width]
         self.pool_method = pool_method
@@ -303,7 +323,9 @@ class HCMoCoPNModel(nn.Module):
         self.encoder1 = HRNet(hr_cfg, 3, dtype)
         # the MLPs run in the compute dtype; FPS, ball query and three-NN
         # stay f32 (ops/point_ops.py)
-        self.encoder2 = Pointnet2MSG(npoints=npoints, dtype=dtype)
+        self.encoder2 = Pointnet2MSG(
+            npoints=npoints, dtype=dtype,
+            remat_levels=(0, 1) if pn_remat else ())
         self.encoder3 = SemGCN(sgcn_dim, 4, skeleton_meta)
         self.head1 = ProjectionHead(hr_cfg.total_channels, feat_dim, head)
         self.head2 = ProjectionHead(pn_dim, feat_dim, head)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..train import remat
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -197,11 +198,14 @@ def mm_bn_bwd_dyt(dy, y, ds1, ds2):
 
 
 class _Conv1x1BNStats(torch.autograd.Function):
-    """Custom VJP of hcmoco_tpu's conv1x1_bn_stats (_mm_bn_vjp_bwd)."""
+    """Custom VJP of hcmoco_tpu's conv1x1_bn_stats (_mm_bn_vjp_bwd).  In
+    a region that recomputes under remat_policy 'conv_out'
+    (train/remat.py), the recompute takes y and the sums back from the
+    first run instead of launching K1 again."""
 
     @staticmethod
     def forward(ctx, x2d, w):
-        y, s1, s2 = mm_bn_stats(x2d, w)
+        y, s1, s2 = remat.kept(lambda: mm_bn_stats(x2d, w))
         ctx.save_for_backward(x2d, w, y)
         return y, s1, s2
 

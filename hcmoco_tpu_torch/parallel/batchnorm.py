@@ -16,6 +16,10 @@ world of one, they run nn.BatchNorm's own forward unchanged.  Ranks hold
 equal row counts (parallel/mesh.py::shard_rows), so the global count is
 the local one times the world size.
 
+In a region that recomputes in the backward (train/remat.py), the
+running statistics move in the region's first run only, and the global
+sums' all-reduce is issued by it alone (parallel/mesh.py::_AllReduceSum).
+
 A one-process run that a data-parallel one is held to normalises with
 the same sums and formula (E[x^2] - E[x]^2 and torch's two-pass variance
 part by more than rounding once a step is sensitive to them): it patches
@@ -27,8 +31,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..train import remat
 from .mesh import all_reduce_sum, world_size
 
 
@@ -42,6 +48,8 @@ def _update_running(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
                     var: torch.Tensor, n) -> None:
     """nn.BatchNorm's running-stat update from the biased batch var of n
     values a channel (unbiased running var, var * n / (n - 1))."""
+    if remat.replaying():  # the region's first run updated them
+        return
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.to(bn.running_mean.dtype),
@@ -77,6 +85,12 @@ class _GlobalBN:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and global_stats_active():
             return global_batch_norm(self, x)
+        if self.training and remat.replaying():
+            # a recompute (train/remat.py): nn.BatchNorm's own call, on
+            # copies of the running statistics that the first run moved
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum, self.eps)
         return super().forward(x)
 
 

@@ -39,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..train import remat
+
 # the process group's timeout: a rank that waits longer on a collective
 # raises instead of hanging
 DEFAULT_TIMEOUT_S = 600
@@ -223,17 +225,22 @@ def my_rows(global_rows: int) -> slice:
     return slice(rank * per, (rank + 1) * per)
 
 
+def _all_reduced(t: torch.Tensor) -> torch.Tensor:
+    out = t.clone(memory_format=torch.contiguous_format)
+    with _counted():
+        dist.all_reduce(out)
+    return out
+
+
 class _AllReduceSum(torch.autograd.Function):
     """torch.distributed.nn.functional.all_reduce's autograd (deprecated
     in this torch for the traced functional collectives), counted: the
-    backward all-reduces the cotangent."""
+    backward all-reduces the cotangent.  In a recomputed region the
+    forward hands back its first run's sum (train/remat.py::recorded)."""
 
     @staticmethod
     def forward(ctx, t):
-        out = t.clone(memory_format=torch.contiguous_format)
-        with _counted():
-            dist.all_reduce(out)
-        return out
+        return remat.recorded(lambda: _all_reduced(t))
 
     @staticmethod
     def backward(ctx, g):

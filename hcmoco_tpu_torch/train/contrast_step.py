@@ -63,6 +63,7 @@ from ..contrast.memory import (cmc3_forward, cmc3_losses_counts,
 from ..core.config import TrainConfig
 from ..parallel.mesh import (all_reduce_grads, gather_rows, gather_rows_grad,
                              global_sum, my_rows, world_size)
+from .remat import check_policy, recompute
 from .schedules import learning_rate_fn
 from .state import TrainState
 
@@ -208,9 +209,12 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
     if stage2 and not cfg.linear_feat_map:
         raise ValueError("mem='bank+jointspri3d' needs linear_feat_map: its "
                          "losses read the linear_merge maps")
-    if cfg.remat or cfg.pn_remat:
-        raise NotImplementedError(
-            "remat and pn_remat are not ported: ROADMAP.md Queue 1 item 15")
+    # remat: the HRNet model's forward recomputes in the backward under
+    # remat_policy (the JAX step's jax.checkpoint); it has no effect on
+    # HRNetPN, whose pn_remat the model itself carries
+    hrnet_remat = cfg.remat and cfg.arch == "HRNet"
+    if hrnet_remat:
+        check_policy(cfg.remat_policy)
 
     def loss_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> tuple:
@@ -227,6 +231,9 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
                         batch["grid_xy"], cfg.pn_ori_h, cfg.pn_ori_w,
                         batch["depth_mean"], generator=generator,
                         u=batch.get("pts_u"), return_fm=stage2)
+        elif hrnet_remat:
+            with recompute(cfg.remat_policy):
+                out = model(rgbd, batch["skeleton"], return_fm=stage2)
         else:
             out = model(rgbd, batch["skeleton"], return_fm=stage2)
         feats = torch.stack([out["feat1"], out["feat2"], out["feat3"]])

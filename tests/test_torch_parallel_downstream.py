@@ -5,10 +5,16 @@ train.py) on two gloo ranks, held to one process.
   each global batch and consumes the other rows' augmentation draws
   (`skip_draws`), so the ranks' batches put back in row order are the
   one-process batch bit for bit (one decode thread): the Parsing-4K
-  training set (flip, scale jitter, random crop) and the ITOP set
-  (shift, rotation, scale).
+  training set (flip, scale jitter, random crop), the ITOP set (shift,
+  rotation, scale) and the legacy Cityscapes, LIP and PASCAL-Context
+  sets on images of several sizes (their crop ranges follow from each
+  label's size).
 * Each trainer's CLI on two ranks (`--multihost --device cpu`, synthetic
-  data, width 4, f32, 2 steps; A2J 1): the ranks end equal bit for bit, and
+  data, width 4, f32, 2 steps; A2J 1; the parsing trainer also on the
+  legacy LIP set, `--dataset lip`, one step: off synthetic data its model
+  runs in bf16, whose rounding under the ranks' other order of the BN
+  sums moves a second step's loss by 4e-5 relative): the ranks end equal
+  bit for bit, and
   within rtol 1e-5, atol 3e-6 (f32 rounding: the sums' order) of the same
   CLI in one process with the ranks' BN formula
   (torch_dp_common.ranks_formula), step losses included; the
@@ -27,10 +33,12 @@ import os
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from hcmoco_tpu_torch.data import fixtures
 from hcmoco_tpu_torch.data.pipeline import DataSource
 from hcmoco_tpu_torch.downstream.a2j import data as a2j_data
+from hcmoco_tpu_torch.downstream.seg import legacy
 from hcmoco_tpu_torch.downstream.seg.datasets import ParsingDataset
 from hcmoco_tpu_torch.downstream.seg import train as seg_train
 from hcmoco_tpu_torch.parallel import mesh
@@ -102,6 +110,71 @@ def test_itop_rows_decode_bit_for_bit(tmp_path, monkeypatch):
     _check_sharded(make)
 
 
+# (h, w) of the legacy sets' training images and labels: wider, taller,
+# smaller and larger than the crops below
+LEGACY_SIZES = ((40, 60), (60, 40), (20, 28), (52, 70), (33, 33), (70, 48),
+                (36, 44), (28, 56))
+LEGACY = {"cityscapes": (legacy.CityscapesParsing, "cs.lst",
+                         dict(crop_size=(24, 32), base_size=48)),
+          "lip": (legacy.LIPParsing, "lip.lst",
+                  dict(crop_size=(24, 24), base_size=24)),
+          "pascal_ctx": (legacy.PascalContextParsing, "ctx.lst",
+                         dict(crop_size=(24, 24), base_size=24))}
+
+
+def _png(path, arr):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(arr).save(path)
+
+
+@pytest.fixture(scope="module")
+def legacy_root(tmp_path_factory):
+    """The three legacy sets' layouts (downstream/seg/legacy.py) with an
+    image and label of each LEGACY_SIZES size, Cityscapes with one
+    image-only (test split) entry too, and a LIP validation list of 33^2
+    images."""
+    root = str(tmp_path_factory.mktemp("legacy"))
+    rng = np.random.default_rng(0)
+    lines = {"cs.lst": [], "lip.lst": [], "ctx.lst": [], "lip_val.lst": []}
+    cs_ids = list(legacy.CITYSCAPES_ID_TO_TRAIN) + [0, 29]
+    sizes = [(hw, "lip.lst") for hw in LEGACY_SIZES] + [
+        ((33, 33), "lip_val.lst")] * 4
+    for i, ((h, w), lip_list) in enumerate(sizes):
+        img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+        name = f"{i}.png"
+        _png(os.path.join(root, "lip", "TrainVal_images", name), img)
+        _png(os.path.join(root, "lip", "TrainVal_parsing_annotations", name),
+             rng.integers(0, 20, (h, w)).astype(np.uint8))
+        lines[lip_list].append(f"{name} {name}")
+        if lip_list == "lip_val.lst":
+            continue
+        _png(os.path.join(root, "cityscapes", "img", name), img)
+        _png(os.path.join(root, "cityscapes", "gt", name),
+             rng.choice(cs_ids, (h, w)).astype(np.uint8))
+        _png(os.path.join(root, "pascal_ctx", "img", name), img)
+        _png(os.path.join(root, "pascal_ctx", "masks", name),
+             rng.integers(0, 60, (h, w)).astype(np.uint8))
+        lines["cs.lst"].append(f"img/{name} gt/{name}")
+        lines["ctx.lst"].append(f"img/{name} masks/{name}")
+    lines["cs.lst"].append("img/0.png")
+    for name, entries in lines.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(entries) + "\n")
+    return root
+
+
+@pytest.mark.parametrize("name", list(LEGACY))
+def test_legacy_rows_decode_bit_for_bit(legacy_root, name):
+    cls, lst, kw = LEGACY[name]
+
+    def make(rows):
+        ds = cls(legacy_root, lst, seed=5, **kw)
+        return DataSource(ds, BSZ, np.ones(len(ds)), seed=2, num_workers=1,
+                          rows=rows)
+
+    _check_sharded(make)
+
+
 SEG = ["--device", "cpu", "--synthetic", "8", "--crop", "33", "--width",
        "4", "--batch_size", str(BSZ), "--epochs", "1", "--max_steps", "2",
        "--print_freq", "1", "--seed", "0"]
@@ -110,22 +183,33 @@ A2J = ["--device", "cpu", "--synthetic", "8", "--crop", "32", "--width",
        "--print_freq", "1", "--seed", "0"]
 
 
+# the legacy LIP set of legacy_root ({root}), 33^2 crops; one decode
+# thread, whose draws from the set's generator follow the batch order
+SEG_LIP = ["--device", "cpu", "--dataset", "lip", "--root", "{root}",
+           "--train_list", "lip.lst", "--val_list", "lip_val.lst",
+           "--crop", "33", "--width", "4", "--batch_size", str(BSZ),
+           "--epochs", "1", "--max_steps", "1", "--print_freq", "1",
+           "--seed", "0", "--num_workers", "1"]
+
+
 TRAINERS = {"seg": ("seg", SEG),
             "seg-ohem": ("seg", SEG + ["--ohem", "--ohem_keep", "300"]),
+            "seg-lip": ("seg", SEG_LIP),
             "a2j": ("a2j", A2J)}
 
 
 @pytest.fixture(scope="module")
-def trainer_runs(tmp_path_factory):
+def trainer_runs(tmp_path_factory, legacy_root):
     """One pair of ranks runs every TRAINERS CLI in turn while this
     process runs each alone; by name, (the ranks' results, this
     process's)."""
+    clis = [(which, [a.replace("{root}", legacy_root) for a in argv])
+            for which, argv in TRAINERS.values()]
     with ranks_running(None, str(tmp_path_factory.mktemp("trainers")),
                        clis=[(which, argv + ["--multihost"])
-                             for which, argv in TRAINERS.values()]) as ranks:
+                             for which, argv in clis]) as ranks:
         with ranks_formula():
-            one = [run_downstream(which, argv)
-                   for which, argv in TRAINERS.values()]
+            one = [run_downstream(which, argv) for which, argv in clis]
         got = ranks()
     return {name: ([r[i] for r in got], one[i])
             for i, name in enumerate(TRAINERS)}
@@ -139,7 +223,7 @@ def test_trainer_on_two_ranks_is_one_process(trainer_runs, name):
         assert torch.equal(v, ranks[1]["model"][k]), k
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
     assert len(one["metrics"]) == len(ranks[0]["metrics"]) \
-        == (2 if which == "seg" else 1)
+        == (2 if name in ("seg", "seg-ohem") else 1)
     for s, (a, b) in enumerate(zip(ranks[0]["metrics"], one["metrics"])):
         for k in b:
             np.testing.assert_allclose(a[k], b[k], **TOL,

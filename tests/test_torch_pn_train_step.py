@@ -111,11 +111,17 @@ def _sq(d):
 
 
 def test_two_steps_match_jax(monkeypatch):
+    two_steps_match_jax(monkeypatch)
+
+
+def two_steps_match_jax(monkeypatch, **fields):
+    """The comparison of test_two_steps_match_jax, with the TrainConfig
+    `fields` on both sides (tests/test_torch_remat.py: pn_remat)."""
     orig = jax_pn.depth2pts
     monkeypatch.setattr(jax_pn, "depth2pts",
                         lambda *a: orig(*a[:6], POINTS_KEY, a[7]))
-    cfg = resolve_config(TrainConfig(**TINY))
-    jcfg = jax_resolve_config(JaxTrainConfig(**TINY))
+    cfg = resolve_config(TrainConfig(**TINY, **fields))
+    jcfg = jax_resolve_config(JaxTrainConfig(**TINY, **fields))
     bs = batches(2)
 
     jmodel = jax_build_model(jcfg)

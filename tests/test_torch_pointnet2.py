@@ -453,6 +453,21 @@ def test_build_model_hrnetpn_knobs():
     model = build_model(cfg, device="cpu")
     assert isinstance(model, pn.HCMoCoPNModel)
     assert [sa.npoint for sa in model.encoder2.SA_modules] == [64, 16, 4, 1]
-    with pytest.raises(NotImplementedError, match="pn_remat"):
-        build_model(resolve_config(TrainConfig(**TINY, pn_remat=True)),
-                    device="cpu")
+    assert not any(sa.remat for sa in model.encoder2.SA_modules)
+    # pn_remat builds with SA levels 0 and 1 recomputed in the backward,
+    # and trains: every parameter of the point encoder gets a gradient
+    model = build_model(resolve_config(TrainConfig(**TINY, pn_remat=True)),
+                        device="cpu")
+    assert [sa.remat for sa in model.encoder2.SA_modules] == [True, True,
+                                                             False, False]
+    batch = synthetic_contrast_batch(np.random.default_rng(7), 6, size=32,
+                                     n_data=64)
+    t = {k: _t(batch[k]) for k in ("rgbd", "skeleton", "depth_mask",
+                                    "grid_xy", "depth_mean")}
+    out = model(t["rgbd"].permute(0, 3, 1, 2), t["skeleton"],
+                t["depth_mask"], t["grid_xy"], 424.0, 512.0,
+                t["depth_mean"], generator=torch.Generator().manual_seed(0))
+    out["feat2"].square().sum().backward()
+    grads = [p.grad for p in model.encoder2.parameters()]
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in grads)

@@ -58,10 +58,6 @@ def tiny_cfg():
     return resolve_config(TrainConfig(**TINY))
 
 
-def jax_tiny_cfg():
-    return jax_resolve_config(JaxTrainConfig(**TINY))
-
-
 def batches(n):
     """The reference-parity harness's batches: pinned neg_idx, use_depth
     and use_rgb masks.  (Its rgbd is N(0, 0.25) in every channel; the
@@ -81,11 +77,18 @@ def to_port(b):
 
 @pytest.mark.parametrize("fuse", [False, True])
 def test_two_steps_match_jax(monkeypatch, fuse):
+    two_steps_match_jax(monkeypatch, fuse)
+
+
+def two_steps_match_jax(monkeypatch, fuse, **fields):
+    """The comparison of test_two_steps_match_jax, with the TrainConfig
+    `fields` on both sides (tests/test_torch_remat.py: remat)."""
     if fuse:
         monkeypatch.setenv("HCMOCO_CONVBN_FUSE", "1")
     else:
         monkeypatch.delenv("HCMOCO_CONVBN_FUSE", raising=False)
-    cfg, jcfg = tiny_cfg(), jax_tiny_cfg()
+    cfg = resolve_config(TrainConfig(**TINY, **fields))
+    jcfg = jax_resolve_config(JaxTrainConfig(**TINY, **fields))
     bs = batches(2)
 
     jmodel = jax_build_model(jcfg)

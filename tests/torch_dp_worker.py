@@ -133,7 +133,7 @@ def run_case(case: dict) -> dict:
     banks the step starts from); gen_seed (None: the batches pin every
     draw; else step i draws from a generator seeded gen_seed + i).
     Returns per step: metrics (floats), model and classifier state dicts,
-    banks; for moco the queues, the pointer and the key encoder's
+    banks, the collectives issued (none in one process); for moco the queues, the pointer and the key encoder's
     parameters instead of the banks.  A case of kind 'bn' is
     run_bn_case's."""
     if case["kind"] == "bn":
@@ -166,7 +166,8 @@ def run_case(case: dict) -> dict:
     else:
         step = make_segment_train_step(cfg, model, classifier,
                                        steps_per_epoch=1)
-    out = {"metrics": [], "model": [], "classifier": [], "banks": []}
+    out = {"metrics": [], "model": [], "classifier": [], "banks": [],
+           "collectives": []}
     for i, batch in enumerate(case["batches"]):
         sync = (case.get("sync") or [None] * len(case["batches"]))[i]
         if sync is not None:
@@ -179,7 +180,9 @@ def run_case(case: dict) -> dict:
         gen = None
         if case.get("gen_seed") is not None:
             gen = torch.Generator().manual_seed(case["gen_seed"] + i)
+        calls = mesh.STATS["calls"]
         m = step(state, local, gen)
+        out["collectives"].append(mesh.STATS["calls"] - calls)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         out["model"].append({k: v.clone() for k, v in
                              model.state_dict().items()})
