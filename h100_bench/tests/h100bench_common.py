@@ -1,0 +1,61 @@
+"""What the harness's CPU tests share: a copy of the benchmark in a
+temporary root with a tiny cell of the configuration (width-4 HRNet,
+32x32 crops, 8 samples, a 64-row bank above a lowered counts_max_n_data,
+so that the NCE takes the cell's 'gather' path, float32, the fused path
+off), held to the limits of the real cell."""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+TINY = dict(width=4, crop_size=32, nce_k=15, n_data=64, batch_size=8,
+            counts_max_n_data=32, compute_dtype="float32")
+# tiny workload -> (configuration, real cell whose limits it takes)
+CELLS = {"tiny.t8": ("hrnet_w18_s1", "hrnet_w18_s1.b224")}
+
+
+def tiny_root(tmp: Path) -> Path:
+    """tmp holding BENCHMARK.json and h100_bench/ with the tiny cells."""
+    shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
+    shutil.copytree(REPO / "h100_bench", tmp / "h100_bench",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    bench = json.loads((tmp / "BENCHMARK.json").read_text())
+    configs = {c["name"]: c for c in bench["configs"]}
+    for name, (config, real) in CELLS.items():
+        conf_name, traffic = name.split(".")
+        cfg = json.loads((REPO / configs[config]["file"]).read_text())
+        cfg["train"].update(TINY)
+        cfg["env"] = {"HCMOCO_CONVBN_FUSE": "0"}
+        feed = {"batch_size": 8, "pool": 3, "depth_ratio": 0.5}
+        path = f"h100_bench/configs/{conf_name}.json"
+        (tmp / path).write_text(json.dumps(cfg))
+        (tmp / f"h100_bench/traffic/{traffic}.json").write_text(
+            json.dumps(feed))
+        shutil.copy(tmp / f"h100_bench/limits/{real}.json",
+                    tmp / f"h100_bench/limits/{name}.json")
+        bench["configs"].append(dict(configs[config], name=conf_name,
+                                     file=path, reduced=cfg["reduced"]))
+        bench["workloads"].append(dict(name=name, config=conf_name,
+                                       traffic=traffic, chips=1,
+                                       why="test"))
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if real in m.get("workloads", ()):
+                m["workloads"].append(name)
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return tmp
+
+
+def port_model_f64(model):
+    """The port's model with its two encoders in float64 (SemGCN and the
+    heads stay float32, as the program keeps them)."""
+    import torch
+
+    for enc in (model.encoder1, model.encoder2):
+        enc.double()
+        for m in enc.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+    return model
