@@ -2263,8 +2263,9 @@ K1_TRACE_KERNELS = {
 
 def read_cli_trace(trace_dir: str) -> dict:
     """The one trace that the CLI's --profile_dir wrote: its file's MB,
-    the `global_step N` spans, every device kernel's (name, us), copies
-    and fills left out, and the seconds json.load took."""
+    the `global_step N` spans, the names of the program's other host
+    spans, every device kernel's (name, us), copies and fills left out,
+    the host activity's events, and the seconds json.load took."""
     import glob
 
     files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
@@ -2281,6 +2282,9 @@ def read_cli_trace(trace_dir: str) -> dict:
                              if e.get("cat") == "user_annotation"
                              and e.get("name", "").startswith("global_step ")),
                             key=lambda n: int(n.split()[1])),
+            "program": {e["name"] for e in events
+                        if e.get("cat") == "user_annotation"},
+            "cpu_ops": sum(1 for e in events if e.get("cat") == "cpu_op"),
             "kernels": [(e["name"], float(e.get("dur", 0.0))) for e in events
                         if e.get("cat") == "kernel"]}
 
@@ -2303,6 +2307,13 @@ def check_trace(card: str, label: str, trace_dir: str, marks: dict,
     if tr["spans"] != want_spans:
         raise AssertionError(f"{label}: trace spans {tr['spans']}, "
                              f"expected {want_spans}")
+    phases = {"data_wait", "upload", "forward", "nce", "backward",
+              "bank_update", "optimizer", "grad_sync", "metrics"}
+    if not phases <= tr["program"] or tr["cpu_ops"]:
+        raise AssertionError(f"{label}: the trace's program spans "
+                             f"{sorted(tr['program'])} lack "
+                             f"{sorted(phases - tr['program'])}, or it holds "
+                             f"{tr['cpu_ops']} CPU ops")
     n = last - first + 1
     counted = {k: marks["after"][k] - marks["before"][k]
                for k in K1_TRACE_KERNELS}
@@ -2327,7 +2338,7 @@ def check_trace(card: str, label: str, trace_dir: str, marks: dict,
           f"s [{card}]")
     print(f"{label} --profile_dir: device kernel time {kernel_ms:.3f} ms a "
           f"step from the trace, beside the CLI's step time {step_ms:.2f} ms "
-          f"(median of the traced steps, CPU and CUDA activity on) and its "
+          f"(median of the traced steps, CUDA activity and spans on) and its "
           f"iteration median {free_it_ms:.2f} ms untraced: busy share "
           f"{kernel_ms / free_it_ms:.3f} [{card}]")
     return kernel_ms
@@ -3770,7 +3781,9 @@ def dp_run(case: tuple, rank: int, size: int) -> dict:
     parameters, BN statistics and banks are gathered and must be equal
     bit for bit.  Returns the metrics, the state before and after the
     first step, the fused sites of the first step (record_fused_sites),
-    the kernels' launches, the collectives a step and the step times."""
+    the kernels' launches, the collectives a step, the device ms a step
+    of the `grad_sync` span and of the collectives' spans, and the step
+    times."""
     import torch.distributed as dist
 
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
@@ -3778,6 +3791,7 @@ def dp_run(case: tuple, rank: int, size: int) -> dict:
     from hcmoco_tpu_torch.parallel import mesh
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
+    from hcmoco_tpu_torch.utils import spans
 
     label, arch, stage, bsz, steps, fuse, dtype, *fields = case
     dev = torch.device("cuda")
@@ -3808,12 +3822,13 @@ def dp_run(case: tuple, rank: int, size: int) -> dict:
         fn.launches = 0
     mm_bn_stats_cuda = k1_wrappers()["mm_bn_stats"]
     mm_bn_stats_cuda.generic_launches = 0
-    mesh.STATS.update(calls=0, seconds=0.0)
+    mesh.STATS.update(calls=0)
+    spans.clear()
     metrics, times, sites = [], [], []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
         with (record_fused_sites(sites) if fuse and i == 0
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), spans.recording():
             m = step(state, b, torch.Generator(dev).manual_seed(100 + i))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -3837,10 +3852,22 @@ def dp_run(case: tuple, rank: int, size: int) -> dict:
     out = dict(metrics=metrics, before=before, first=first, sites=sites,
                launches=launches, step_s=times,
                calls=mesh.STATS["calls"] / steps,
-               coll_s=mesh.STATS["seconds"] / steps)
+               **{f"{k}_ms": span_ms(names) / steps for k, names in
+                  (("grad_sync", ("grad_sync",)),
+                   ("coll", mesh.COLLECTIVES))})
+    spans.clear()
     del model, state, step, batches
     torch.cuda.empty_cache()
     return out
+
+
+def span_ms(names) -> float:
+    """Device ms in the recorded spans named `names` (utils/spans.py:
+    each span's close marker less its open marker)."""
+    from hcmoco_tpu_torch.utils import spans
+
+    return sum(s.device_ns for s in spans.recorded()
+               if s.name in names and s.device_ns is not None) / 1e6
 
 
 def dp_distance(b: dict, a: dict) -> dict:
@@ -4043,9 +4070,9 @@ def check_data_parallel(card: str) -> tuple:
               f" ms on each of 2 ranks ({bsz // 2} rows) against "
               f"{statistics.median(a['step_s']) * 1e3:.1f} ms for one "
               f"process ({bsz} rows); {b['calls']:.0f} collectives a step, "
-              f"{b['coll_s'] * 1e3:.1f} ms a step in their calls (host "
-              f"clock) -- two ranks on one card over gloo: not a multi-card "
-              f"figure [{card}]")
+              f"their spans {b['coll_ms']:.2f} device ms a step, grad_sync's "
+              f"{b['grad_sync_ms']:.2f} -- two ranks on one card over gloo: "
+              f"not a multi-card figure [{card}]")
     plain, remat = (ranks[0][k]["calls"] for k in ("stage-1 HRNet",
                                                    "stage-1 HRNet remat"))
     if remat != plain:

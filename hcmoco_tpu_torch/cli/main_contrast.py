@@ -41,9 +41,9 @@ draws what an uninterrupted one would.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import os
+import socket
 import sys
 import time
 from dataclasses import dataclass, field
@@ -51,6 +51,8 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import span_place, spans
 
 if TYPE_CHECKING:
     from ..core.config import TrainConfig
@@ -236,51 +238,104 @@ PROFILE_STEPS = (10, 15)
 
 
 class StepTrace:
-    """--profile_dir: torch.profiler over global steps PROFILE_STEPS, its
-    CPU activity and, on the card, its CUDA activity; each traced step is
-    a `global_step N` span.  It starts before step 10 (a run that starts
+    """--profile_dir: torch.profiler over global steps PROFILE_STEPS, with
+    the program's spans recorded (utils/spans.py).  On the card the
+    profiler records CUDA activity only; on the CPU, which is then the
+    device, CPU activity.  It starts before step 10 (a run that starts
     past it, resumed, traces nothing, as the JAX CLI) and stops after
     step 15 once the step's metrics are read back, or when the run ends
-    first (close(); the JAX CLI leaves that trace unwritten).
-    tensorboard_trace_handler writes one `<host>_<pid>.<time>.pt.trace.json`
-    a process, so each rank of a data-parallel run writes its own, as each
-    JAX process does."""
+    first (close(); the JAX CLI leaves that trace unwritten).  It writes
+    one `<host>_<pid>.<ms>.pt.trace.json` a process (the name
+    tensorboard_trace_handler gives), so each rank of a data-parallel run
+    writes its own, as each JAX process does; the traced steps' spans
+    are added to it (add_spans) and then dropped from the recorder."""
 
     def __init__(self, profile_dir: str, device, say: Callable):
         self.dir, self.device, self.say = profile_dir, device, say
         self.prof = None
+        self.rec = None
 
-    def span(self, step: int):
-        """The context of global step `step`: the profiler started at the
-        first traced step, and the step's span while it runs."""
-        if self.dir and step == PROFILE_STEPS[0] and self.prof is None:
-            from torch.profiler import (ProfilerActivity, profile,
-                                        tensorboard_trace_handler)
+    def begin(self, step: int) -> None:
+        """Start the profiler and the spans' recording before global step
+        `step` if it is the first traced step."""
+        if not self.dir or step != PROFILE_STEPS[0] or self.prof is not None:
+            return
+        from torch.profiler import ProfilerActivity, profile
 
-            acts = [ProfilerActivity.CPU]
-            if torch.device(self.device).type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(
-                activities=acts,
-                on_trace_ready=tensorboard_trace_handler(self.dir))
-            self.prof.start()
-        if self.prof is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(f"global_step {step}")
+        on_card = torch.device(self.device).type == "cuda"
+        self.prof = profile(activities=[ProfilerActivity.CUDA if on_card
+                                        else ProfilerActivity.CPU])
+        spans.clear()
+        self.rec = spans.recording()
+        self.rec.__enter__()
+        self.prof.start()
 
     def after(self, step: int) -> None:
         if step >= PROFILE_STEPS[1]:
             self.close()
 
     def close(self) -> None:
-        """Stop the profiler, if it runs, and write its trace."""
+        """Stop the profiler, if it runs, and write its trace with the
+        traced steps' spans."""
         if self.prof is None:
             return
         if torch.device(self.device).type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prof.stop()
-        self.prof = None
+        self.rec.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"{socket.gethostname()}_{os.getpid()}"
+                            f".{time.time_ns() // 10 ** 6}.pt.trace.json")
+        self.prof.export_chrome_trace(path)
+        add_spans(path, spans.recorded())
+        spans.clear()
+        self.prof = self.rec = None
         self.say(f"profiler trace written to {self.dir}")
+
+
+# the trace file's thread ids of the program's spans (add_spans)
+HOST_SPANS_TID, DEVICE_SPANS_TID = 0x7FFF0001, 0x7FFF0002
+
+
+def add_spans(path: str, recs: list) -> None:
+    """Add the spans `recs` (spans.recorded()) to the chrome trace at
+    `path` as tracks of their own: on the host, `cat` user_annotation,
+    at their host times; on the card also on the device's timeline, `cat`
+    gpu_user_annotation, between their markers placed against the
+    trace's kernels (span_place.place).  A root `train_step` span is
+    named `global_step N`."""
+    import json
+
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    base = trace.get("baseTimeNanoseconds", 0)
+    ops = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    gpu = ops[0]["pid"] if ops else None
+    span_place.place(recs, [(base + round(e["ts"] * 1e3),
+                             base + round((e["ts"] + e["dur"]) * 1e3))
+                            for e in ops])
+    tracks = [(os.getpid(), HOST_SPANS_TID, "program spans (host)",
+               "user_annotation", "t0", "t1")]
+    if gpu is not None:
+        tracks.append((gpu, DEVICE_SPANS_TID, "program spans (device)",
+                       "gpu_user_annotation", "at0", "at1"))
+    for pid, tid, title, cat, a, b in tracks:
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": tid, "args": {"name": title}})
+        for s in recs:
+            t0, t1 = getattr(s, a), getattr(s, b)
+            if t0 is None:
+                continue
+            name = (f"global_step {s.step}" if s.name == "train_step"
+                    and s.parent is None else s.name)
+            events.append({"ph": "X", "cat": cat, "name": name, "pid": pid,
+                           "tid": tid, "ts": (t0 - base) / 1e3,
+                           "dur": (t1 - t0) / 1e3,
+                           "args": {"step": s.step}})
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def join_ranks(args, cfg: "TrainConfig") -> tuple:
@@ -364,8 +419,9 @@ def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
     each step's batch from `it`, uploaded, stepped with the generator of
     (seed + 1, global step), its host times recorded in `result` and its
     metrics logged; each epoch's TSV line and checkpoint, then
-    after_epoch(epoch).  With --profile_dir, global steps 10-15 are
-    traced (StepTrace)."""
+    after_epoch(epoch).  A step's three parts are the spans `data_wait`,
+    `upload` and `train_step` while spans record.  With --profile_dir,
+    global steps 10-15 are traced (StepTrace)."""
     from ..data.pipeline import to_device
     from ..utils.meters import MetricLogger
 
@@ -379,21 +435,22 @@ def train_epochs(args, cfg: "TrainConfig", state: "TrainState", it, device,
             t0 = time.time()
             logger.reset()
             for i in range(steps_per_epoch):
-                t_wait = time.perf_counter()
+                trace.begin(global_step)
+                # one clock read a boundary: the spans' and the result's
+                t_wait = spans.phase("data_wait", step=global_step)
                 host = next(it)
-                t_upload = time.perf_counter()
+                t_upload = spans.phase("upload", step=global_step)
                 batch = to_device(host, device)
-                t_step = time.perf_counter()
-                with trace.span(global_step):
-                    metrics = step_fn(state, batch, step_generator(
-                        cfg.seed + 1, global_step, device))
-                    values = metric_floats(metrics)
-                t_end = time.perf_counter()
+                t_step = spans.phase("train_step", step=global_step)
+                metrics = step_fn(state, batch, step_generator(
+                    cfg.seed + 1, global_step, device))
+                values = metric_floats(metrics)
+                t_end = spans.phase(None)
                 trace.after(global_step)
                 global_step += 1
-                result.wait_s.append(t_upload - t_wait)
-                result.upload_s.append(t_step - t_upload)
-                result.step_s.append(t_end - t_step)
+                result.wait_s.append((t_upload - t_wait) / 1e9)
+                result.upload_s.append((t_step - t_upload) / 1e9)
+                result.step_s.append((t_end - t_step) / 1e9)
                 logger.log_step(epoch, i, steps_per_epoch, values,
                                 n=cfg.batch_size)
                 if on_step is not None:

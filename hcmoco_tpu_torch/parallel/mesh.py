@@ -22,17 +22,16 @@ places that see the batch as a whole go through the collectives here:
 
 With no process group, or a world of one, every function here is an
 identity and launches nothing, so a one-process run is what it was.
-`STATS` counts the collectives issued (in a world above one) and the host
-seconds spent in their calls: the collectives per step that PERF.md's
-collectives layer reads.
+`STATS` counts the collectives issued (in a world above one).  While
+spans record (utils/spans.py), each collective is a span named after
+its function: NCCL runs them asynchronously, so their time is the
+span's device interval, not the host's time in the call.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-import time
-from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,23 +39,23 @@ import torch
 import torch.distributed as dist
 
 from ..train import remat
+from ..utils import spans
 
 # the process group's timeout: a rank that waits longer on a collective
 # raises instead of hanging
 DEFAULT_TIMEOUT_S = 600
 
-# collectives issued in a world above one, and the host seconds in them
-STATS = {"calls": 0, "seconds": 0.0}
+# collectives issued in a world above one
+STATS = {"calls": 0}
+# the spans of the collectives, one a function
+COLLECTIVES = ("all_reduce_sum", "global_sum", "gather_rows",
+               "gather_rows_grad", "all_reduce_grads")
 
 
-@contextmanager
-def _counted():
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        STATS["calls"] += 1
-        STATS["seconds"] += time.perf_counter() - t0
+def _counted(name: str):
+    """The span of the collective `name`, counted."""
+    STATS["calls"] += 1
+    return spans.span(name)
 
 
 # torchrun's rendezvous variables, and a SLURM job step's that
@@ -227,7 +226,7 @@ def my_rows(global_rows: int) -> slice:
 
 def _all_reduced(t: torch.Tensor) -> torch.Tensor:
     out = t.clone(memory_format=torch.contiguous_format)
-    with _counted():
+    with _counted("all_reduce_sum"):
         dist.all_reduce(out)
     return out
 
@@ -245,7 +244,7 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        with _counted():
+        with _counted("all_reduce_sum"):
             dist.all_reduce(g)
         return g
 
@@ -267,7 +266,7 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     if world_size() == 1:
         return t
     out = t.detach().clone()
-    with _counted():
+    with _counted("global_sum"):
         dist.all_reduce(out)
     return out
 
@@ -280,7 +279,7 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
         return t
     t = t.detach().contiguous()
     parts = [torch.empty_like(t) for _ in range(world_size())]
-    with _counted():
+    with _counted("gather_rows"):
         dist.all_gather(parts, t)
     return torch.cat(parts)
 
@@ -296,14 +295,14 @@ class _GatherRows(torch.autograd.Function):
         ctx.rank, ctx.rows = rank, t.shape[0]
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(size)]
-        with _counted():
+        with _counted("gather_rows_grad"):
             dist.all_gather(parts, t)
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        with _counted():
+        with _counted("gather_rows_grad"):
             dist.all_reduce(g)
         return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
 
@@ -336,7 +335,7 @@ def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:
         return
     grads: List[torch.Tensor] = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    with _counted():
+    with _counted("all_reduce_grads"):
         dist.all_reduce(flat)
     offset = 0
     for g in grads:

@@ -63,6 +63,7 @@ from ..contrast.memory import (cmc3_forward, cmc3_losses_counts,
 from ..core.config import TrainConfig
 from ..parallel.mesh import (all_reduce_grads, gather_rows, gather_rows_grad,
                              global_sum, my_rows, world_size)
+from ..utils.spans import span
 from .remat import check_policy, recompute
 from .schedules import learning_rate_fn
 from .state import TrainState
@@ -198,7 +199,9 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
     """Build loss_fn(state, batch, generator=None) -> (loss, metrics,
     commit): one forward of the train step, with commit() the bank EMA
     update, to be called after the loss's backward (its graph holds the
-    banks as they were).  Metrics are 0-d tensors, detached."""
+    banks as they were).  Metrics are 0-d tensors, detached.  The model's
+    forward is the span `forward`, the losses from its outputs `nce`
+    (utils/spans.py)."""
     if cfg.modal in ("RGB", "CMC"):
         return _baseline_bank_loss_fn(cfg, model)
     if (cfg.modal != "RGBD2S" or cfg.mem not in ("bank", "bank+jointspri3d")
@@ -216,26 +219,10 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
     if hrnet_remat:
         check_policy(cfg.remat_policy)
 
-    def loss_fn(state: TrainState, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> tuple:
-        batch = device_normalize(batch)
-        model.train()
-        y = batch["index"].long()
-        # NHWC -> NCHW: a view, channels_last in memory
-        rgbd = batch["rgbd"].permute(0, 3, 1, 2)
-        if cfg.arch == "HRNetPN":
-            # the point-cloud branch needs the crop-tracked pixel coords
-            # and the per-sample depth mean (_train_mem_skeleton3d
-            # :557-561)
-            out = model(rgbd, batch["skeleton"], batch["depth_mask"],
-                        batch["grid_xy"], cfg.pn_ori_h, cfg.pn_ori_w,
-                        batch["depth_mean"], generator=generator,
-                        u=batch.get("pts_u"), return_fm=stage2)
-        elif hrnet_remat:
-            with recompute(cfg.remat_policy):
-                out = model(rgbd, batch["skeleton"], return_fm=stage2)
-        else:
-            out = model(rgbd, batch["skeleton"], return_fm=stage2)
+    def nce(state: TrainState, batch: Dict[str, torch.Tensor], out: dict,
+            y: torch.Tensor, generator: Optional[torch.Generator]) -> tuple:
+        """The six-way NCE against the banks, and stage 2's losses, from
+        the model's outputs: (loss, metrics, commit)."""
         feats = torch.stack([out["feat1"], out["feat2"], out["feat3"]])
         use_depth = batch.get("use_depth") if cfg.modality_missing else None
         # stage 2 masks the six directions by use_depth only
@@ -293,6 +280,30 @@ def make_contrast_loss_fn(cfg: TrainConfig, model: torch.nn.Module
             metrics[f"nce_acc_{name}"] = a.detach()
         metrics["loss"] = loss.detach()
         return loss, metrics, commit
+
+    def loss_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> tuple:
+        with span("forward"):
+            batch = device_normalize(batch)
+            model.train()
+            y = batch["index"].long()
+            # NHWC -> NCHW: a view, channels_last in memory
+            rgbd = batch["rgbd"].permute(0, 3, 1, 2)
+            if cfg.arch == "HRNetPN":
+                # the point-cloud branch needs the crop-tracked pixel
+                # coords and the per-sample depth mean
+                # (_train_mem_skeleton3d :557-561)
+                out = model(rgbd, batch["skeleton"], batch["depth_mask"],
+                            batch["grid_xy"], cfg.pn_ori_h, cfg.pn_ori_w,
+                            batch["depth_mean"], generator=generator,
+                            u=batch.get("pts_u"), return_fm=stage2)
+            elif hrnet_remat:
+                with recompute(cfg.remat_policy):
+                    out = model(rgbd, batch["skeleton"], return_fm=stage2)
+            else:
+                out = model(rgbd, batch["skeleton"], return_fm=stage2)
+        with span("nce"):
+            return nce(state, batch, out, y, generator)
 
     return loss_fn
 
@@ -527,16 +538,21 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
     Metrics: nce_loss_*/nce_acc_* for the six directions, loss and
     learning_rate, and in stage 2 STAGE2_METRICS, as 0-d tensors
     (learning_rate a float).  The baselines' metrics are their branches'
-    (_baseline_bank_loss_fn); mem='moco' is make_moco_train_step's."""
+    (_baseline_bank_loss_fn); mem='moco' is make_moco_train_step's.
+    Spans (utils/spans.py; none under mem='moco'): the step is
+    `train_step`, its global step attached; inside it each microbatch's
+    `forward` and `nce` (HCMoCo's loss_fn; the bank baselines' is not
+    split), `backward` and `bank_update`, then `optimizer` (the
+    gradients' all-reduce as `grad_sync` inside it) and `metrics`."""
     if cfg.mem == "moco":
         return make_moco_train_step(cfg, model, steps_per_epoch)
     loss_fn = make_contrast_loss_fn(cfg, model)
     n_micro = max(cfg.microbatch, 1)
     lr_fn = learning_rate_fn(cfg, steps_per_epoch)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator]
+             ) -> Dict[str, torch.Tensor]:
         parts = [batch] if n_micro == 1 else _split(batch, n_micro)
         lr = lr_fn(state.step)
         for group in state.optimizer.param_groups:
@@ -545,20 +561,31 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
         per_part = []
         for part in parts:
             loss, metrics, commit = loss_fn(state, part, generator)
-            (loss / n_micro if n_micro > 1 else loss).backward()
-            commit()
+            with span("backward"):
+                (loss / n_micro if n_micro > 1 else loss).backward()
+            with span("bank_update"):
+                commit()
             per_part.append(metrics)
-        fill_missing_grads(state.optimizer)
-        sync_grads(state.optimizer)
-        state.optimizer.step()
+        with span("optimizer"):
+            fill_missing_grads(state.optimizer)
+            with span("grad_sync"):
+                sync_grads(state.optimizer)
+            state.optimizer.step()
         state.step += 1
-        per_part = [global_metrics(m) for m in per_part]
-        if n_micro == 1:
-            metrics = per_part[0]
-        else:
-            metrics = {k: torch.stack([m[k] for m in per_part]).mean()
-                       for k in per_part[0]}
+        with span("metrics"):
+            per_part = [global_metrics(m) for m in per_part]
+            if n_micro == 1:
+                metrics = per_part[0]
+            else:
+                metrics = {k: torch.stack([m[k] for m in per_part]).mean()
+                           for k in per_part[0]}
         metrics["learning_rate"] = lr
         return metrics
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        with span("train_step", step=state.step):
+            return step(state, batch, generator)
 
     return train_step

@@ -89,7 +89,8 @@ def test_unported_flags_raise(argv, exc, match, monkeypatch):
 
 
 def _trace_spans(trace_dir: str) -> list:
-    """The `global_step N` spans of the one trace file under trace_dir."""
+    """The `global_step N` spans of the one trace file under trace_dir,
+    which holds the CPU's activity and the program's spans."""
     import glob
     import json
 
@@ -98,6 +99,9 @@ def _trace_spans(trace_dir: str) -> list:
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    program = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"data_wait", "upload", "forward", "nce", "backward",
+            "bank_update", "optimizer", "grad_sync", "metrics"} <= program
     return sorted(e["name"] for e in events
                   if e.get("name", "").startswith("global_step "))
 
@@ -105,9 +109,10 @@ def _trace_spans(trace_dir: str) -> list:
 def test_profile_dir_writes_a_trace(tmp_path, capsys):
     """--profile_dir traces global steps 10-15 as the JAX CLI's
     jax.profiler trace does (torch.profiler, CPU activity on the CPU):
-    a 16-step run writes one trace whose step spans are those six and
-    says where; a 12-step run, which ends inside the window, writes what
-    it traced (steps 10 and 11) when it ends."""
+    a 16-step run writes one trace whose step spans are those six, with
+    the program's spans inside them, and says where; a 12-step run,
+    which ends inside the window, writes what it traced (steps 10 and
+    11) when it ends."""
     base = ["--recipe", "first_stage/ntumpiirgbd2s_hrnet_w18", "--synthetic",
             "64", "--epochs", "1"] + TINY
     for steps, want in ((16, range(10, 16)), (12, range(10, 12))):

@@ -14,9 +14,8 @@ torch.profiler.  Prints, with every card's name and power limit:
   - the median step and samples/s of the one-card run and of rank 0 of
     the multi-card run, and the scaling efficiency (multi-card samples/s
     over `ranks` times one card's);
-  - the collectives a step (parallel/mesh.py's STATS) and their host ms,
-    the NCCL kernels a step and their device ms (profiler rows whose name
-    holds 'nccl');
+  - the collectives a step (parallel/mesh.py's STATS), the NCCL kernels
+    a step and their device ms (profiler rows whose name holds 'nccl');
   - that the ranks' parameters and banks are equal bit for bit after the
     last step.
 """
@@ -80,7 +79,7 @@ def run(args, rank: int, size: int) -> dict:
         step(state, batch, torch.Generator(dev).manual_seed(i))
         sync()
         times.append(time.perf_counter() - t0)
-    mesh.STATS.update(calls=0, seconds=0.0)
+    mesh.STATS.update(calls=0)
     acts = [ProfilerActivity.CPU] + ([] if cpu else [ProfilerActivity.CUDA])
     with profile(activities=acts) as prof:
         for i in range(PROFILED):
@@ -99,7 +98,6 @@ def run(args, rank: int, size: int) -> dict:
     return dict(rank_rows=args.batch, ranks=size, median_ms=med * 1e3,
                 samples_s=args.batch * size / med,
                 collectives=mesh.STATS["calls"] / PROFILED,
-                collective_host_ms=mesh.STATS["seconds"] / PROFILED * 1e3,
                 nccl_kernels=len(nccl) / PROFILED,
                 nccl_device_ms=sum(us for _, us in nccl) / PROFILED / 1e3,
                 ranks_equal=equal)
@@ -186,7 +184,6 @@ def main() -> None:
           f"{many['samples_s']:.2f} samples/s, one rank "
           f"{one['samples_s']:.2f}: scaling efficiency {eff:.3f}; "
           f"{many['collectives']:.0f} collectives a step, "
-          f"{many['collective_host_ms']:.1f} host ms in their calls, "
           f"{many['nccl_kernels']:.0f} NCCL kernels a step, "
           f"{many['nccl_device_ms']:.2f} device ms")
 
