@@ -4,8 +4,9 @@ shapes, and drives the train steps the port has through its entry points:
 
   * HCMoCo (HRNet-W18 x2 + SemGCN, 320^2 crops, bank NCE with K=16384,
     bs32) with HCMOCO_CONVBN_FUSE=1, the path of kernels K1 (its fast path
-    at the layer1 sites, its generic path at the 62 fuse-layer sites) and
-    K1b;
+    at the layer1 sites, its generic path at the 62 fuse-layer sites), K1b
+    and the BN-site kernels at the 530 other ConvBN sites (check_bn_sites
+    holds them to their plain versions at the benchmark cell's shapes);
   * HRNetPN (HRNet-W18 + PointNet++ MSG on 4096 depth points + SemGCN,
     320^2, K=16384, bs64), the path of kernels K2-K6, then two more of its
     steps under torch.profiler (device ms per kernel class); K56a past
@@ -519,6 +520,173 @@ def check_k1b(card: str, shapes=K1B_SHAPES, clamp: bool = True) -> list:
               "hcmoco_tpu/ops/pallas/matmul_bn.py:111"))
     return [kernel_entry(n, "matmul_bn.cu", rep, err, t[0], t[1], bnd, lib)
             for (n, rep), err, (t, bnd, lib) in zip(names, errs, main)]
+
+
+# The BN-site kernels' (R, C, site, NHWC shape) at the benchmark cell's
+# batch of 224 at 320^2: the largest call (the stem's conv1) and branch 0,
+# then a ragged R whose stream ends inside a chunk and inside a vector
+BN_SITE_SHAPES = ((224 * 160 * 160, 64, "stem conv1 160x160",
+                   (224, 160, 160, 64)),
+                  (224 * 80 * 80, 18, "branch 0 80x80", (224, 80, 80, 18)),
+                  (12800 + 37, 18, "ragged R, C=18", (1, 1, 12837, 18)))
+
+
+def check_bn_sites(card: str) -> list:
+    """The BN-site kernels (conv_out_bn's: forward sums, apply, backward
+    sums, dx) against their plain versions on the same inputs, with and
+    without the ReLU, at BN_SITE_SHAPES: out and dx equal bit for bit
+    (the plain versions fed the kernels' sums), mean/var/rstd within 1 f32
+    ulp, the running statistics within 2, the sums within 1e-5 of the f64
+    sums of their terms' magnitudes and the same bits over two launches.
+    Times each at the first two shapes beside the plain version and, as
+    the library yardstick, the chain they replace (f32 cast, cuDNN's
+    F.batch_norm, cast back, ReLU; the backward's threshold, cast,
+    native_batch_norm_backward, cast back).  Returns the JSON entries at
+    the first shape."""
+    import torch.nn.functional as F
+
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    errs = [0.0] * 4
+    main = None
+    for r, c, site, shape4 in BN_SITE_SHAPES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        y = (rnd(r, c) * 1.3 + 0.2).bfloat16()
+        y[:, 0] = 0.5
+        yd = y.double()
+        scale = torch.rand((c,), generator=g, device=dev) + 0.5
+        bias = rnd(c)
+        dout = rnd(r, c).bfloat16()
+        dm, dv = rnd(c) * 1e-3, rnd(c) * 1e-3
+        s = mb.bn_sums_cuda(y)
+        if not torch.equal(s, mb.bn_sums_cuda(y)):
+            raise AssertionError(f"BN-site sums differ between launches at "
+                                 f"{site}")
+        errs[0] = max(errs[0], within(
+            f"BN-site s1 at {site}", s[0], yd.sum(0),
+            1e-5 * yd.abs().sum(0)))
+        within(f"BN-site s2 at {site}", s[1], (yd * yd).sum(0),
+               1e-5 * (yd * yd).sum(0))
+        for relu in (False, True):
+            at = f"{site}{', ReLU' if relu else ''}"
+            rm0, rv0 = rnd(c), rnd(c).abs() + 0.5
+            run_k = (rm0.clone(), rv0.clone(),
+                     torch.zeros((), dtype=torch.int64, device=dev), 0.01)
+            run_p = (rm0.clone(), rv0.clone(),
+                     torch.zeros((), dtype=torch.int64, device=dev), 0.01)
+            out, st = mb.bn_relu_fwd_cuda(y, s, scale, bias, 1e-5, relu,
+                                          run_k)
+            pout, pst = mb.bn_relu_fwd_plain(y, s, scale, bias, 1e-5, relu,
+                                             run_p)
+            if not torch.equal(out, pout):
+                within(f"BN-site out at {at}", out, pout,
+                       torch.zeros_like(pout, dtype=torch.float64))
+            within(f"BN-site mean/var/rstd at {at}", st, pst,
+                   f32_ulp(torch.maximum(st.abs(), pst.abs())))
+            for name, a, b in (("running_mean", run_k[0], run_p[0]),
+                               ("running_var", run_k[1], run_p[1])):
+                within(f"BN-site {name} at {at}", a, b,
+                       2 * f32_ulp(torch.maximum(a.abs(), b.abs())))
+            if not int(run_k[2]) == int(run_p[2]) == 1:
+                raise AssertionError(f"BN-site num_batches_tracked at {at}")
+            sums = mb.bn_relu_bwd_sums_cuda(dout, y, pst, scale, bias, relu)
+            if not torch.equal(sums, mb.bn_relu_bwd_sums_cuda(
+                    dout, y, pst, scale, bias, relu)):
+                raise AssertionError(f"BN-site backward sums differ between "
+                                     f"launches at {at}")
+            d = y.float() - pst[0]
+            gm = dout.float()
+            if relu:
+                gm = torch.where(d * (pst[2] * scale) + bias > 0, gm, 0.0)
+            terms = gm * (d * pst[2])
+            for i, name, ref, mag in (
+                    (0, "dbias", gm.double().sum(0), gm.double().abs().sum(0)),
+                    (1, "dscale", terms.double().sum(0),
+                     terms.double().abs().sum(0))):
+                errs[2] = max(errs[2], within(f"BN-site {name} at {at}",
+                                              sums[i], ref, 1e-5 * mag))
+            dx = mb.bn_relu_bwd_dx_cuda(dout, y, pst, scale, bias, sums, relu,
+                                        None, dm, dv)
+            pdx = mb.bn_relu_bwd_dx_plain(dout, y, pst, scale, bias, sums,
+                                          relu, None, dm, dv)
+            if not torch.equal(dx, pdx):
+                within(f"BN-site dx at {at}", dx, pdx,
+                       torch.zeros_like(pdx, dtype=torch.float64))
+            if not relu or shape4[0] == 1:
+                continue
+            calls = (
+                (lambda: mb.bn_sums_cuda(y), lambda: mb.bn_sums_plain(y)),
+                (lambda: mb.bn_relu_fwd_cuda(y, s, scale, bias, 1e-5, True,
+                                             run_k),
+                 lambda: mb.bn_relu_fwd_plain(y, s, scale, bias, 1e-5, True,
+                                              run_p)),
+                (lambda: mb.bn_relu_bwd_sums_cuda(dout, y, pst, scale, bias,
+                                                  True),
+                 lambda: mb.bn_relu_bwd_sums_plain(dout, y, pst, scale, bias,
+                                                   True)),
+                (lambda: mb.bn_relu_bwd_dx_cuda(dout, y, pst, scale, bias,
+                                                sums, True),
+                 lambda: mb.bn_relu_bwd_dx_plain(dout, y, pst, scale, bias,
+                                                 sums, True)))
+            times = [(cuda_ms(k), cuda_ms(p)) for k, p in calls]
+            # the chain the kernels replace, on the same channels_last
+            # tensors: cast, cuDNN BN in f32, cast back, ReLU; and back
+            y4 = y.view(shape4).permute(0, 3, 1, 2)
+            d4 = dout.view(shape4).permute(0, 3, 1, 2)
+            rm, rv = run_k[0].clone(), run_k[1].clone()
+            lib_f = cuda_ms(lambda: F.relu(F.batch_norm(
+                y4.float(), rm, rv, scale, bias, True, 0.01, 1e-5).to(
+                    torch.bfloat16)))
+            y4f = y4.float()
+            out4, smean, sinv = torch.ops.aten.native_batch_norm(
+                y4f, scale, bias, rm, rv, True, 0.01, 1e-5)
+            out4 = F.relu(out4.to(torch.bfloat16))
+            lib_b = cuda_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+                torch.ops.aten.threshold_backward(d4, out4, 0).float(), y4f,
+                scale, rm, rv, smean, sinv, True, 1e-5,
+                [True, True, True])[0].to(torch.bfloat16))
+            rc = r * c
+            # bf16 (R, C) tensors read and written once
+            bnds = (bound(2 * rc + 8 * c, 2 * rc, F32_OPS_S),
+                    bound(4 * rc + 36 * c, 4 * rc, F32_OPS_S),
+                    bound(4 * rc + 36 * c, 8 * rc, F32_OPS_S),
+                    bound(6 * rc + 36 * c, 8 * rc, F32_OPS_S))
+            names = ("fwd sums", "apply", "bwd sums", "dx")
+            print(f"BN-site R={r} C={c} ({site}, ReLU): " + ", ".join(
+                f"{n} {t[0]:.4f} ms (bound {b['bound_ms']:.4f}, "
+                f"{100 * b['bound_ms'] / t[0]:.1f}%; plain {t[1]:.4f})"
+                for n, t, b in zip(names, times, bnds))
+                + f"; the chain replaced: forward {lib_f:.4f} ms, backward "
+                f"{lib_b:.4f} ms; kernels forward "
+                f"{times[0][0] + times[1][0]:.4f}, backward "
+                f"{times[2][0] + times[3][0]:.4f} [{card}]")
+            if main is None:
+                main = list(zip(times, bnds, (None, lib_f, None, lib_b)))
+        print(f"BN-site R={r} C={c} ({site}): out and dx equal the plain "
+              f"versions bit for bit, sums within 1e-5 and the same over two "
+              f"launches, with and without ReLU [{card}]")
+    names = ("bn_sums (BN-site forward sums)",
+             "bn_relu_fwd (BN-site apply + ReLU + running stats)",
+             "bn_relu_bwd_sums (BN-site dbias, dscale)",
+             "bn_relu_bwd_dx (BN-site dx)")
+    rep = "none: hcmoco_tpu/models/hrnet.py:38 _bn_train_apply (XLA-fused)"
+    return [kernel_entry(n, "matmul_bn.cu", rep, err, t[0], t[1], bnd, lib)
+            for n, err, (t, bnd, lib) in zip(names, errs, main)]
+
+
+def bn_site_wrappers() -> dict:
+    """conv_out_bn's kernel wrappers, in the order of check_bn_sites'
+    entries; each launches once per BN site (models/hrnet.py::bn_sites)
+    and training step."""
+    from hcmoco_tpu_torch.ops import matmul_bn as mb
+
+    return {"bn_sums": mb.bn_sums_cuda, "bn_relu_fwd": mb.bn_relu_fwd_cuda,
+            "bn_relu_bwd_sums": mb.bn_relu_bwd_sums_cuda,
+            "bn_relu_bwd_dx": mb.bn_relu_bwd_dx_cuda}
 
 
 def depth_clouds(dev, batch_size: int, size: int, n_points: int):
@@ -1397,14 +1565,16 @@ def generic_sites(encoder) -> int:
                and (m.in_channels, m.out_channels) not in FAST_SHAPES)
 
 
-def drive_slice(card: str) -> dict:
+def drive_slice(card: str) -> tuple:
     """Stage-1 W18 320^2 bs32 train steps through the user entry points,
     HCMOCO_CONVBN_FUSE=1; returns K1's (all and generic-path) and K1b's
-    launches during the steps, in the order of their JSON entries."""
+    launches during the steps, in the order of their JSON entries, and the
+    BN-site kernels' (bn_site_wrappers)."""
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.ops import matmul_bn as mb
     from hcmoco_tpu_torch.models.build import build_model
-    from hcmoco_tpu_torch.models.hrnet import fused_sites, set_convbn_fuse
+    from hcmoco_tpu_torch.models.hrnet import (bn_sites, fused_sites,
+                                               set_convbn_fuse)
     from hcmoco_tpu_torch.train.contrast_step import make_contrast_train_step
     from hcmoco_tpu_torch.train.state import create_train_state
 
@@ -1422,6 +1592,7 @@ def drive_slice(card: str) -> dict:
         n_data=N_DATA), dev)
     sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
     generic = generic_sites(model.encoder1) + generic_sites(model.encoder2)
+    other = bn_sites(model.encoder1) + bn_sites(model.encoder2)
 
     # the fused and the unfused step from one copied state
     twin = copy.deepcopy(state)
@@ -1447,7 +1618,8 @@ def drive_slice(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = k1_wrappers()
-    for fn in wrappers.values():
+    site_wrappers = bn_site_wrappers()
+    for fn in (*wrappers.values(), *site_wrappers.values()):
         fn.launches = 0
     mb.mm_bn_stats_cuda.generic_launches = 0
     steady, metrics = timed_steps(step, state, batch, gen, STEPS,
@@ -1457,6 +1629,12 @@ def drive_slice(card: str) -> dict:
         if n != sites * STEPS:
             raise AssertionError(f"{name} launched {n} times in {STEPS} "
                                  f"steps, expected {sites} sites x {STEPS}")
+    site_launches = {name: fn.launches for name, fn in site_wrappers.items()}
+    for name, n in site_launches.items():
+        if n != other * STEPS:
+            raise AssertionError(f"{name} launched {n} times in {STEPS} "
+                                 f"steps, expected {other} BN sites x "
+                                 f"{STEPS}")
     n_gen = mb.mm_bn_stats_cuda.generic_launches
     if n_gen != generic * STEPS:
         raise AssertionError(f"K1's generic path launched {n_gen} times in "
@@ -1470,8 +1648,9 @@ def drive_slice(card: str) -> dict:
           f" ms = {BATCH / steady:.2f} samples/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1/K1b launches "
           f"{launches}, each {sites} sites x {STEPS} steps ({generic} sites "
-          f"on K1's generic path) [{card}]")
-    return launches
+          f"on K1's generic path); BN-site launches {site_launches}, each "
+          f"{other} sites x {STEPS} steps [{card}]")
+    return launches, site_launches
 
 
 def check_build_wide(card: str) -> None:
@@ -5210,11 +5389,16 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
     k1 = check_k1(card) + check_k1b(card)
+    sites = check_bn_sites(card)
     small_reference_check(card)
     small_stage2_check(card, "HRNet")
     # each main path is driven with the counts set to 0 just before it;
-    # an entry's launches are the sum over the paths that run it
-    k1_runs = [drive_slice(card), drive_stage2(card, "HRNet")]
+    # an entry's launches are the sum over the paths that run it (the
+    # BN-site kernels': over the stage-1 slice)
+    slice_k1, site_launches = drive_slice(card)
+    for entry, name in zip(sites, site_launches):
+        entry["launches"] = site_launches[name]
+    k1_runs = [slice_k1, drive_stage2(card, "HRNet")]
     points = check_points(card)
     check_pts2depth(card)
     check_csr_wide(card)
@@ -5274,7 +5458,7 @@ def main() -> int:
             entry["launches"] = sum(r[name] for r in runs)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: e[k] for k in keys} for e in k1 + points]
+    kernels = [{k: e[k] for k in keys} for e in k1 + sites + points]
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                              "hcmoco_tpu"))

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _PKG_DIR.parent / "build" / "hcmoco_tpu_torch"
 SOURCES = tuple(_PKG_DIR / "csrc" / name for name in (
-    "matmul_bn.cu",      # K1, K1b
+    "matmul_bn.cu",      # K1, K1b, the BN-site kernels
     "fps.cu",            # K2
     "ball_query.cu",     # K3
     "three_nn.cu",       # K4
@@ -118,6 +118,14 @@ def load() -> ctypes.CDLL:
             lib.hcmoco_bn_bwd_stats.argtypes = ([ci] + [vp] * 14
                                                 + [ci, ci, ci, vp])
             lib.hcmoco_bn_bwd_dy.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
+            lib.hcmoco_bn_site_slots.argtypes = [ci]
+            lib.hcmoco_bn_site_sums.argtypes = [ci] + [vp] * 3 + [ci, ci, vp]
+            lib.hcmoco_bn_site_fwd.argtypes = ([ci] + [vp] * 9
+                                               + [ci] * 4 + [f] * 4 + [vp])
+            lib.hcmoco_bn_site_bwd_sums.argtypes = ([ci] + [vp] * 7
+                                                    + [ci] * 3 + [vp])
+            lib.hcmoco_bn_site_bwd_dx.argtypes = ([ci] + [vp] * 9
+                                                  + [ci] * 4 + [vp])
             lib.hcmoco_fps_scratch.argtypes = [ci]
             lib.hcmoco_fps_scratch.restype = ctypes.c_longlong
             lib.hcmoco_fps.argtypes = [vp, vp, vp, ci, ci, ci, vp]
@@ -133,7 +141,10 @@ def load() -> ctypes.CDLL:
             for fn in (lib.hcmoco_mm_bn_slots, lib.hcmoco_mm_bn_stats,
                        lib.hcmoco_mm_bn_dyt, lib.hcmoco_bn_fwd,
                        lib.hcmoco_bn_bwd_slots, lib.hcmoco_bn_bwd_stats,
-                       lib.hcmoco_bn_bwd_dy, lib.hcmoco_fps,
+                       lib.hcmoco_bn_bwd_dy, lib.hcmoco_bn_site_slots,
+                       lib.hcmoco_bn_site_sums, lib.hcmoco_bn_site_fwd,
+                       lib.hcmoco_bn_site_bwd_sums,
+                       lib.hcmoco_bn_site_bwd_dx, lib.hcmoco_fps,
                        lib.hcmoco_ball_query, lib.hcmoco_three_nn,
                        lib.hcmoco_group_fwd, lib.hcmoco_interp_fwd,
                        lib.hcmoco_dest_csr, lib.hcmoco_segment_sum):

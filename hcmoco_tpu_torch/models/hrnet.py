@@ -11,13 +11,17 @@ a copy.  Convs run in `dtype` (bf16 on the card); BN math in f32; params and
 BN statistics are f32 (a model moved to float64 with dtype float64 runs
 every op in float64, the CPU tests' reference).
 
-HCMOCO_CONVBN_FUSE=1, read when the model is built, routes every 1x1
-stride-1 ConvBN site in training through conv1x1_bn_stats + bn_apply_stats
-(ops/matmul_bn.py), which compute the BN channel sums in the conv's
-epilogue, and normalise with them in one pass each way (on the card, kernels
-K1 and K1b); `set_convbn_fuse` switches a built model.  Both paths update the
-BN running statistics with torch semantics (unbiased running variance); the
-fused path does it inside bn_apply_stats.
+HCMOCO_CONVBN_FUSE=1, read when the model is built, routes every HRNet
+ConvBN site in training through the port's own BN kernels
+(ops/matmul_bn.py): a 1x1 stride-1 site through conv1x1_bn_stats +
+bn_apply_stats, which compute the BN channel sums in the conv's epilogue
+and normalise with them in one pass each way (on the card, kernels K1 and
+K1b); every other site (the 3x3 and strided convs) through conv_out_bn,
+BN(+ReLU) of the bf16 conv output in one sums and one apply pass forward
+and one sums and one dx pass backward, with nothing cast to f32.
+`set_convbn_fuse` switches a built model.  Both paths update the BN
+running statistics with torch semantics (unbiased running variance); the
+fused paths do it inside their apply.
 
 Under TrainConfig.remat (train/remat.py) the stem, each residual block,
 each standalone ConvBN and each fused output of an HRModule is a region
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import HRNetConfig, HRNetStageSpec
-from ..ops.matmul_bn import bn_apply_stats, conv1x1_bn_stats
+from ..ops.matmul_bn import bn_apply_stats, conv1x1_bn_stats, conv_out_bn
 from ..parallel.batchnorm import GlobalBatchNorm2d
 from ..parallel.mesh import all_reduce_sum, world_size
 from ..train import remat
@@ -46,15 +50,17 @@ BN_MOMENTUM = 0.01
 
 
 def convbn_fuse_enabled() -> bool:
-    """HCMOCO_CONVBN_FUSE=1: BN channel sums from the 1x1 conv's epilogue."""
+    """HCMOCO_CONVBN_FUSE=1: every HRNet ConvBN site in training takes the
+    port's BN kernels (K1/K1b at a 1x1 stride-1 site, conv_out_bn at the
+    others) instead of nn.BatchNorm on an f32 cast."""
     return os.environ.get("HCMOCO_CONVBN_FUSE", "0") == "1"
 
 
 def set_convbn_fuse(module: nn.Module, on: bool) -> nn.Module:
-    """Switch every 1x1 ConvBN site under `module` to the fused (on) or the
-    plain path, whatever HCMOCO_CONVBN_FUSE was when it was built."""
+    """Switch every HRNet ConvBN site under `module` to the fused (on) or
+    the plain path, whatever HCMOCO_CONVBN_FUSE was when it was built."""
     for m in module.modules():
-        if isinstance(m, (ConvBN, Bottleneck)):
+        if isinstance(m, (ConvBN, BasicBlock, Bottleneck, HRNet)):
             m.convbn_fuse = on
     return module
 
@@ -93,18 +99,28 @@ class _KeptConv(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+def _running(bn: nn.BatchNorm2d):
+    """The running statistics a fused site's apply updates: none in a
+    recompute, which leaves them as the first run set them."""
+    if remat.replaying():
+        return None
+    return (bn.running_mean, bn.running_var, bn.num_batches_tracked,
+            bn.momentum)
+
+
 def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
             relu: bool, dtype: torch.dtype, fuse: bool = False
             ) -> torch.Tensor:
-    """One ConvBN site: conv in `dtype`, BN in f32, output in `dtype`.
-    With `fuse`, a 1x1 stride-1 site in training takes the fused path.
-    Under data parallelism BN takes the global batch's statistics: the
-    fused path all-reduces K1's channel sums (one all-reduce of the packed
-    (2C,) sums) before K1b normalises by the global row count, the plain
-    path through GlobalBatchNorm2d.  The conv's output (K1's y and sums
-    on the fused path) is what remat_policy 'conv_out' keeps for the
-    recompute (train/remat.py), where JAX's checkpoint_name(y,
-    "conv_out") anchors."""
+    """One ConvBN site: conv in `dtype`, BN statistics in f32, output in
+    `dtype`.  With `fuse`, a site in training takes a fused path: a 1x1
+    stride-1 site K1 + K1b, every other site conv_out_bn on the conv's
+    output.  Under data parallelism BN takes the global batch's
+    statistics: the fused paths all-reduce their channel sums (one
+    all-reduce of the packed (2C,) sums) and normalise by the global row
+    count, the plain path through GlobalBatchNorm2d.  The conv's output
+    (K1's y and sums on the 1x1 path) is what remat_policy 'conv_out'
+    keeps for the recompute (train/remat.py), where JAX's
+    checkpoint_name(y, "conv_out") anchors."""
     w = conv.weight.to(dtype)
     if fuse and bn.training and _is_fusable(conv):
         b, cin, h, wd = x.shape
@@ -120,19 +136,20 @@ def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
             sums = all_reduce_sum(torch.cat([s1, s2]))
             s1, s2 = sums[:c], sums[c:]
             n = y2d.shape[0] * size
-        # a recompute leaves the running statistics as the first run set
-        # them
-        running = None if remat.replaying() else (
-            bn.running_mean, bn.running_var, bn.num_batches_tracked,
-            bn.momentum)
         out2d, _, _ = bn_apply_stats(y2d, s1, s2, bn.weight, bn.bias, bn.eps,
-                                     running=running, n=n)
+                                     running=_running(bn), n=n)
         y = out2d.view(b, h, wd, -1).permute(0, 3, 1, 2)
     else:
         xd = x.to(dtype)
         conf = (conv.stride, conv.padding, conv.dilation, conv.groups)
         y = (_KeptConv.apply(xd, w, *conf) if remat.keeps_conv_out()
              else F.conv2d(xd, w, None, *conf))
+        if fuse and bn.training:
+            b, c, h, wd = y.shape
+            out2d = conv_out_bn(y.permute(0, 2, 3, 1).reshape(-1, c),
+                                bn.weight, bn.bias, bn.eps, relu,
+                                _running(bn), world_size())
+            return out2d.view(b, h, wd, c).permute(0, 3, 1, 2)
         y = bn(y.to(stat_dtype(y.dtype))).to(dtype)
     return F.relu(y) if relu else y
 
@@ -175,14 +192,15 @@ class BasicBlock(nn.Module):
         self.downsample = (ConvBN(inplanes, planes, 1, stride, False, dtype)
                            if downsample else None)
         self.compute_dtype = dtype
+        self.convbn_fuse = convbn_fuse_enabled()
 
     def forward(self, x):
         return region(self._forward, x)
 
     def _forward(self, x):
-        d = self.compute_dtype
-        out = conv_bn(self.conv1, self.bn1, x, True, d)
-        out = conv_bn(self.conv2, self.bn2, out, False, d)
+        d, fuse = self.compute_dtype, self.convbn_fuse
+        out = conv_bn(self.conv1, self.bn1, x, True, d, fuse)
+        out = conv_bn(self.conv2, self.bn2, out, False, d, fuse)
         res = x if self.downsample is None else self.downsample(x)
         return F.relu(out + res)
 
@@ -213,7 +231,7 @@ class Bottleneck(nn.Module):
     def _forward(self, x):
         d, fuse = self.compute_dtype, self.convbn_fuse
         out = conv_bn(self.conv1, self.bn1, x, True, d, fuse)
-        out = conv_bn(self.conv2, self.bn2, out, True, d)
+        out = conv_bn(self.conv2, self.bn2, out, True, d, fuse)
         out = conv_bn(self.conv3, self.bn3, out, False, d, fuse)
         res = x if self.downsample is None else self.downsample(x)
         return F.relu(out + res)
@@ -336,6 +354,7 @@ class HRNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.compute_dtype = dtype
+        self.convbn_fuse = convbn_fuse_enabled()
         stem = config.stem_channels
         self.conv1 = _conv(in_channels, stem, 3, 2)
         self.bn1 = GlobalBatchNorm2d(stem, momentum=BN_MOMENTUM)
@@ -382,9 +401,9 @@ class HRNet(nn.Module):
         return xs
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        d = self.compute_dtype
-        x = conv_bn(self.conv1, self.bn1, x, True, d)
-        return conv_bn(self.conv2, self.bn2, x, True, d)
+        d, fuse = self.compute_dtype, self.convbn_fuse
+        x = conv_bn(self.conv1, self.bn1, x, True, d, fuse)
+        return conv_bn(self.conv2, self.bn2, x, True, d, fuse)
 
 
 def fused_sites(encoder: HRNet) -> int:
@@ -392,3 +411,11 @@ def fused_sites(encoder: HRNet) -> int:
     through K1 (one K1 launch each per training forward)."""
     return sum(1 for m in encoder.modules()
                if isinstance(m, nn.Conv2d) and _is_fusable(m))
+
+
+def bn_sites(encoder: HRNet) -> int:
+    """Number of ConvBN sites of an HRNet that HCMOCO_CONVBN_FUSE=1 routes
+    through conv_out_bn (the 3x3 and strided convs; one launch of each of
+    its four kernel wrappers per site and training step)."""
+    return sum(1 for m in encoder.modules()
+               if isinstance(m, nn.Conv2d) and not _is_fusable(m))

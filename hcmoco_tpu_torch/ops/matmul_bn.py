@@ -9,7 +9,11 @@ ConvBN site in training, `conv1x1_bn_stats` computes
     s2 = sum_rows f32(y)^2
 
 in one pass, and `bn_apply_stats` normalises y from those sums, so the BN
-statistics cost no second read of the activation.  Each direction of
+statistics cost no second read of the activation.  Every other ConvBN site
+of an HRNet in training (the 3x3 and strided convs) takes `conv_out_bn`:
+train-mode BN(+ReLU) of the conv's bf16 output in one sums pass and one
+apply pass forward and one sums pass and one dx pass backward, with f32
+statistics (the batch_norm_* kernels).  Each direction of
 `bn_apply_stats` is one pass over y on the card (K1b, the custom-VJP
 companion that XLA fuses in the JAX package); its forward can also update
 the BN running statistics in the same launch.
@@ -27,12 +31,21 @@ there is no fallback.  Each kernel wrapper counts its launches in its
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import _build
+from ..parallel.mesh import all_reduce_sum
 from ..train import remat
 
 BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The dtype a plain version computes in for t: f32, or float64 for a
+    float64 t (a model run in float64, the CPU tests' reference)."""
+    return torch.promote_types(t.dtype, F32)
 
 
 def _check_cuda(fn: str, specs) -> int:
@@ -86,7 +99,7 @@ def _stream(idx: int) -> int:
 def mm_bn_stats_plain(x2d: torch.Tensor, w: torch.Tensor):
     """Plain PyTorch version: (R, K) x (C, K) -> (y (R, C), s1 (C,), s2 (C,))."""
     y = torch.matmul(x2d, w.t())
-    yf = y.float()
+    yf = y.to(_acc(y))
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
@@ -167,8 +180,9 @@ def mm_bn_stats(x2d: torch.Tensor, w: torch.Tensor):
 def mm_bn_bwd_dyt_plain(dy: torch.Tensor, y: torch.Tensor,
                         ds1: torch.Tensor, ds2: torch.Tensor) -> torch.Tensor:
     """Plain version of K1's backward prologue, in y's dtype."""
-    return (dy.float() + ds1.float()[None, :]
-            + 2.0 * y.float() * ds2.float()[None, :]).to(y.dtype)
+    acc = _acc(y)
+    return (dy.to(acc) + ds1.to(acc)[None, :]
+            + 2.0 * y.to(acc) * ds2.to(acc)[None, :]).to(y.dtype)
 
 
 def mm_bn_bwd_dyt_cuda(dy: torch.Tensor, y: torch.Tensor, ds1: torch.Tensor,
@@ -257,7 +271,7 @@ def bn_apply_fwd_plain(y, s1, s2, scale, bias, eps: float, running=None,
     mean = s1 / r
     var = torch.clamp(s2 / r - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
-    out = ((y.float() - mean) * (rstd * scale) + bias).to(y.dtype)
+    out = ((y.to(_acc(y)) - mean) * (rstd * scale) + bias).to(y.dtype)
     if running is not None:
         _update_running(running, mean, var, r)
     return out, mean, var, rstd
@@ -314,8 +328,8 @@ def bn_apply_bwd_stats_plain(dout, y, s1, mean, var, rstd, scale, dmean_ct,
     """Plain version of K1b's backward pass 1: the column sums dscale,
     dbias over y's rows and the cotangents ds1, ds2 of the channel sums
     of `n` rows (y's by default)."""
-    dof = dout.float()
-    yhat = (y.float() - mean) * rstd
+    dof = dout.to(_acc(y))
+    yhat = (y.to(_acc(y)) - mean) * rstd
     dbias = dof.sum(0)
     dscale = (dof * yhat).sum(0)
     # out = (y - s1/R) * rstd(var(s1, s2)) * scale + bias
@@ -374,7 +388,7 @@ def bn_apply_bwd_stats(dout, y, s1, mean, var, rstd, scale, dmean_ct,
 
 def bn_apply_bwd_dy_plain(dout, rstd, scale):
     """Plain version of K1b's backward pass 2, in dout's dtype."""
-    return (dout.float() * (rstd * scale)).to(dout.dtype)
+    return (dout.to(_acc(dout)) * (rstd * scale)).to(dout.dtype)
 
 
 def bn_apply_bwd_dy_cuda(dout, rstd, scale):
@@ -438,3 +452,298 @@ def bn_apply_stats(y: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
     num_batches_tracked, momentum) of an nn.BatchNorm, updated in place
     with torch semantics (unbiased running variance, var * N/(N-1))."""
     return _BNApplyStats.apply(y, s1, s2, scale, bias, eps, running, n)
+
+
+# --------------------------------------------------------------------------
+# BN(+ReLU) at the ConvBN sites that K1 does not take: train-mode BN of a
+# conv's output y (R, C), one sums pass and one apply pass forward, one
+# sums pass and one dx pass backward (the batch_norm_* kernels of
+# csrc/matmul_bn.cu; hcmoco_tpu/models/hrnet.py::_bn_train_apply in the
+# JAX package).  The plain versions compute in f32 for a bf16 y, as the
+# kernels do, and in float64 otherwise (a model run in f32 or float64 on
+# the CPU): their outputs take y's dtype, the sums and stats the acc's.
+
+
+def _site_acc(y: torch.Tensor) -> torch.dtype:
+    return F32 if y.dtype == BF16 else torch.float64
+
+
+def _site_cols(fn: str, c: int) -> None:
+    """Refuse a C whose chunk of lcm(8, C) elements is over 2048: a chunk's
+    16-byte vectors must fit a 256-thread block."""
+    if math.lcm(8, c) > 2048:
+        raise ValueError(f"{fn}: C={c} out of range (lcm(8, C) must be at "
+                         "most 2048)")
+
+
+# device index -> f64 slots of the sums kernels' scratch
+_site_slots: dict = {}
+
+
+class _Site:
+    """The BN-site kernels' launches for an (R, C) site on y's device and
+    its current stream, on tensors the caller has checked: the kernel
+    wrappers below check every argument and launch through it, and
+    conv_out_bn checks its inputs once a call and launches through it
+    (the tensors it makes itself need no check)."""
+
+    def __init__(self, y: torch.Tensor):
+        self.r, self.c = y.shape
+        self.dev = y.get_device()
+        self.lib = _build.load()
+
+    def _call(self, fn: str, entry: str, *args) -> None:
+        rc = getattr(self.lib, entry)(self.dev, *args, _stream(self.dev))
+        _build.check(self.lib, rc, fn)
+
+    def _vec(self, rows: int) -> torch.Tensor:
+        return torch.empty((rows, self.c), dtype=F32, device=self.dev)
+
+    def _partials(self) -> torch.Tensor:
+        if self.dev not in _site_slots:
+            _site_slots[self.dev] = self.lib.hcmoco_bn_site_slots(self.dev)
+        return torch.empty((_site_slots[self.dev], 2, self.c),
+                           dtype=torch.float64, device=self.dev)
+
+    def sums(self, y) -> torch.Tensor:
+        s = self._vec(2)
+        self._call("bn_sums_cuda", "hcmoco_bn_site_sums", y.data_ptr(),
+                   self._partials().data_ptr(), s.data_ptr(), self.r, self.c)
+        bn_sums_cuda.launches += 1
+        return s
+
+    def fwd(self, y, s, scale, bias, eps: float, relu: bool, running, n):
+        ptrs, momentum = [None, None, None], 0.0
+        if running is not None:
+            ptrs = [t.data_ptr() for t in running[:3]]
+            momentum = running[3]
+        out, stats = torch.empty_like(y), self._vec(3)
+        self._call("bn_relu_fwd_cuda", "hcmoco_bn_site_fwd", y.data_ptr(),
+                   s.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                   out.data_ptr(), stats.data_ptr(), *ptrs, self.r, self.c,
+                   n, int(relu), eps, momentum, 1.0 - momentum,
+                   n / (n - 1) if n > 1 else 1.0)
+        bn_relu_fwd_cuda.launches += 1
+        return out, stats
+
+    def bwd_sums(self, dout, y, stats, scale, bias, relu: bool):
+        sums = self._vec(2)
+        self._call("bn_relu_bwd_sums_cuda", "hcmoco_bn_site_bwd_sums",
+                   dout.data_ptr(), y.data_ptr(), stats.data_ptr(),
+                   scale.data_ptr(), bias.data_ptr(),
+                   self._partials().data_ptr(), sums.data_ptr(), self.r,
+                   self.c, int(relu))
+        bn_relu_bwd_sums_cuda.launches += 1
+        return sums
+
+    def dx(self, dout, y, stats, scale, bias, sums, relu: bool, n,
+           dmean_ct=None, dvar_ct=None):
+        cts = [None if t is None else t.data_ptr()
+               for t in (dmean_ct, dvar_ct)]
+        dx = torch.empty_like(y)
+        self._call("bn_relu_bwd_dx_cuda", "hcmoco_bn_site_bwd_dx",
+                   dout.data_ptr(), y.data_ptr(), stats.data_ptr(),
+                   scale.data_ptr(), bias.data_ptr(), sums.data_ptr(), *cts,
+                   dx.data_ptr(), self.r, self.c, n, int(relu))
+        bn_relu_bwd_dx_cuda.launches += 1
+        return dx
+
+
+def _site_checked(fn: str, y, vecs, running=None, n=None,
+                  dout=None) -> int:
+    """Check dout (if given) and y, (R, C) bf16, the (name, tensor, rows)
+    per-channel f32 vectors `vecs` ((C,) for rows None, else (rows, C)),
+    `running` and the normaliser `n` as the BN-site kernels take them;
+    returns n."""
+    r, c = _rows_cols(fn, "y", y)
+    _site_cols(fn, c)
+    norm = _normaliser(y, n)
+    if norm <= 0 or norm >= 2 ** 31:
+        raise ValueError(f"{fn}: normaliser rows {norm} out of range")
+    specs = ([] if dout is None else [("dout", dout, BF16, (r, c))]) + [
+        ("y", y, BF16, (r, c))] + [
+        (name, t, F32, (c,) if rows is None else (rows, c))
+        for name, t, rows in vecs]
+    if running is not None:
+        if norm < 2:
+            raise ValueError(f"{fn}: BatchNorm in training needs more than 1 "
+                             f"value per channel, got {norm}")
+        specs += [("running_mean", running[0], F32, (c,)),
+                  ("running_var", running[1], F32, (c,)),
+                  ("num_batches_tracked", running[2], torch.int64, ())]
+    _check_cuda(fn, specs)
+    return norm
+
+
+def _f64_sums(t1: torch.Tensor, t2: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """(2, C) [sum t1; sum t2] over the rows, added in float64 as the
+    kernels add them, in `dtype`."""
+    return torch.stack([t1.double().sum(0), t2.double().sum(0)]).to(dtype)
+
+
+def bn_sums_plain(y: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward sums: (2, C) [sum y; sum y^2]."""
+    yf = y.to(_site_acc(y))
+    return _f64_sums(yf, yf * yf, yf.dtype)
+
+
+def bn_sums_cuda(y: torch.Tensor) -> torch.Tensor:
+    """Launch the forward sums (per-CTA f64 slots, then their fixed-order
+    reduction) on y's device and current stream."""
+    _site_checked("bn_sums_cuda", y, [])
+    return _Site(y).sums(y)
+
+
+bn_sums_cuda.launches = 0
+
+
+def _relu_passed(g, d, a, bias, relu: bool):
+    """g where the site's ReLU passed its input d * a + bias (the
+    forward's pre-activation, d = y - mean, a = rstd * scale), 0
+    elsewhere; g itself at a site without ReLU."""
+    return torch.where(d * a + bias > 0, g, 0.0) if relu else g
+
+
+def bn_relu_fwd_plain(y, s, scale, bias, eps: float, relu: bool,
+                      running=None, n=None):
+    """Plain version of the apply: (out in y's dtype, stats (3, C) [mean;
+    var; rstd]) from the sums s (2, C) of `n` rows (y's by default); with
+    `running`, also the running-stat update."""
+    r = _normaliser(y, n)
+    mean = s[0] / r
+    var = torch.clamp(s[1] / r - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    out = (y.to(_site_acc(y)) - mean) * (rstd * scale) + bias
+    if relu:
+        out = torch.where(out > 0, out, 0.0)
+    if running is not None:
+        _update_running(running, mean, var, r)
+    return out.to(y.dtype), torch.stack([mean, var, rstd])
+
+
+def bn_relu_fwd_cuda(y, s, scale, bias, eps: float, relu: bool,
+                     running=None, n=None):
+    """Launch the apply on y's device and current stream."""
+    n = _site_checked("bn_relu_fwd_cuda", y, [
+        ("s", s, 2), ("scale", scale, None), ("bias", bias, None)],
+        running, n)
+    return _Site(y).fwd(y, s, scale, bias, eps, relu, running, n)
+
+
+bn_relu_fwd_cuda.launches = 0
+
+
+def bn_relu_bwd_sums_plain(dout, y, stats, scale, bias, relu: bool):
+    """Plain version of the backward sums: (2, C) [dbias; dscale] = [sum
+    g; sum g * yhat] over y's rows, g = dout where the ReLU passed."""
+    mean, rstd = stats[0], stats[2]
+    d = y.to(_site_acc(y)) - mean
+    g = _relu_passed(dout.to(_site_acc(y)), d, rstd * scale, bias, relu)
+    return _f64_sums(g, g * (d * rstd), g.dtype)
+
+
+def bn_relu_bwd_sums_cuda(dout, y, stats, scale, bias, relu: bool):
+    """Launch the backward sums on y's device and current stream."""
+    _site_checked("bn_relu_bwd_sums_cuda", y, [
+        ("stats", stats, 3), ("scale", scale, None), ("bias", bias, None)],
+        dout=dout)
+    return _Site(y).bwd_sums(dout, y, stats, scale, bias, relu)
+
+
+bn_relu_bwd_sums_cuda.launches = 0
+
+
+def bn_relu_bwd_dx_plain(dout, y, stats, scale, bias, sums, relu: bool,
+                         n=None, dmean_ct=None, dvar_ct=None):
+    """Plain version of the dx pass, in y's dtype: _bn_train_bwd's dx from
+    the backward sums [dbias; dscale] of `n` rows (y's by default), ReLU
+    folded in; dmean_ct, dvar_ct: cotangents of the batch mean and var
+    (None: zero)."""
+    r = _normaliser(y, n)
+    mean, rstd = stats[0], stats[2]
+    a = rstd * scale
+    b = a * sums[0] / r
+    k = rstd * (a * sums[1] / r)
+    if dmean_ct is not None:
+        b = b - dmean_ct / r
+    if dvar_ct is not None:
+        k = k - 2.0 * dvar_ct / r
+    d = y.to(_site_acc(y)) - mean
+    g = _relu_passed(dout.to(_site_acc(y)), d, a, bias, relu)
+    return ((a * g - b) - d * k).to(y.dtype)
+
+
+def bn_relu_bwd_dx_cuda(dout, y, stats, scale, bias, sums, relu: bool,
+                        n=None, dmean_ct=None, dvar_ct=None):
+    """Launch the dx pass on y's device and current stream."""
+    fn = "bn_relu_bwd_dx_cuda"
+    cts = [(name, t, None) for name, t in (("dmean_ct", dmean_ct),
+                                           ("dvar_ct", dvar_ct))
+           if t is not None]
+    n = _site_checked(fn, y, [("stats", stats, 3), ("scale", scale, None),
+                              ("bias", bias, None), ("sums", sums, 2)]
+                      + cts, None, n, dout)
+    return _Site(y).dx(dout, y, stats, scale, bias, sums, relu, n, dmean_ct,
+                       dvar_ct)
+
+
+bn_relu_bwd_dx_cuda.launches = 0
+
+
+class _ConvOutBN(torch.autograd.Function):
+    """One ConvBN site's train-mode BN(+ReLU) of its conv output: sums
+    and apply forward, sums and dx backward.  Saves y and the per-channel
+    vectors, not the output: the ReLU's mask is recomputed from y.  Over
+    `ranks` data-parallel ranks the forward's sums and the backward's are
+    all-reduced (one all-reduce each), so BN takes the global batch's
+    statistics; the parameters' gradients are this rank's share.  In a
+    region that recomputes (train/remat.py), the recompute takes the
+    all-reduced sums back from the first run.  On the card the inputs
+    are checked once a call, and the kernels launch on the tensors made
+    here without a second check."""
+
+    @staticmethod
+    def forward(ctx, y, scale, bias, eps, relu, running, ranks):
+        n = y.shape[0] * ranks
+        sums, fwd, site = bn_sums_plain, bn_relu_fwd_plain, None
+        if y.is_cuda:
+            _site_checked("conv_out_bn", y, [("scale", scale, None),
+                                             ("bias", bias, None)],
+                          running, n)
+            site = _Site(y)
+            sums, fwd = site.sums, site.fwd
+        s = sums(y)
+        if ranks > 1:
+            s = all_reduce_sum(s)
+        out, stats = fwd(y, s, scale, bias, eps, relu, running, n)
+        ctx.save_for_backward(y, stats, scale, bias)
+        ctx.site, ctx.relu, ctx.n, ctx.ranks = site, relu, n, ranks
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, stats, scale, bias = ctx.saved_tensors
+        dout = dout.contiguous()
+        site = ctx.site
+        bwd_sums, dx = bn_relu_bwd_sums_plain, bn_relu_bwd_dx_plain
+        if site is not None:
+            _check_cuda("conv_out_bn", [("dout", dout, BF16,
+                                         tuple(y.shape))])
+            bwd_sums, dx = site.bwd_sums, site.dx
+        sums = bwd_sums(dout, y, stats, scale, bias, ctx.relu)
+        total = all_reduce_sum(sums) if ctx.ranks > 1 else sums
+        dy = dx(dout, y, stats, scale, bias, total, ctx.relu, ctx.n)
+        sums = sums.to(scale.dtype)
+        return dy, sums[1], sums[0], None, None, None, None
+
+
+def conv_out_bn(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float, relu: bool, running=None,
+                ranks: int = 1) -> torch.Tensor:
+    """Train-mode BN of a conv's output y (R, C), ReLU'd if `relu`, in y's
+    dtype: mean = s1/N, var = max(0, s2/N - mean^2) (biased) over the N
+    rows of the `ranks` data-parallel ranks' global batch.  `running`, if
+    given, is (running_mean, running_var, num_batches_tracked, momentum)
+    of an nn.BatchNorm, updated in place with torch semantics."""
+    return _ConvOutBN.apply(y, scale, bias, eps, relu, running, ranks)

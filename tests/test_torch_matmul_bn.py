@@ -1,6 +1,8 @@
 """K1's and K1b's plain PyTorch versions and bn_apply_stats held against
 hcmoco_tpu's ops/pallas/matmul_bn.py (Pallas in interpret mode) on the CPU,
-and the kernel wrappers' dispatch and argument checks.
+conv_out_bn's (the BN-site kernels') against hcmoco_tpu/models/hrnet.py's
+_bn_train_fwd / _bn_train_bwd and nn.relu, and the kernel wrappers'
+dispatch and argument checks.
 
 Tolerances: forward rtol/atol 1e-5; grads rtol 5e-4, atol 5e-5 (the
 tolerance of tests/test_models.py::TestConvBNFuse), as only the summation
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from hcmoco_tpu.models import hrnet as jax_hrnet
 from hcmoco_tpu.ops.pallas import matmul_bn as jax_mm
 
 from hcmoco_tpu_torch.ops import matmul_bn
@@ -251,12 +254,20 @@ def _k1b_args(r=40, c=24, dtype=torch.bfloat16):
         return torch.rand((c,), generator=g) + 0.5
 
     y, dout = act(), act()
+    stats = torch.stack([vec(), vec(), vec()])
+    sums = torch.stack([vec(), vec()])
     return {
         "mm_bn_stats": (act(), torch.randn((c, c), generator=g).to(dtype)),
         "bn_apply_fwd": (y, vec(), vec() * r, vec(), vec(), 1e-5),
         "bn_apply_bwd_stats": (dout, y) + tuple(vec() for _ in range(7)),
         "bn_apply_bwd_dy": (dout, vec(), vec()),
         "mm_bn_bwd_dyt": (dout, y, vec(), vec()),
+        "bn_sums": (y,),
+        "bn_relu_fwd": (y, torch.stack([vec(), vec() * r]), vec(), vec(),
+                        1e-5, True),
+        "bn_relu_bwd_sums": (dout, y, stats, vec(), vec(), True),
+        "bn_relu_bwd_dx": (dout, y, stats, vec(), vec(), sums, True, None,
+                           vec(), vec()),
     }
 
 
@@ -298,7 +309,8 @@ def _fault(args, fault):
     ("non-contiguous", "contiguous"), ("misaligned", "16-byte aligned")])
 @pytest.mark.parametrize("name", ["mm_bn_stats", "bn_apply_fwd",
                                   "bn_apply_bwd_stats", "bn_apply_bwd_dy",
-                                  "mm_bn_bwd_dyt"])
+                                  "mm_bn_bwd_dyt", "bn_sums", "bn_relu_fwd",
+                                  "bn_relu_bwd_sums", "bn_relu_bwd_dx"])
 def test_kernel_wrappers_reject_bad_tensors(name, fault, match):
     """The wrappers raise on what the kernels do not take; none falls back
     to the plain version."""
@@ -322,3 +334,116 @@ def test_running_update_needs_two_rows(fn):
     with pytest.raises(ValueError, match="more than 1 value per channel"):
         getattr(matmul_bn, fn)(y, vec, vec, vec, vec, 1e-5, running)
     assert int(running[2]) == 0
+
+
+# ---------------------------------------------------------------------------
+# conv_out_bn, BN(+ReLU) at the ConvBN sites that K1 does not take, against
+# the JAX package's _bn_train_fwd / _bn_train_bwd followed by nn.relu.
+# _bn_train_fwd casts its input to f32 whatever its dtype (also under x64),
+# so the comparison is in f32 at this module's tolerances.
+
+R_SITE = 1037  # no multiple of a chunk (72 or 64 elements) or a block
+
+
+def _site_inputs(c: int, seed: int):
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((R_SITE, c)) * 1.3 + 0.2).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias = (rng.standard_normal(c) * 0.5).astype(np.float32)
+    cts = [rng.standard_normal(sh).astype(np.float32)
+           for sh in ((R_SITE, c), (c,), (c,))]
+    return y, scale, bias, cts
+
+
+def _jax_site_fwd(y, scale, bias, relu: bool):
+    (jy, jmean, jvar), res = jax_hrnet._bn_train_fwd(
+        jnp.asarray(y), jnp.asarray(scale), jnp.asarray(bias), 1e-5)
+    return (jax.nn.relu(jy) if relu else jy), jy, jmean, jvar, res
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c", [18, 36, 64])
+def test_bn_site_fwd_plain_matches_jax(c, relu):
+    """The forward sums and the apply (+ReLU) against _bn_train_fwd, and
+    the running-stat update with torch semantics (unbiased running
+    variance, N/(N-1))."""
+    y, scale, bias, _ = _site_inputs(c, c)
+    jout, _, jmean, jvar, _ = _jax_site_fwd(y, scale, bias, relu)
+    yt = _t(y)
+    s = matmul_bn.bn_sums_plain(yt)
+    y64 = y.astype(np.float64)
+    np.testing.assert_allclose(s.numpy(), np.stack(
+        [y64.sum(0), (y64 * y64).sum(0)]), rtol=1e-5)
+    rm = torch.linspace(-1.0, 1.0, c)
+    rv = torch.linspace(0.5, 2.0, c)
+    nbt = torch.zeros((), dtype=torch.int64)
+    out, stats = matmul_bn.bn_relu_fwd_plain(yt, s, _t(scale), _t(bias),
+                                             1e-5, relu, (rm, rv, nbt, 0.01))
+    assert out.dtype == torch.float32 and stats.shape == (3, c)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **FWD)
+    for got, want in ((stats[0], jmean), (stats[1], jvar)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+    np.testing.assert_allclose(stats[2].numpy(),
+                               1.0 / np.sqrt(np.asarray(jvar) + 1e-5),
+                               **FWD)
+    n = R_SITE
+    np.testing.assert_allclose(
+        rm.numpy(), np.linspace(-1.0, 1.0, c) * 0.99
+        + 0.01 * np.asarray(jmean), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        rv.numpy(), np.linspace(0.5, 2.0, c) * 0.99
+        + 0.01 * np.asarray(jvar) * n / (n - 1), rtol=1e-6, atol=1e-7)
+    assert int(nbt) == 1
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c", [18, 36, 64])
+def test_bn_site_bwd_plain_matches_jax(c, relu):
+    """The backward sums (dbias, dscale) and the dx pass against
+    _bn_train_bwd after nn.relu's VJP, cotangents of the batch mean and
+    var included; without them, the dx of a zero cotangent."""
+    y, scale, bias, cts = _site_inputs(c, 100 + c)
+    _, jy, _, _, res = _jax_site_fwd(y, scale, bias, relu)
+    dy = cts[0] * (np.asarray(jy) > 0) if relu else cts[0]
+    jdx, jdscale, jdbias = jax_hrnet._bn_train_bwd(
+        1e-5, res, (jnp.asarray(dy), jnp.asarray(cts[1]),
+                    jnp.asarray(cts[2])))
+    jdx0, _, _ = jax_hrnet._bn_train_bwd(
+        1e-5, res, (jnp.asarray(dy), jnp.zeros(c), jnp.zeros(c)))
+    yt, st, bt, dout = _t(y), _t(scale), _t(bias), _t(cts[0])
+    _, stats = matmul_bn.bn_relu_fwd_plain(yt, matmul_bn.bn_sums_plain(yt),
+                                           st, bt, 1e-5, relu)
+    sums = matmul_bn.bn_relu_bwd_sums_plain(dout, yt, stats, st, bt, relu)
+    np.testing.assert_allclose(sums[0].numpy(), np.asarray(jdbias), **GRAD)
+    np.testing.assert_allclose(sums[1].numpy(), np.asarray(jdscale), **GRAD)
+    dx = matmul_bn.bn_relu_bwd_dx_plain(dout, yt, stats, st, bt, sums, relu,
+                                        None, _t(cts[1]), _t(cts[2]))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **GRAD)
+    dx0 = matmul_bn.bn_relu_bwd_dx_plain(dout, yt, stats, st, bt, sums, relu)
+    np.testing.assert_allclose(dx0.numpy(), np.asarray(jdx0), **GRAD)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_out_bn_matches_jax(relu):
+    """The autograd Function whole on CPU tensors (the plain versions; no
+    kernel launches): out, dy, dscale and dbias against jax.vjp of
+    _bn_train_apply (+ nn.relu), with one cotangent on the output."""
+    c = 36
+    y, scale, bias, cts = _site_inputs(c, 7)
+
+    def f(a, s, b):
+        out = jax_hrnet._bn_train_apply(a, s, b, 1e-5)[0]
+        return jax.nn.relu(out) if relu else out
+
+    jout, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (y, scale, bias)))
+    jdy, jdscale, jdbias = vjp(jnp.asarray(cts[0]))
+    yt, st, bt = _t(y, True), _t(scale, True), _t(bias, True)
+    kernels = (matmul_bn.bn_sums_cuda, matmul_bn.bn_relu_fwd_cuda,
+               matmul_bn.bn_relu_bwd_sums_cuda, matmul_bn.bn_relu_bwd_dx_cuda)
+    before = [k.launches for k in kernels]
+    out = matmul_bn.conv_out_bn(yt, st, bt, 1e-5, relu)
+    out.backward(_t(cts[0]))
+    assert [k.launches for k in kernels] == before
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **FWD)
+    for got, want in ((yt.grad, jdy), (st.grad, jdscale), (bt.grad, jdbias)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)

@@ -185,3 +185,106 @@ def test_k1_and_k1b_at_downstream_rows_on_card(r, k, c):
                       matmul_bn.bn_apply_bwd_dy_plain(dout, want[3], scale))
     assert _ulp_close(matmul_bn.mm_bn_bwd_dyt_cuda(dout, y, pb[2], pb[3]),
                       matmul_bn.mm_bn_bwd_dyt_plain(dout, y, pb[2], pb[3]))
+
+
+# The BN-site kernels' (R, C) at the benchmark cell's batch of 224 at
+# 320^2: the stem's conv1 (the largest call), the stem's conv2 and layer1,
+# the four branches, and a ragged R whose stream ends inside a chunk
+BN_SITES = [(224 * 160 * 160, 64), (224 * 80 * 80, 64), (224 * 80 * 80, 18),
+            (224 * 40 * 40, 36), (224 * 20 * 20, 72), (224 * 10 * 10, 144),
+            (R_RAGGED, C18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("r,c", BN_SITES)
+def test_bn_site_kernels_match_plain_on_card(r, c, relu):
+    """Run on the card only: conv_out_bn's four kernels against their
+    plain versions on the same inputs.  The apply's out and dx equal the
+    plain versions bit for bit (fed the kernels' sums), mean/var/rstd
+    within 1 f32 ulp, also normalised by a data-parallel global batch's
+    rows; the forward and backward sums lie within 1e-5 of the f64 sums
+    of their terms' magnitudes and are the same bits over two
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    y = (torch.randn((r, c), generator=g, device="cuda") * 1.3
+         + 0.2).bfloat16()
+    y[:, 0] = 0.5
+    yd = y.double()
+    s = matmul_bn.bn_sums_cuda(y)
+    assert torch.equal(s, matmul_bn.bn_sums_cuda(y))
+    assert bool(((s[0].double() - yd.sum(0)).abs()
+                 <= 1e-5 * yd.abs().sum(0)).all())
+    assert bool(((s[1].double() - (yd * yd).sum(0)).abs()
+                 <= 1e-5 * (yd * yd).sum(0)).all())
+    scale = torch.rand((c,), generator=g, device="cuda") + 0.5
+    bias = torch.randn((c,), generator=g, device="cuda")
+    out, st = matmul_bn.bn_relu_fwd_cuda(y, s, scale, bias, 1e-5, relu)
+    pout, pst = matmul_bn.bn_relu_fwd_plain(y, s, scale, bias, 1e-5, relu)
+    assert torch.equal(out, pout)
+    assert _ulp_close(st, pst, bits=24)
+    dout = torch.randn((r, c), generator=g, device="cuda").bfloat16()
+    sums = matmul_bn.bn_relu_bwd_sums_cuda(dout, y, pst, scale, bias, relu)
+    assert torch.equal(sums, matmul_bn.bn_relu_bwd_sums_cuda(
+        dout, y, pst, scale, bias, relu))
+    d = y.float() - pst[0]
+    gm = dout.float()
+    if relu:
+        gm = torch.where(d * (pst[2] * scale) + bias > 0, gm, 0.0)
+    terms = (gm * (d * pst[2])).double()
+    gd = gm.double()
+    assert bool(((sums[0].double() - gd.sum(0)).abs()
+                 <= 1e-5 * gd.abs().sum(0)).all())
+    assert bool(((sums[1].double() - terms.sum(0)).abs()
+                 <= 1e-5 * terms.abs().sum(0)).all())
+    cts = (torch.randn((c,), generator=g, device="cuda") * 1e-3,
+           torch.randn((c,), generator=g, device="cuda") * 1e-3)
+    for dm, dv in ((None, None), cts):
+        args = (dout, y, pst, scale, bias, sums, relu, None, dm, dv)
+        assert torch.equal(matmul_bn.bn_relu_bwd_dx_cuda(*args),
+                           matmul_bn.bn_relu_bwd_dx_plain(*args))
+    # a data-parallel rank's rows, normalised by twice as many: the sums
+    # stand for the global batch's
+    n = 2 * r
+    out, st = matmul_bn.bn_relu_fwd_cuda(y, 2 * s, scale, bias, 1e-5, relu,
+                                         None, n)
+    pout, pst = matmul_bn.bn_relu_fwd_plain(y, 2 * s, scale, bias, 1e-5,
+                                            relu, None, n)
+    assert torch.equal(out, pout)
+    assert _ulp_close(st, pst, bits=24)
+    args = (dout, y, pst, scale, bias, 2 * sums, relu, n) + cts
+    assert torch.equal(matmul_bn.bn_relu_bwd_dx_cuda(*args),
+                       matmul_bn.bn_relu_bwd_dx_plain(*args))
+
+
+@pytest.mark.cuda
+def test_conv_out_bn_on_card_matches_cpu():
+    """Run on the card only: conv_out_bn (the four kernels under one
+    autograd Function) against the same Function on the CPU (the plain
+    versions) for a bf16 site with ReLU: out within 1 bf16 ulp, dy, dscale,
+    dbias and the running statistics within 1e-2 of their norms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    g = torch.Generator().manual_seed(5)
+    r, c = 4 * 40 * 40 + 3, 36
+    y0 = (torch.randn((r, c), generator=g) * 0.8 - 0.1).bfloat16()
+    dout = torch.randn((r, c), generator=g).bfloat16()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        y = y0.to(dev, copy=True).requires_grad_()
+        scale = (torch.rand((c,), generator=torch.Generator().manual_seed(6))
+                 + 0.5).to(dev).requires_grad_()
+        bias = torch.linspace(-0.5, 0.5, c, device=dev).requires_grad_()
+        running = (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+                   torch.zeros((), dtype=torch.int64, device=dev), 0.01)
+        out = matmul_bn.conv_out_bn(y, scale, bias, 1e-5, True, running)
+        out.backward(dout.to(dev))
+        res[dev] = [t.detach().cpu() for t in (out, y.grad, scale.grad,
+                                               bias.grad) + running[:2]]
+    cpu, card = res["cpu"], res["cuda"]
+    assert _ulp_close(card[0], cpu[0])
+    for a, b in zip(card[1:], cpu[1:]):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel < 1e-2, rel

@@ -13,6 +13,7 @@ is 1x1 at crop 32) amplifies that rounding.  The raw HRNet maps (|v| up to
 8e-5 from the port run in f64.
 """
 
+import copy
 import os
 
 import jax
@@ -37,8 +38,8 @@ from hcmoco_tpu_torch.export.convert import (flax_to_port_state_dict,
 from hcmoco_tpu_torch.models.build import HCMoCoModel
 from hcmoco_tpu_torch.models.heads import ProjectionHead
 from hcmoco_tpu_torch.models import hrnet as hrnet_mod
-from hcmoco_tpu_torch.models.hrnet import (ConvBN, HRNet, fused_sites,
-                                           set_convbn_fuse)
+from hcmoco_tpu_torch.models.hrnet import (ConvBN, HRNet, bn_sites,
+                                           fused_sites, set_convbn_fuse)
 from hcmoco_tpu_torch.models.sgcn import SemGCN
 
 from parity_common import read_keys_file, synth_state_dict
@@ -72,8 +73,8 @@ def _tensors(sd):
 
 class TestConvBNFuse:
     """Mirror of tests/test_models.py::TestConvBNFuse on the port: the fused
-    1x1 site equals the plain conv + BatchNorm site in forward, running
-    stats and grads."""
+    1x1 site, and a 3x3 site on conv_out_bn, equal the plain conv +
+    BatchNorm site in forward, running stats and grads."""
 
     def _run(self, monkeypatch, fuse: bool, kernel: int = 1):
         _fuse(monkeypatch, fuse)
@@ -87,9 +88,9 @@ class TestConvBNFuse:
         grads = [p.grad.clone() for p in cb.parameters()] + [x.grad.clone()]
         return y.detach(), cb.state_dict(), grads
 
-    def test_fused_matches_unfused(self, monkeypatch):
-        y0, s0, g0 = self._run(monkeypatch, fuse=False)
-        y1, s1, g1 = self._run(monkeypatch, fuse=True)
+    def _assert_parity(self, monkeypatch, kernel: int):
+        y0, s0, g0 = self._run(monkeypatch, fuse=False, kernel=kernel)
+        y1, s1, g1 = self._run(monkeypatch, fuse=True, kernel=kernel)
         np.testing.assert_allclose(y1.numpy(), y0.numpy(), rtol=2e-5,
                                    atol=2e-5)
         assert s0.keys() == s1.keys()
@@ -100,10 +101,15 @@ class TestConvBNFuse:
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=5e-4,
                                        atol=5e-5)
 
+    def test_fused_matches_unfused(self, monkeypatch):
+        self._assert_parity(monkeypatch, kernel=1)
+
     def test_3x3_sites_unaffected(self, monkeypatch):
-        y0, _, _ = self._run(monkeypatch, fuse=False, kernel=3)
-        y1, _, _ = self._run(monkeypatch, fuse=True, kernel=3)
-        np.testing.assert_array_equal(y1.numpy(), y0.numpy())
+        """A 3x3 site takes conv_out_bn with the fuse on: the same
+        forward, running statistics and grads as the plain site, within
+        the 1x1 site's tolerances (in f32 the two differ by the variance
+        formula: E[y^2] - E[y]^2 against nn.BatchNorm's two-pass)."""
+        self._assert_parity(monkeypatch, kernel=3)
 
     @pytest.mark.parametrize("fuse", [False, True])
     def test_matches_jax_convbn(self, monkeypatch, fuse):
@@ -153,16 +159,23 @@ class TestFuseSwitch:
         monkeypatch.setenv("HCMOCO_CONVBN_FUSE", "1" if env == "0" else "0")
         if switch is not None:
             assert set_convbn_fuse(model, switch) is model
-        calls = []
+        calls, others = [], []
         real = hrnet_mod.conv1x1_bn_stats
         monkeypatch.setattr(hrnet_mod, "conv1x1_bn_stats",
                             lambda *a: calls.append(1) or real(*a))
+        real_bn = hrnet_mod.conv_out_bn
+        monkeypatch.setattr(hrnet_mod, "conv_out_bn",
+                            lambda *a: others.append(1) or real_bn(*a))
         x = torch.randn((2, 3, 32, 32),
                         generator=torch.Generator().manual_seed(0))
         with torch.no_grad():
             model.train(train)(x)
         assert len(calls) == (fused_sites(model) if want else 0)
         assert fused_sites(model) == 13  # 3 in layer1, 1+3+6 fuse layers
+        # every other site: the stem, the blocks' 3x3 convs, transitions
+        # and the strided fuse convs
+        assert len(others) == (bn_sites(model) if want else 0)
+        assert bn_sites(model) == 40
 
 
 @pytest.fixture(scope="module")
@@ -221,6 +234,56 @@ class TestHRNet:
         with torch.device("meta"):
             port = HRNet(HRNET_W18)
         assert fused_sites(port) == n_jax == 40
+
+
+    def test_w18_bn_site_count_matches_jax(self):
+        """HCMOCO_CONVBN_FUSE=1 routes exactly the JAX package's 3x3 conv
+        sites through conv_out_bn: 265 per W18 encoder (stem 2, layer1 4,
+        transitions 4, stages 2-4 255), 530 a step for the two."""
+        shapes = jax.eval_shape(
+            lambda: JaxHRNet(JAX_HRNET_W18).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                train=False))
+        n_jax = sum(1 for p in jax.tree_util.tree_leaves(shapes["params"])
+                    if p.ndim == 4 and p.shape[:2] == (3, 3))
+        with torch.device("meta"):
+            port = HRNet(HRNET_W18)
+        assert bn_sites(port) == n_jax == 265
+
+    def test_w18_fused_matches_unfused_float64(self):
+        """HRNet-W18 at crop 64 in float64, fuse on against fuse off from
+        one set of weights, train mode: the four maps, every gradient and
+        every running statistic within 1e-9 (relative to each tensor's
+        largest magnitude).  In float64 both paths compute the same BN;
+        only the summation order and the variance formula differ."""
+        torch.manual_seed(0)
+        model = HRNet(HRNET_W18, 3, torch.float64).double()
+        x = torch.randn((2, 3, 64, 64), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(1))
+        runs = []
+        for on in (False, True):
+            m = set_convbn_fuse(copy.deepcopy(model), on).train()
+            out = m(x)
+            loss = sum((o * torch.linspace(-1.0, 1.0, o.numel(),
+                                           dtype=o.dtype).view_as(o)).sum()
+                       for o in out)
+            loss.backward()
+            runs.append(([o.detach() for o in out],
+                         {k: p.grad for k, p in m.named_parameters()},
+                         dict(m.named_buffers())))
+        for a, b in zip(runs[0][0], runs[1][0]):
+            torch.testing.assert_close(b, a, rtol=0.0,
+                                       atol=1e-9 * float(a.abs().max()))
+        for i in (1, 2):
+            assert runs[0][i].keys() == runs[1][i].keys()
+            for k, a in runs[0][i].items():
+                b = runs[1][i][k]
+                if not a.is_floating_point():
+                    assert torch.equal(a, b), k
+                    continue
+                torch.testing.assert_close(
+                    b, a, rtol=0.0, atol=1e-9 * float(a.abs().max()),
+                    msg=lambda m, k=k: f"{k}: {m}")
 
 
 class TestSemGCN:
