@@ -1,16 +1,23 @@
 """A cell found by name: its entry in BENCHMARK.json, its configuration
 file, its traffic file (h100_bench/traffic/<traffic>.json), its
-correctness limits (h100_bench/limits/<workload>.json) and the metrics it
-reports.  A new configuration, traffic mix, metric or cell is new files
-and new entries: nothing here names one.
+correctness limits (h100_bench/limits/<workload>.json), the reference of
+its architecture (h100_bench/reference/archs/<arch>.py) and the metrics
+it reports.  A new configuration, traffic mix, architecture, metric or
+cell is new files and new entries: nothing here names one.
 
 A configuration file holds the recipe as run: `train` has the program's
-TrainConfig fields that the cell sets, besides `source`, `reduced`,
-`assumed` and `env` (the environment the program reads when it builds
-the model).  A traffic file holds how the batch is fed: its `batch_size` (which
-overrides the configuration's), `pool` (distinct batches made before the
+TrainConfig fields that the cell sets (its `arch` names the reference
+file; every size the reference reads, such as a point cloud's
+`pn_num_points` and `pn_ori_h`/`pn_ori_w`, is stated here), besides
+`source`, `reduced`, `assumed` and `env` (the environment the program
+reads when it builds the model).  A traffic file holds how the batch is
+fed: its `batch_size` and `pn_num_points` (the points a cloud), which
+override the configuration's, `pool` (distinct batches made before the
 window and cycled through it) and `depth_ratio` (the share of samples
-with depth).  The harness runs a cell in one process on one card.
+with depth).  An architecture's file holds its plain reference model,
+its layer groups for the check, and the batch fields it reads beyond
+traffic.py's own (traffic.py says which fields it makes).  The harness
+runs a cell in one process on one card.
 """
 
 from __future__ import annotations
@@ -21,8 +28,10 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
 
+from .reference import models
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-TRAFFIC_KEYS = {"batch_size", "pool", "depth_ratio"}
+TRAFFIC_KEYS = {"batch_size", "pool", "depth_ratio", "pn_num_points"}
 
 
 class CellError(ValueError):
@@ -85,6 +94,12 @@ def load_cell(root: Path, workload: str) -> Cell:
                         "a cell on one card")
     config = _read(root / configs[w["config"]]["file"],
                    f"configuration {w['config']!r}")
+    arch = config["train"]["arch"]
+    try:
+        models.arch(arch)
+    except ValueError as e:
+        raise CellError(f"arch {arch!r} of configuration {w['config']!r}: "
+                        f"{e}") from None
     traffic = _read(root / "h100_bench" / "traffic" / f"{w['traffic']}.json",
                     f"traffic {w['traffic']!r}")
     extra = set(traffic) - TRAFFIC_KEYS

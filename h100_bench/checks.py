@@ -15,9 +15,11 @@ against the plain reference's, from the same weights, banks and batches.
   bank_gap      the worst memory bank's gap between the norms of its
                 change, over the reference's.
 
-The layer groups (`leaf_groups`) are each encoder's fused 1x1 ConvBN
-sites and its other leaves, SemGCN, and the heads, so that a fault in
-one layer's few leaves is not outvoted by the others.  The gaps of
+The layer groups (`leaf_groups`) are the architecture's: for HRNet each
+encoder's fused 1x1 ConvBN sites and its other leaves, SemGCN, and the
+heads; a point-cloud encoder's set-abstraction and feature-propagation
+levels apart; so that a fault in one layer's few leaves is not outvoted
+by the others.  The gaps of
 norms, not the norms of the differences.  Medians within a group, not
 its worst parameter: at the benchmark's random weights a few dozen BN
 parameters deep in HRNet take gradients that any rounding moves by half
@@ -71,36 +73,12 @@ def leaf_gaps(prog: Dict[str, float], ref: Dict[str, float],
 
 
 def leaf_groups(run: dict) -> Dict[str, str]:
-    """Each parameter's layer group: per encoder `<encoder>.convbn`, the
-    weight of every 1x1 stride-1 convolution and its BN's scale and
-    shift (the program's fused K1/K1b sites), and `<encoder>.other`;
-    SemGCN (`encoder3`); and `heads`."""
-    from torch import nn
-
+    """Each parameter's layer group, as the cell's architecture names
+    them (`groups` of h100_bench/reference/archs/<arch>.py)."""
     from .reference import models
 
-    model = models.build(run["arch"], run["width"], models.Numerics(),
-                         device="meta")
-    keys = {k for k, _ in model.named_parameters()}
-    fused = set()
-    for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d) and m.kernel_size == (1, 1) \
-                and m.stride == (1, 1):
-            parent, leaf = name.rsplit(".", 1)
-            bn = parent + "." + ("1" if leaf == "0"
-                                 else leaf.replace("conv", "bn"))
-            site = {f"{name}.weight", f"{bn}.weight", f"{bn}.bias"}
-            if not site <= keys:
-                raise ValueError(f"no BN beside the 1x1 convolution {name}")
-            fused |= site
-    out = {}
-    for k in keys:
-        top = k.split(".")[0]
-        if top in ("encoder1", "encoder2"):
-            out[k] = f"{top}.{'convbn' if k in fused else 'other'}"
-        else:
-            out[k] = "heads" if top.startswith("head") else top
-    return out
+    return models.arch(run["arch"]).groups(
+        models.build(run, models.Numerics(), device="meta"))
 
 
 def _by_group(g: Dict[str, float], groups: Dict[str, str]
@@ -111,23 +89,29 @@ def _by_group(g: Dict[str, float], groups: Dict[str, str]
     return out
 
 
+def _each(med: Dict[str, float]) -> str:
+    return "; by group " + ", ".join(f"{n} {v:+.3g}"
+                                     for n, v in sorted(med.items()))
+
+
 def _group_median_abs(g: Dict[str, float], groups: Dict[str, str]
                       ) -> Tuple[float, str]:
-    """The largest of the groups' median |gap|, with its group and the
-    group's worst leaf."""
+    """The largest of the groups' median |gap|, with its group, the
+    group's worst leaf and every group's median."""
     med = {n: statistics.median(abs(v) for v in vs)
            for n, vs in _by_group(g, groups).items()}
     top = max(med, key=med.get)
     worst = max((k for k in g if groups[k] == top), key=lambda k: abs(g[k]))
-    return med[top], f"{top}; worst {worst} {g[worst]:+.3g}"
+    return med[top], f"{top}; worst {worst} {g[worst]:+.3g}" + _each(med)
 
 
 def _group_shift(g: Dict[str, float], groups: Dict[str, str]
                  ) -> Tuple[float, str]:
-    """The largest of the groups' |median signed gap|."""
+    """The largest of the groups' |median signed gap|, with its group and
+    every group's median."""
     med = {n: statistics.median(vs) for n, vs in _by_group(g, groups).items()}
     top = max(med, key=lambda n: abs(med[n]))
-    return abs(med[top]), f"{top} {med[top]:+.3g}"
+    return abs(med[top]), f"{top} {med[top]:+.3g}" + _each(med)
 
 
 def _total(prog: Dict[str, float], ref: Dict[str, float], keys) -> float:

@@ -1,11 +1,14 @@
-"""Plain PyTorch reference of the benchmarked HCMoCo models.
+"""Plain PyTorch reference of the benchmarked HCMoCo models: the parts
+they share, and each architecture found by name (`build`, `arch`).
 
 Written against the published architecture (HCMoCo's
 `build_backbone.py`, HRNetV2's `official_hrnet.py`, SemGCN), float32
 throughout, with no kernel, no fused path and no import of the program
 under test.  Module and parameter names follow the published
 torch modules, which the program keeps too, so one state dict made by the
-benchmark loads into both.
+benchmark loads into both.  An architecture (TrainConfig's `arch`) is a
+file of its own, h100_bench/reference/archs/<arch>.py, that puts these
+parts together: a new one is a new file, and nothing here names it.
 
 `Numerics` carries what the benchmark varies: `lowp`, a low precision
 for every convolution (each tensor scaled to its range): float8 reads the inputs and weights as e4m3 and the gradient that
@@ -18,8 +21,11 @@ that a batch of 224 at 320x320 fits one card in float32.
 
 from __future__ import annotations
 
+import importlib
+import re
 from collections import OrderedDict
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -444,8 +450,60 @@ class HCMoCo(nn.Module):
             project(self.head3, fj.mean(dim=1))])
 
 
-def build(arch: str, width: int, num: Numerics, device="cpu") -> nn.Module:
-    if arch != "HRNet":
-        raise ValueError(f"no reference for arch {arch!r}")
+def hrnet_groups(model: nn.Module, encoders: Sequence[str]) -> dict:
+    """Each parameter's layer group, with the HRNets `encoders` split in
+    two: `<encoder>.convbn`, the weight of every 1x1 stride-1 convolution
+    and its BN's scale and shift (the program's fused K1/K1b sites), and
+    `<encoder>.other`.  Every other parameter goes by its top-level
+    module: `encoder3` (SemGCN), `heads`, or its own name."""
+    keys = {k for k, _ in model.named_parameters()}
+    fused = set()
+    for enc in encoders:
+        for name, m in model.get_submodule(enc).named_modules():
+            if isinstance(m, nn.Conv2d) and m.kernel_size == (1, 1) \
+                    and m.stride == (1, 1):
+                name = f"{enc}.{name}"
+                parent, leaf = name.rsplit(".", 1)
+                bn = parent + "." + ("1" if leaf == "0"
+                                     else leaf.replace("conv", "bn"))
+                site = {f"{name}.weight", f"{bn}.weight", f"{bn}.bias"}
+                if not site <= keys:
+                    raise ValueError(
+                        f"no BN beside the 1x1 convolution {name}")
+                fused |= site
+    out = {}
+    for k in keys:
+        top = k.split(".")[0]
+        if top in encoders:
+            out[k] = f"{top}.{'convbn' if k in fused else 'other'}"
+        else:
+            out[k] = "heads" if top.startswith("head") else top
+    return out
+
+
+# ---- the architectures ----------------------------------------------------
+
+ARCHS = Path(__file__).resolve().parent / "archs"
+ARCH_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
+
+
+def arch(name: str):
+    """The reference of architecture `name` (TrainConfig.arch): the
+    module h100_bench/reference/archs/<name>.py.  It holds `build(run,
+    num)`, the model (which takes a batch and returns the three
+    modalities' features, (3, B, feat_dim)); `groups(model)`, each
+    parameter's layer group for the check; and `FIELDS`, the batch
+    fields beyond traffic.py's own that the model reads (traffic.py
+    draws them)."""
+    path = ARCHS / f"{name}.py"
+    if not ARCH_NAME.match(name) or not path.is_file():
+        raise ValueError(f"arch {name!r}: no reference file {path}")
+    return importlib.import_module(f"{__package__}.archs.{name}")
+
+
+def build(run: dict, num: Numerics, device="cpu") -> nn.Module:
+    """The plain reference of the cell `run` (its `arch` and sizes),
+    its parameters on `device`."""
+    ref = arch(run["arch"])
     with torch.device(device):
-        return HCMoCo(width, num)
+        return ref.build(run, num)

@@ -111,6 +111,13 @@ def first_gradients(model, optimizer, p0, wd: float) -> Dict[str, float]:
     return out
 
 
+def make_pool(run: dict, seed: int, device) -> List[Dict]:
+    """The cell's pool of batches, with the fields its architecture
+    reads."""
+    return traffic.make_pool(run, seed, device,
+                             models.arch(run["arch"]).FIELDS)
+
+
 @dataclass
 class Program:
     """The program's model, train state and timed call after its first
@@ -133,7 +140,7 @@ def start_program(run: dict, seed: int, device,
 
     cfg = train_config(run)
     spe = ref_step.steps_per_epoch(run)
-    pool = traffic.make_pool(run, seed, device)
+    pool = make_pool(run, seed, device)
     log(f"pool of {len(pool)} batches on {device}")
     model = build_model(cfg, device=device).to(
         memory_format=torch.channels_last)
@@ -233,10 +240,10 @@ def reference_readings(run: dict, seed: int, device,
     torch.backends.cudnn.allow_tf32 = False
     try:
         num = models.Numerics(lowp=lowp, checkpoint=True)
-        model = models.build(run["arch"], run["width"], num, device=device)
+        model = models.build(run, num, device=device)
         model.load_state_dict(weights.make_state(run, seed, device))
         banks = weights.make_banks(run, seed, device)
-        pool = traffic.make_pool(run, seed, device)
+        pool = make_pool(run, seed, device)
         batches = [{k: v[:rows] for k, v in pool[i % len(pool)].items()}
                    for i in range(FIRST_STEPS)]
         return ref_step.reference_steps(model, banks, batches, run)

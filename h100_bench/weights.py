@@ -41,8 +41,7 @@ def _is_random(name: str, model: torch.nn.Module) -> bool:
 
 def make_state(run: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """The model's initial state dict (params and buffers) for a cell."""
-    ref = models.build(run["arch"], run["width"], models.Numerics(),
-                       device="meta")
+    ref = models.build(run, models.Numerics(), device="meta")
     shapes = ref.state_dict()
     random = [k for k in shapes if _is_random(k, ref)]
     total = sum(shapes[k].numel() for k in random)
