@@ -1682,13 +1682,15 @@ def point_wrappers() -> dict:
     return {"fps": (fps.fps_cuda, 3),
             "ball_query": (ball_query.ball_query_cuda, 8),
             "three_nn": (three_nn.three_nn_cuda, 4),
-            "group_rows fwd": (point_gather.group_rows_cuda, 8),
-            "group_rows bwd": (point_gather.group_rows_bwd_cuda, 8),
+            # each SA scale's coordinates (8) and levels 1-3's projected
+            # features (6); only the features take a backward
+            "group_rows fwd": (point_gather.group_rows_cuda, 14),
+            "group_rows bwd": (point_gather.group_rows_bwd_cuda, 6),
             "interpolate_rows fwd": (point_gather.interpolate_rows_cuda, 4),
             "interpolate_rows bwd": (point_gather.interpolate_rows_bwd_cuda,
                                      4),
-            "dest_csr": (point_gather.dest_csr_cuda, 12),
-            "segment_rows_sum": (point_gather.segment_rows_sum_cuda, 12)}
+            "dest_csr": (point_gather.dest_csr_cuda, 10),
+            "segment_rows_sum": (point_gather.segment_rows_sum_cuda, 10)}
 
 
 # (class, substrings of the lower-cased kernel name), first match wins
@@ -2363,7 +2365,7 @@ def remat_phase(card: str) -> tuple:
     per_step = {name: n for name, (_, n) in point_wrappers().items()}
     pn_expect = {"off": per_step,
                  "pn_remat": dict(per_step, **{
-                     "group_rows fwd": per_step["group_rows fwd"] + 4})}
+                     "group_rows fwd": per_step["group_rows fwd"] + 6})}
     cfg_pn = make_cfg(arch="HRNetPN", batch_size=PN_BATCH)
     batch = to_device(synthetic_contrast_batch(
         np.random.default_rng(0), PN_BATCH, size=320, num_joints=16,

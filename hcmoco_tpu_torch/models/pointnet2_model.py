@@ -44,6 +44,7 @@ from ..ops.point_ops import (ball_query, furthest_point_sample, gather_points,
                              group_points, interpolation_weights,
                              three_interpolate, three_nn)
 from ..train.remat import run_region
+from ..utils.spans import span
 from .heads import ProjectionHead, linear_1x1
 from .hrnet import HRNet, merge_all_res, nearest_resize, pool_maps
 from .sgcn import SemGCN
@@ -87,16 +88,18 @@ class SharedMLP(nn.Sequential):
     """Dense + BN + ReLU layers over the channel (last) axis, as
     layer0, layer1, ...; `channels` = (Fin, F0, F1, ...).
 
-    Project-then-group (gidx given): x is the per-point TABLE
-    (B, N, Cc) = concat(xyz, feats) and the first layer's matmul commutes
-    with the neighbour gather,
-
-        W (concat(xyz[k] - center_m, feats[k]))
-          = (table W^T)[k] - (concat(center_m, 0) W^T),
-
-    so layer 0 runs on the N table rows and K5 gathers F0-wide projected
-    rows (the JAX package's SharedMLP, which pins the identity in its
-    tests).  BN then sees the same values as after grouping."""
+    Grouped (gidx given, the SA levels): x is the per-point TABLE
+    (B, N, 3 + C) = concat(xyz, feats) and layer 0 sees, for center m
+    and its neighbour k, concat(xyz[k] - center_m, feats[k]).  Its matmul
+    splits by columns (`_grouped_layer0`): the offsets are formed in f32
+    (f64 for f64) and only then rounded to the compute dtype and
+    projected by W[:, :3], since the coordinates are 1-2 m and the
+    offsets 25-125 mm, which the absolute coordinates' bf16 steps (4-8
+    mm) would cut by 5-30%; the features' columns project-then-group, so
+    their matmul runs on the N table rows and K5 gathers F0-wide
+    projected rows.  The JAX package projects the whole table and then
+    groups (its SharedMLP); in float64 the two orders agree (ROADMAP.md
+    Queue 3, F16)."""
 
     def __init__(self, channels: Sequence[int], dtype: torch.dtype):
         super().__init__(OrderedDict(
@@ -111,15 +114,44 @@ class SharedMLP(nn.Sequential):
         for j, layer in enumerate(self):
             w = layer.matrix(dtype)
             if j == 0 and gidx is not None:
-                h = group_points(F.linear(x.to(dtype), w), gidx)
-                if center is not None:
-                    # the centring term concat(center, 0) W^T, per center
-                    cpad = F.pad(center.float(), (0, x.shape[-1] - 3))
-                    h = h - F.linear(cpad.to(dtype), w)[:, :, None, :]
+                h = _grouped_layer0(x, gidx, center, w)
             else:
                 h = F.linear(x.to(dtype), w)
             x = layer.bn_relu(h)
         return x
+
+
+def _grouped_layer0(table: torch.Tensor, gidx: torch.Tensor,
+                    center: Optional[torch.Tensor],
+                    w: torch.Tensor) -> torch.Tensor:
+    """Layer 0's matmul on the grouped rows: table (B, N, 3 + C), gidx
+    (B, M, S), center (B, M, 3) or None (no centring), w (F0, 3 + C) in
+    the compute dtype -> (B, M, S, F0) in it.
+
+    The coordinates are gathered forward only (K5 on 4-wide f32 rows, for
+    its 16-byte rows), less their center in f32, rounded once and
+    projected by W[:, :3] (padded to 4 columns).  The features' columns
+    project-then-group, the coordinate columns entering that matmul as
+    zeros that carry the table's gradient: the coordinates' gradient is
+    the features' K5 backward times W[:, :3], as in the JAX package's
+    order, and a table that needs none (SA level 0 of the model, whose
+    cloud is data) skips that matmul and K5."""
+    dtype = w.dtype
+    acc = torch.promote_types(table.dtype, torch.float32)
+    xyz = table[..., :3].detach().to(acc)
+    rel = group_points(F.pad(xyz, (0, 1)), gidx)
+    if center is not None:
+        rel = rel - F.pad(center.to(acc), (0, 1))[:, :, None, :]
+    w3 = F.pad(w[:, :3], (0, 1))
+    rows = rel.reshape(-1, 4).to(dtype)
+    if table.shape[-1] == 3 and not table.requires_grad:
+        h = rows @ w3.t()
+    else:
+        zeroed = table - F.pad(xyz.to(table.dtype),
+                               (0, table.shape[-1] - 3))
+        g = group_points(F.linear(zeroed.to(dtype), w), gidx)
+        h = torch.addmm(g.reshape(-1, w.shape[0]), rows, w3.t())
+    return h.reshape(gidx.shape + (w.shape[0],))
 
 
 def _scale(mlp: "SharedMLP", table: torch.Tensor, gidx: torch.Tensor,
@@ -131,9 +163,9 @@ def _scale(mlp: "SharedMLP", table: torch.Tensor, gidx: torch.Tensor,
 
 class SAModuleMSG(nn.Module):
     """Set abstraction with multi-scale grouping: FPS centers (sorted
-    ascending), then per scale a ball query, the project-then-group
-    shared MLP and a max over the samples.  With `remat` each scale's
-    MLP and max run as a region that saves nothing inside
+    ascending), then per scale a ball query, the shared MLP on the
+    grouped rows (SharedMLP) and a max over the samples.  With `remat`
+    each scale's MLP and max run as a region that saves nothing inside
     (train/remat.py): the backward gathers (K5) and runs the MLP again,
     as JAX's `nn.remat(scale)`."""
 
@@ -156,10 +188,14 @@ class SAModuleMSG(nn.Module):
         idx = furthest_point_sample(xyz, self.npoint, allow_identity=True)
         idx = torch.sort(idx, dim=-1).values
         new_xyz = gather_points(xyz, idx)  # (B, M, 3)
+        # the table keeps the coordinates in f32 (f64 for f64) for
+        # SharedMLP's centring; its feature columns are rounded back to
+        # the compute dtype before their matmul, exactly
         if features is None:
             table = xyz.float()
         else:
-            table = torch.cat([xyz.to(features.dtype), features], dim=-1)
+            dt = torch.promote_types(features.dtype, torch.float32)
+            table = torch.cat([xyz.to(dt), features.to(dt)], dim=-1)
         outs = []
         for mlp, r, s in zip(self.mlps, self.radii, self.nsamples):
             gidx = ball_query(xyz, new_xyz, r, s)
@@ -220,13 +256,15 @@ class Pointnet2MSG(nn.Module):
         xyz = pointcloud[..., :3].contiguous()
         feats = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
         l_xyz, l_feats = [xyz], [feats]
-        for k, sa in enumerate(self.SA_modules):
-            nx, nf = sa(l_xyz[k], l_feats[k])
-            l_xyz.append(nx)
-            l_feats.append(nf)
-        for i in range(len(self.FP_modules) - 1, -1, -1):
-            l_feats[i] = self.FP_modules[i](l_xyz[i], l_xyz[i + 1],
-                                            l_feats[i], l_feats[i + 1])
+        with span("pn_sa"):
+            for k, sa in enumerate(self.SA_modules):
+                nx, nf = sa(l_xyz[k], l_feats[k])
+                l_xyz.append(nx)
+                l_feats.append(nf)
+        with span("pn_fp"):
+            for i in range(len(self.FP_modules) - 1, -1, -1):
+                l_feats[i] = self.FP_modules[i](l_xyz[i], l_xyz[i + 1],
+                                                l_feats[i], l_feats[i + 1])
         return l_feats[0]
 
 
@@ -303,7 +341,11 @@ class HCMoCoPNModel(nn.Module):
     every pixel by `pts2depth` and resized to linear_merge1's size by
     nearest-exact (ROADMAP.md Queue 3, F2), as (B, 128, H/4, W/4).
     pn_remat: PointNet++'s SA levels 0 and 1 recompute in the backward
-    (Pointnet2MSG's remat_levels)."""
+    (Pointnet2MSG's remat_levels).
+
+    Spans (utils/spans.py, inside the step's `forward`): `depth2pts`,
+    `pn_sa` over the four SA levels, `pn_fp` over the four FP levels
+    (Pointnet2MSG), and in stage 2 `pts2depth`."""
 
     def __init__(self, width: int = 18, feat_dim: int = 128,
                  head: str = "linear", linear_feat_map: bool = False,
@@ -342,10 +384,11 @@ class HCMoCoPNModel(nn.Module):
                 u: Optional[torch.Tensor] = None,
                 return_fm: bool = False) -> Dict[str, torch.Tensor]:
         fm1 = self.encoder1(rgbd[:, :3])
-        sampled, all_pts, _, _ = depth2pts(rgbd[:, 3], depth_mask, grid_xy,
-                                           ori_h, ori_w, mean, self.n_points,
-                                           generator, u)
-        fm2 = self.encoder2(sampled)  # (B, n_points, 128)
+        with span("depth2pts"):
+            sampled, all_pts, _, _ = depth2pts(
+                rgbd[:, 3], depth_mask, grid_xy, ori_h, ori_w, mean,
+                self.n_points, generator, u)
+        fm2 = self.encoder2(sampled)  # (B, n_points, 128); pn_sa, pn_fp
         fj = self.encoder3(skeleton)
         out = {
             "pooled1": pool_maps(fm1, self.pool_method),
@@ -363,7 +406,8 @@ class HCMoCoPNModel(nn.Module):
                                  self.dtype)
                 lm2 = self.encoder2_linear(fm2).float()
                 h, w = rgbd.shape[2], rgbd.shape[3]
-                lm2 = pts2depth(sampled, all_pts, lm2, h, w)
+                with span("pts2depth"):
+                    lm2 = pts2depth(sampled, all_pts, lm2, h, w)
                 # (B, h, w, C) -> NCHW view, resized to lm1's size
                 lm2 = nearest_resize(lm2.permute(0, 3, 1, 2), *lm1.shape[2:])
                 out.update(merge2=fm2, linear_merge1=lm1, linear_merge2=lm2)

@@ -210,7 +210,9 @@ def _pn_batches(n):
 def test_pn_remat_steps_equal_plain(monkeypatch):
     """Two HRNetPN steps with pn_remat equal two without, bit for bit; the
     backward gathers again at each scale of SA levels 0 and 1 (K5's
-    forward: 8 calls a step, 12 with pn_remat)."""
+    forward: a step gathers each SA scale's coordinates, 8 calls, and
+    the projected features of levels 1-3, 6; pn_remat adds level 0's 2
+    and level 1's 4: 14 calls a step, 20 with pn_remat)."""
     calls = {"n": 0}
     plain = point_gather.group_rows_plain
 
@@ -227,7 +229,7 @@ def test_pn_remat_steps_equal_plain(monkeypatch):
     cfg = resolve_config(TrainConfig(**PN_TINY, pn_remat=True))
     got = _run(cfg, _state(cfg), batches)  # the same seeded weights
     _assert_same(want, got)
-    assert (off_calls, calls["n"]) == (2 * 8, 2 * 12)
+    assert (off_calls, calls["n"]) == (2 * 14, 2 * 20)
 
 
 def test_remat_leaves_other_steps_alone(monkeypatch):

@@ -136,6 +136,55 @@ def test_stage1_step_spans_its_phases_in_order(kw, parts):
         assert root.t0 <= a.t0 <= a.t1 <= b.t0 <= b.t1 <= root.t1
 
 
+POINT = ["depth2pts", "pn_sa", "pn_fp"]
+
+
+def test_hrnetpn_step_spans_its_point_branch_inside_forward():
+    """HRNetPN's point branch (models/pointnet2_model.py) records
+    `depth2pts`, then `pn_sa` and `pn_fp`, each inside the step's
+    `forward` and in its time; an unrecorded step records nothing.  A
+    span that moved out of `forward`, or one missing, fails here, and
+    the benchmark's point_fwd_ms would read it wrongly."""
+    step, state, batch = _step(arch="HRNetPN", pn_num_points=64)
+    step(state, batch, torch.Generator().manual_seed(1))  # unrecorded
+    assert spans.recorded() == []
+    with spans.recording():
+        step(state, batch, torch.Generator().manual_seed(2))
+    recs = spans.recorded()
+    fwd = [s for s in recs if s.name == "forward"]
+    assert len(fwd) == 1
+    kids = [s for s in recs if s.parent is fwd[0]]
+    assert [s.name for s in kids] == POINT
+    assert [(s.name, s.step) for s in recs if s.name in POINT] == \
+        [(n, 1) for n in POINT]
+    for a, b in zip(kids, kids[1:]):
+        assert fwd[0].t0 <= a.t0 <= a.t1 <= b.t0 <= b.t1 <= fwd[0].t1
+
+
+def test_hrnetpn_stage2_forward_spans_pts2depth():
+    """With return_fm and linear_feat_map (stage 2) the point features
+    carried back onto the pixels record `pts2depth` after the encoder's
+    spans, inside the caller's `forward`."""
+    from hcmoco_tpu_torch.models.pointnet2_model import HCMoCoPNModel
+
+    torch.manual_seed(0)
+    model = HCMoCoPNModel(width=4, linear_feat_map=True, n_points=64,
+                          dtype=torch.float32)
+    _, _, batch = _step()
+    args = (batch["rgbd"].permute(0, 3, 1, 2), batch["skeleton"],
+            batch["depth_mask"], batch["grid_xy"], 424.0, 512.0,
+            batch["depth_mean"])
+    model(*args, generator=torch.Generator().manual_seed(0),
+          return_fm=True)
+    assert spans.recorded() == []
+    with spans.recording():
+        with spans.span("forward"):
+            model(*args, generator=torch.Generator().manual_seed(0),
+                  return_fm=True)
+    assert _tree(spans.recorded()) == [("forward", None, None)] + [
+        (n, "forward", None) for n in POINT + ["pts2depth"]]
+
+
 def _drifting(roots=12, gaps=2000, ppm=20, seed=0):
     """Kernels back to back 2 us apart on a trace's clock, and spans whose
     markers sit in the gaps, their device times drifting by `ppm` from

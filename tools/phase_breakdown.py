@@ -29,9 +29,12 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# the train step's phases; grad_sync lies inside optimizer
+# the train step's phases; grad_sync lies inside optimizer, and
+# HRNetPN's point branch (depth2pts, pn_sa, pn_fp; pts2depth in stage 2)
+# inside forward
 PHASES = ("forward", "nce", "backward", "bank_update", "optimizer",
-          "grad_sync", "metrics")
+          "grad_sync", "metrics", "depth2pts", "pn_sa", "pn_fp",
+          "pts2depth")
 TILE = ("forward", "nce", "backward", "bank_update", "optimizer", "metrics")
 
 
