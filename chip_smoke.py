@@ -1567,9 +1567,13 @@ def generic_sites(encoder) -> int:
 
 def drive_slice(card: str) -> tuple:
     """Stage-1 W18 320^2 bs32 train steps through the user entry points,
-    HCMOCO_CONVBN_FUSE=1; returns K1's (all and generic-path) and K1b's
-    launches during the steps, in the order of their JSON entries, and the
-    BN-site kernels' (bn_site_wrappers)."""
+    HCMOCO_CONVBN_FUSE=1, under torch.profiler (CUDA activity); returns
+    K1's (all and generic-path) and K1b's launches during the steps, in
+    the order of their JSON entries, and the BN-site kernels'
+    (bn_site_wrappers): the profiler's kernel records, since the
+    encoders replay CUDA graphs from the second step."""
+    from torch.profiler import ProfilerActivity, profile
+
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.ops import matmul_bn as mb
     from hcmoco_tpu_torch.models.build import build_model
@@ -1622,20 +1626,32 @@ def drive_slice(card: str) -> tuple:
     for fn in (*wrappers.values(), *site_wrappers.values()):
         fn.launches = 0
     mb.mm_bn_stats_cuda.generic_launches = 0
-    steady, metrics = timed_steps(step, state, batch, gen, STEPS,
-                                  "stage-1 HRNet", card)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steady, metrics = timed_steps(step, state, batch, gen, STEPS,
+                                      "stage-1 HRNet", card)
+    rows = device_rows(prof)
+    host = {name: fn.launches for name, fn in wrappers.items()}
+    host.update({name: fn.launches for name, fn in site_wrappers.items()},
+                generic=mb.mm_bn_stats_cuda.generic_launches)
+    replays = graph_replays(model)
+    if replays != {"encoder1": (STEPS - 1,) * 2,
+                   "encoder2": (STEPS - 1,) * 2}:
+        raise AssertionError(f"stage-1 HRNet: CUDA graph replays {replays}"
+                             f", expected {STEPS - 1} of each encoder's "
+                             f"forward and backward")
+    launches = traced_launches(rows, wrappers)
     for name, n in launches.items():
         if n != sites * STEPS:
             raise AssertionError(f"{name} launched {n} times in {STEPS} "
                                  f"steps, expected {sites} sites x {STEPS}")
-    site_launches = {name: fn.launches for name, fn in site_wrappers.items()}
+    site_launches = traced_launches(rows, site_wrappers)
     for name, n in site_launches.items():
         if n != other * STEPS:
             raise AssertionError(f"{name} launched {n} times in {STEPS} "
                                  f"steps, expected {other} BN sites x "
                                  f"{STEPS}")
-    n_gen = mb.mm_bn_stats_cuda.generic_launches
+    n_gen = traced_launches(rows, ["mm_bn_stats generic"])[
+        "mm_bn_stats generic"]
     if n_gen != generic * STEPS:
         raise AssertionError(f"K1's generic path launched {n_gen} times in "
                              f"{STEPS} steps, expected {generic} sites x "
@@ -1644,12 +1660,15 @@ def drive_slice(card: str) -> tuple:
                 "mm_bn_stats generic": n_gen, **launches}
     print("losses per step: " + ", ".join(f"{m['loss']:.5f}"
                                           for m in metrics))
-    print(f"W18 320^2 bs{BATCH} fused stage-1 step: median {steady * 1e3:.2f}"
-          f" ms = {BATCH / steady:.2f} samples/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1/K1b launches "
-          f"{launches}, each {sites} sites x {STEPS} steps ({generic} sites "
-          f"on K1's generic path); BN-site launches {site_launches}, each "
-          f"{other} sites x {STEPS} steps [{card}]")
+    print(f"W18 320^2 bs{BATCH} fused stage-1 step (CUDA activity traced):"
+          f" median {steady * 1e3:.2f} ms = {BATCH / steady:.2f} samples/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"K1/K1b launches {launches}, each {sites} sites x {STEPS} steps "
+          f"({generic} sites on K1's generic path); BN-site launches "
+          f"{site_launches}, each {other} sites x {STEPS} steps (the "
+          f"profiler's kernel records); CUDA graph replays (forward, "
+          f"backward) {replays}; the wrappers' host launches {host} "
+          f"[{card}]")
     return launches, site_launches
 
 
@@ -1953,7 +1972,12 @@ def drive_stage2(card: str, arch: str, n_points: int = 4096,
     0.07.  Prints every stage-2 metric a step, the median step, samples/s,
     peak memory and a profile; returns each kernel wrapper's launches in
     the steps, in the order of its JSON entries, after checking them
-    against the expected count a step."""
+    against the expected count a step.  The steps run under
+    torch.profiler (CUDA activity): the encoders replay CUDA graphs, so
+    K1's and K1b's launches are its kernel records; the point kernels'
+    are their wrappers' counts (the point branch runs eagerly)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from hcmoco_tpu_torch.core.config import RECIPES
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.models.build import build_model
@@ -2004,9 +2028,16 @@ def drive_stage2(card: str, arch: str, n_points: int = 4096,
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in wrappers.values():
         fn.launches = 0
-    steady, metrics = timed_steps(step, state, batch, gen, STEPS, label,
-                                  card)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steady, metrics = timed_steps(step, state, batch, gen, STEPS, label,
+                                      card)
     launches = {name: fn.launches for name, (fn, _) in wrappers.items()}
+    host = dict(launches)
+    replays = graph_replays(model)
+    if arch == "HRNet":
+        rows = device_rows(prof)
+        launches = traced_launches(rows, launches)
+        host["generic"] = mb.mm_bn_stats_cuda.generic_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name, (_, per_step) in wrappers.items():
         if launches[name] != per_step * STEPS:
@@ -2014,7 +2045,8 @@ def drive_stage2(card: str, arch: str, n_points: int = 4096,
                                  f" times in {STEPS} steps, expected "
                                  f"{per_step} x {STEPS}")
     if arch == "HRNet":
-        n_gen = mb.mm_bn_stats_cuda.generic_launches
+        n_gen = traced_launches(rows, ["mm_bn_stats generic"])[
+            "mm_bn_stats generic"]
         if n_gen != generic * STEPS:
             raise AssertionError(f"{label}: K1's generic path launched "
                                  f"{n_gen} times, expected {generic} x "
@@ -2025,9 +2057,12 @@ def drive_stage2(card: str, arch: str, n_points: int = 4096,
         print(f"{label} step {i}: " + ", ".join(
             f"{k} {m[k]:.5f}" for k in ("loss",) + STAGE2_METRICS))
     print(f"{label} W{cfg.width} {cfg.crop_size}^2 bs{bsz} K={cfg.nce_k} "
-          f"{cfg.pri3d_num_samples_per_image} pixels/image step: median "
-          f"{steady * 1e3:.2f} ms = {bsz / steady:.2f} samples/s; peak memory"
-          f" {peak:.2f} GiB; launches {launches} in {STEPS} steps [{card}]")
+          f"{cfg.pri3d_num_samples_per_image} pixels/image step (CUDA "
+          f"activity traced): median {steady * 1e3:.2f} ms = "
+          f"{bsz / steady:.2f} samples/s; peak memory {peak:.2f} GiB; "
+          f"launches {launches} in {STEPS} steps; CUDA graph replays "
+          f"(forward, backward) {replays}; the wrappers' host launches "
+          f"{host} [{card}]")
     profile_steps(card, step, state, batch, gen, steady)
     del model, state, step, batch
     torch.cuda.empty_cache()
@@ -2297,6 +2332,21 @@ def remat_big(card: str, cfg, batch, wrappers: dict, label: str) -> dict:
     return dict(launches=launches, peak=peak)
 
 
+@contextlib.contextmanager
+def eager_encoders():
+    """Contrast steps made inside run their encoders eagerly:
+    train/graphs.py's install patched out."""
+    from hcmoco_tpu_torch.train import graphs
+
+    install = graphs.install
+    graphs.install = lambda model: None
+    try:
+        yield
+    finally:
+        graphs.install = install
+
+
+@eager_encoders()
 def remat_phase(card: str) -> tuple:
     """TrainConfig.remat (HRNet, both policies) and pn_remat (HRNetPN) on
     the card: W18 320^2 stage 1 at bs32 fused without recomputation,
@@ -2304,8 +2354,11 @@ def remat_phase(card: str) -> tuple:
     run without (remat_case); stage 1 at the recipes' global batch of 224
     with 'conv_out', and without if bs32's peak times 7 fits; HRNetPN at
     4096 points bs64 with pn_remat off and on, held alike, and at 16384
-    points bs64 with it.  Returns the K1/K1b and the point kernels'
-    launches of every run."""
+    points bs64 with it.  Every run, 'off' too, runs its encoders eagerly
+    (eager_encoders): the phase holds recomputation to the same step
+    without, launch for launch and convolution for convolution, and an
+    encoder that replays CUDA graphs issues neither on the host.  Returns
+    the K1/K1b and the point kernels' launches of every run."""
     from hcmoco_tpu_torch.core.config import RECIPES
     from hcmoco_tpu_torch.data.synthetic import synthetic_contrast_batch
     from hcmoco_tpu_torch.models.build import build_model
@@ -2440,6 +2493,32 @@ K1_TRACE_KERNELS = {
     "bn_apply bwd sums": ("k1b_bwd_reduce_kernel",),
     "bn_apply bwd dy": ("k1b_bwd_dy_kernel",),
     "mm_bn bwd dyt": ("k1b_dyt_kernel",)}
+# ... and of each BN-site wrapper launch: its sums kernel (and the slot
+# reduction) or its elementwise kernel
+TRACE_KERNELS = dict(K1_TRACE_KERNELS, **{
+    "bn_sums": ("FwdTerms",),
+    "bn_relu_fwd": ("batch_norm_relu_fwd_kernel",),
+    "bn_relu_bwd_sums": ("BwdTerms",),
+    "bn_relu_bwd_dx": ("batch_norm_relu_bwd_dx_kernel",)})
+
+
+def traced_launches(rows: list, names) -> dict:
+    """{name: the kernel records among `rows` ((name, us), device_rows)
+    of TRACE_KERNELS[name]}: the launches that ran on the card, those
+    replayed from a CUDA graph included, which the wrappers (host
+    launches: a capture once, a replay never) do not count."""
+    return {k: sum(1 for name, _ in rows
+                   if any(t in name for t in TRACE_KERNELS[k]))
+            for k in names}
+
+
+def graph_replays(model) -> dict:
+    """{encoder: (forward, backward) CUDA graph replays so far} of the
+    model's graphed encoders (train/graphs.py)."""
+    from hcmoco_tpu_torch.train import graphs
+
+    return {name: graphs.of(m).replays() for name, m in model.named_children()
+            if graphs.of(m) is not None}
 
 
 def read_cli_trace(trace_dir: str) -> dict:
@@ -2471,15 +2550,17 @@ def read_cli_trace(trace_dir: str) -> dict:
 
 
 def check_trace(card: str, label: str, trace_dir: str, marks: dict,
-                r, free_it_ms: float) -> None:
+                r, free_it_ms: float) -> tuple:
     """The CLI's --profile_dir trace against the run: its spans are global
-    steps 10-15 and its K1/K1b kernel events (K1_TRACE_KERNELS) equal the
+    steps 10-15 and its K1/K1b kernel events (K1_TRACE_KERNELS) are
+    there; unless the run's encoders replay CUDA graphs, they equal the
     wrappers' launches over those steps (`marks`: the counts after step 9
     and after step 15, and the host clock there).  Prints the trace's
     size, the seconds that stopping the profiler and writing the trace
     took (the host time between the two marks less the six steps'), and
     reading it, and the trace's device ms a step beside the CLI's own
-    step time; returns that device ms a step."""
+    step time; returns that device ms a step and the K1/K1b kernel
+    events."""
     from hcmoco_tpu_torch.cli.main_contrast import PROFILE_STEPS
 
     first, last = PROFILE_STEPS
@@ -2498,10 +2579,9 @@ def check_trace(card: str, label: str, trace_dir: str, marks: dict,
     n = last - first + 1
     counted = {k: marks["after"][k] - marks["before"][k]
                for k in K1_TRACE_KERNELS}
-    traced = {k: sum(1 for name, _ in tr["kernels"]
-                     if any(t in name for t in keys))
-              for k, keys in K1_TRACE_KERNELS.items()}
-    if traced != counted or not all(counted.values()):
+    traced = traced_launches(tr["kernels"], K1_TRACE_KERNELS)
+    if not all(traced.values()) or (
+            not graph_replays(r.state.model) and traced != counted):
         raise AssertionError(f"{label}: K1/K1b kernels in the trace "
                              f"{traced}, the wrappers counted {counted} over "
                              f"steps {first}-{last}")
@@ -2513,16 +2593,16 @@ def check_trace(card: str, label: str, trace_dir: str, marks: dict,
     step_ms = statistics.median(r.step_s[steps]) * 1e3
     print(f"{label} --profile_dir: trace of global steps {first}-{last} "
           f"({tr['events']} events, {len(tr['kernels'])} kernels, "
-          f"{tr['mb']:.1f} MB); K1/K1b kernel events {traced} = the "
-          f"wrappers' launches over those steps; stopping the profiler and "
-          f"writing the trace {write_s:.1f} s, json.load {tr['read_s']:.1f} "
-          f"s [{card}]")
+          f"{tr['mb']:.1f} MB); K1/K1b kernel events {traced}, the "
+          f"wrappers' host launches over those steps {counted}; stopping "
+          f"the profiler and writing the trace {write_s:.1f} s, json.load "
+          f"{tr['read_s']:.1f} s [{card}]")
     print(f"{label} --profile_dir: device kernel time {kernel_ms:.3f} ms a "
           f"step from the trace, beside the CLI's step time {step_ms:.2f} ms "
           f"(median of the traced steps, CUDA activity and spans on) and its "
           f"iteration median {free_it_ms:.2f} ms untraced: busy share "
           f"{kernel_ms / free_it_ms:.3f} [{card}]")
-    return kernel_ms
+    return kernel_ms, traced
 
 
 def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
@@ -2538,9 +2618,13 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     Prints the iteration's median and quartiles over the steps before the
     profiler's (the first step, a warm-up, left out; with `trace_dir` the
     steps outside 10-15), samples/s, the host input rate, the device busy
-    share and the peak memory; returns (result, launches by name), after
-    checking the launches against the expected count a step and that the
-    epoch's loss is finite and its checkpoint written."""
+    share and the peak memory; returns (result, launches by name, the
+    steps they cover), after checking the launches against the expected
+    count a step and that the epoch's loss is finite and its checkpoint
+    written.  Where the run's encoders replay CUDA graphs (train/graphs.py),
+    the K1/K1b launches are the profiler's kernel records of the traced
+    steps, which they cover; every other launch is the wrappers' over all
+    the steps."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     if main is None:
@@ -2578,10 +2662,14 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
     t1 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = wrapper_counts(wrappers)
+    host = dict(launches)
     steps = len(r.step_s)
     if steps != n:
         raise AssertionError(f"{label}: ran {steps} steps, expected {n}")
+    replays = graph_replays(r.state.model)
     for name, (_, per_step) in wrappers.items():
+        if replays and name in K1_TRACE_KERNELS:
+            continue  # the traced steps' records, below
         if per_step is not None and launches[name] != per_step * steps:
             raise AssertionError(f"{label}: {name} launched {launches[name]}"
                                  f" times in {steps} steps, expected "
@@ -2609,11 +2697,20 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
         where = f"steps 2-{n - 3}"
     q1, med, q3 = statistics.quantiles([it_s[i] for i in free], n=4)
     step_med = statistics.median(r.step_s[i] for i in free)
+    covered = steps
     if prof is None:
-        kernel_ms = check_trace(card, label, trace_dir, marks, r, med * 1e3)
+        kernel_ms, traced = check_trace(card, label, trace_dir, marks, r,
+                                        med * 1e3)
         h2d = ""  # the trace's copies are not read
+        if replays:
+            launches.update(traced)
+            covered = PROFILE_STEPS[1] - PROFILE_STEPS[0] + 1
     else:
         rows = device_rows(prof)
+        if replays:
+            launches.update(traced_launches(
+                rows, [k for k in launches if k in K1_TRACE_KERNELS]))
+            covered = 2
         kernel_ms = sum(us for name, us in rows
                         if not name.startswith(("Memcpy", "Memset"))) / 1e3 / 2
         h2d = "; H2D copies {:.3f} ms/step".format(sum(
@@ -2632,10 +2729,14 @@ def cli_run(card: str, label: str, argv: list, bsz: int, n: int,
           f"{bsz / step_med:.2f}; device kernel time {kernel_ms:.3f} "
           f"ms/step, busy share {kernel_ms / (med * 1e3):.3f}{h2d}; peak "
           f"memory {peak:.2f} GiB [{card}]")
-    print(f"{label}: launches {launches} in {steps} steps; wall time: main "
-          f"{t1 - t0:.1f} s, profile read {time.perf_counter() - t1:.1f} s "
-          f"[{card}]")
-    return r, launches
+    graphed = (f"; encoders' CUDA graph replays (forward, backward) "
+               f"{replays}: K1/K1b launches are the kernel records of the "
+               f"{covered} traced steps, the wrappers' host launches over "
+               f"all {steps} {host}" if replays else "")
+    print(f"{label}: launches {launches} in {covered} steps{graphed}; wall "
+          f"time: main {t1 - t0:.1f} s, profile read "
+          f"{time.perf_counter() - t1:.1f} s [{card}]")
+    return r, launches, covered
 
 
 NCCL_CLI_STEPS = 4
@@ -2649,7 +2750,8 @@ def nccl_cli(card: str, argv: list, save: str) -> list:
     from that checkpoint for NCCL_CLI_STEPS more.  In a world of one the
     port issues no collective, so the profiler (over the resumed run's
     steps) must show no NCCL kernel.  Returns both runs' K1/K1b
-    launches."""
+    launches, the profiler's kernel records (the encoders replay CUDA
+    graphs in a world of one)."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
@@ -2692,16 +2794,18 @@ def nccl_cli(card: str, argv: list, save: str) -> list:
             sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
             gen = generic_sites(model.encoder1) + generic_sites(
                 model.encoder2)
-            launches = {name: fn.launches for name, fn in wrappers.items()}
-            launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
-                        "mm_bn_stats generic":
-                            wrappers["mm_bn_stats"].generic_launches,
-                        **launches}
+            host = {name: fn.launches for name, fn in wrappers.items()}
+            host = {"mm_bn_stats": host.pop("mm_bn_stats"),
+                    "mm_bn_stats generic":
+                        wrappers["mm_bn_stats"].generic_launches, **host}
+            rows = device_rows(prof)
+            launches = traced_launches(rows, host)
             want = {name: (gen if name.endswith("generic") else sites)
                     * steps for name in launches}
             if steps != NCCL_CLI_STEPS or launches != want:
                 raise AssertionError(f"NCCL CLI run {i}: {steps} steps, "
-                                     f"launches {launches}, expected {want}")
+                                     f"launches {launches} (the profiler's "
+                                     f"kernel records), expected {want}")
             nccl = [(n, us) for n, us in device_rows(prof)
                     if "nccl" in n.lower()]
             if nccl:
@@ -2713,7 +2817,9 @@ def nccl_cli(card: str, argv: list, save: str) -> list:
                   f"{i * NCCL_CLI_STEPS}, checkpoint "
                   f"epoch_{r.last_epoch}.pt written by rank 0; 0 NCCL "
                   f"kernels in its profile (no collective in a world of "
-                  f"one) [{card}]")
+                  f"one); K1/K1b kernel records {launches}, host launches "
+                  f"{host}, CUDA graph replays {graph_replays(model)} "
+                  f"[{card}]")
             del r
     finally:
         for k in env:
@@ -2734,10 +2840,11 @@ def slurm_cli(card: str, argv: list, save: str) -> dict:
     the node list's first host and port SLURM_JOB_ID % 4096 + 61440, as
     jax.distributed.initialize() does, and trains SLURM_CLI_STEPS steps.
     Checks the rank, world, backend and address it joined; returns its
-    K1/K1b launches."""
+    K1/K1b launches, the profiler's kernel records."""
     import socket
 
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
     from hcmoco_tpu_torch.cli.main_contrast import main
     from hcmoco_tpu_torch.models.hrnet import fused_sites
@@ -2771,9 +2878,11 @@ def slurm_cli(card: str, argv: list, save: str) -> dict:
     os.environ.update(env)
     t0 = time.perf_counter()
     try:
-        r = main(argv + ["--model_path", save, "--multihost", "--epochs",
-                         "1", "--max_steps", str(SLURM_CLI_STEPS)],
-                 on_ready=on_ready)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r = main(argv + ["--model_path", save, "--multihost", "--epochs",
+                             "1", "--max_steps", str(SLURM_CLI_STEPS)],
+                     on_ready=on_ready)
+            torch.cuda.synchronize()
     finally:
         for k in env:
             os.environ.pop(k, None)
@@ -2789,20 +2898,24 @@ def slurm_cli(card: str, argv: list, save: str) -> dict:
     model = r.state.model
     sites = fused_sites(model.encoder1) + fused_sites(model.encoder2)
     gen = generic_sites(model.encoder1) + generic_sites(model.encoder2)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    launches = {"mm_bn_stats": launches.pop("mm_bn_stats"),
-                "mm_bn_stats generic":
-                    wrappers["mm_bn_stats"].generic_launches, **launches}
+    host = {name: fn.launches for name, fn in wrappers.items()}
+    host = {"mm_bn_stats": host.pop("mm_bn_stats"),
+            "mm_bn_stats generic":
+                wrappers["mm_bn_stats"].generic_launches, **host}
+    launches = traced_launches(device_rows(prof), host)
     steps = len(r.step_s)
     want = {name: (gen if name.endswith("generic") else sites) * steps
             for name in launches}
     if steps != SLURM_CLI_STEPS or launches != want:
         raise AssertionError(f"SLURM CLI run: {steps} steps, launches "
-                             f"{launches}, expected {want}")
+                             f"{launches} (the profiler's kernel records), "
+                             f"expected {want}")
     print(f"SLURM CLI run (--multihost, SLURM_JOB_ID {job}, no torchrun "
           f"variables): joined rank {joined['rank']} of {joined['world']} "
           f"over {seen['backend']} at {joined['address']}, {steps} steps "
-          f"in {time.perf_counter() - t0:.1f} s [{card}]")
+          f"in {time.perf_counter() - t0:.1f} s; K1/K1b kernel records "
+          f"{launches}, host launches {host}, CUDA graph replays "
+          f"{graph_replays(model)} [{card}]")
     del r
     return launches
 
@@ -2821,8 +2934,10 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
     run; copies the stage-2 run's
     checkpoint to `stage2_copy` (the versatility phase grafts from it).
     The stage-1 run passes --profile_dir: its trace of global steps 10-15
-    must hold exactly the K1/K1b launches that the wrappers counted there
-    (cli_run, check_trace)."""
+    must hold K1 and K1b once a fused site and step (cli_run,
+    check_trace).  The HRNet runs replay their encoders' CUDA graphs:
+    their K1/K1b launches are the profiler's kernel records of the traced
+    steps."""
     from hcmoco_tpu_torch.data.fixtures import (make_mpii_fixture,
                                                 make_ntu_fixture)
     from hcmoco_tpu_torch.data.packed import pack_ntu
@@ -2877,13 +2992,13 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
               "--batch_size", str(BATCH)] + files
         rate = cli_input_rate(s1)
         t_trace = time.perf_counter()
-        r1, l1 = cli_run(card, "CLI stage-1 HRNet", s1 + [
+        r1, l1, n1 = cli_run(card, "CLI stage-1 HRNet", s1 + [
             "--epochs", "1", "--max_steps", str(steps1)], BATCH, steps1, k1,
             input_rate=rate, trace_dir=os.path.join(tmp, "trace"))
         print(f"CLI stage-1 HRNet with --profile_dir: wall "
               f"{time.perf_counter() - t_trace:.1f} s, the trace's write "
               f"and read included [{card}]")
-        check_k1(l1, r1, steps1, "CLI stage-1 HRNet")
+        check_k1(l1, r1, n1, "CLI stage-1 HRNet")
         stage1_dir = r1.ckpt_dir
         saved = (r1.state.step, r1.state.banks.detach().cpu().clone(),
                  r1.state.model.encoder1.conv1.weight.detach().cpu().clone())
@@ -2898,7 +3013,7 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
                                      "what was saved")
             restored["step"] = got[0]
 
-        r2, l2 = cli_run(card, "CLI stage-1 HRNet resumed", s1 + [
+        r2, l2, n2 = cli_run(card, "CLI stage-1 HRNet resumed", s1 + [
             "--epochs", "2", "--resume", "auto", "--max_steps",
             str(steps1 + RESUME_STEPS)], BATCH, RESUME_STEPS, k1,
             on_ready=check_restored, input_rate=rate)
@@ -2907,7 +3022,7 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
                                  f", step {restored.get('step')}")
         print(f"CLI resume: epoch 2 restored step {steps1}, the banks and "
               f"encoder1.conv1.weight bit for bit [{card}]")
-        check_k1(l2, r2, RESUME_STEPS, "CLI stage-1 HRNet resumed")
+        check_k1(l2, r2, n2, "CLI stage-1 HRNet resumed")
         trained = r2.state.model.encoder1.conv1.weight.detach().cpu().clone()
         del r1, r2
         torch.cuda.empty_cache()
@@ -2924,11 +3039,11 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
         s2_steps = 8
         s2 = ["--recipe", "second_stage/ntumpiirgbd2s_hrnet_w18",
               "--batch_size", str(BATCH)] + files
-        r3, l3 = cli_run(card, "CLI stage-2 HRNet --pretrain", s2 + [
+        r3, l3, n3 = cli_run(card, "CLI stage-2 HRNet --pretrain", s2 + [
             "--pretrain", stage1_dir, "--epochs", "1", "--max_steps",
             str(s2_steps)],
             BATCH, s2_steps, k1, on_ready=check_grafted, input_rate=rate)
-        check_k1(l3, r3, s2_steps, "CLI stage-2 HRNet")
+        check_k1(l3, r3, n3, "CLI stage-2 HRNet")
         shutil.copy(os.path.join(r3.ckpt_dir, f"epoch_{r3.last_epoch}.pt"),
                     stage2_copy)
         del r3
@@ -2937,7 +3052,7 @@ def drive_cli(card: str, stage2_copy: str) -> tuple:
         pn = ["--recipe", "first_stage/ntumpiirgbd2s_hrnetpn_w18",
               "--batch_size", str(PN_BATCH), "--packed_dir", pack] + files
         pn_steps = 8
-        r4, l4 = cli_run(card, "CLI stage-1 HRNetPN packed", pn + [
+        r4, l4, _ = cli_run(card, "CLI stage-1 HRNetPN packed", pn + [
             "--epochs", "1", "--max_steps", str(pn_steps)], PN_BATCH,
             pn_steps, point_wrappers(), input_rate=cli_input_rate(pn))
         route = library_route("resample")
@@ -3161,7 +3276,7 @@ def drive_segmentor_cli(card: str, stage2_ckpt: str, tmp: str) -> tuple:
 
     os.environ["HCMOCO_CONVBN_FUSE"] = "1"  # read when the model is built
     label = "versatility CLI --pretrain"
-    r, launches = cli_run(
+    r, launches, _ = cli_run(
         card, label, argv + ["--pretrain", stage2_ckpt, "--epochs", "1"],
         BATCH, steps, {name: (fn, None) for name, fn in k1_wrappers().items()},
         on_ready=check_grafted, input_rate=cli_input_rate(argv),
@@ -4164,7 +4279,8 @@ def check_data_parallel(card: str) -> tuple:
     each rank holding half of the global batch.  First K1b against its
     plain version at a rank's rows normalised by the global batch's
     (K1B_DP_SHAPES).  The parent runs the one-process steps with the
-    ranks' BN formula (ranks_formula), and the f32 cases once more with a
+    ranks' BN formula (ranks_formula) and its encoders eager
+    (eager_encoders), and the f32 cases once more with a
     change of rounding alone, nn.BatchNorm's two-pass variance (the
     floor), then two `chip_smoke.py --dp-rank` processes the same steps on
     their rows; a rank that fails, or does not finish in DP_TIMEOUT_S,
@@ -4183,11 +4299,14 @@ def check_data_parallel(card: str) -> tuple:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    with ranks_formula():  # BN as the ranks normalise
+    # the one process runs its encoders eagerly, as the ranks do (a world
+    # of two replays no CUDA graph), so that their launches compare
+    with ranks_formula(), eager_encoders():  # BN as the ranks normalise
         one = {case[0]: dp_run(case, 0, 1) for case in DP_CASES}
     # the f32 cases once more with nn.BatchNorm's own (two-pass) variance
-    floor = {case[0]: dp_distance(dp_run(case, 0, 1), one[case[0]])
-             for case in DP_CASES if case[6] == "float32"}
+    with eager_encoders():
+        floor = {case[0]: dp_distance(dp_run(case, 0, 1), one[case[0]])
+                 for case in DP_CASES if case[6] == "float32"}
     os.environ.pop("HCMOCO_CONVBN_FUSE", None)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -5396,7 +5515,9 @@ def main() -> int:
     small_stage2_check(card, "HRNet")
     # each main path is driven with the counts set to 0 just before it;
     # an entry's launches are the sum over the paths that run it (the
-    # BN-site kernels': over the stage-1 slice)
+    # BN-site kernels': over the stage-1 slice), each the kernels that ran
+    # on the card: the wrappers' launches where the encoders run eagerly,
+    # the profiler's kernel records where they replay CUDA graphs
     slice_k1, site_launches = drive_slice(card)
     for entry, name in zip(sites, site_launches):
         entry["launches"] = site_launches[name]

@@ -27,6 +27,10 @@ Under TrainConfig.remat (train/remat.py) the stem, each residual block,
 each standalone ConvBN and each fused output of an HRModule is a region
 recomputed in the backward; conv_bn is where 'conv_out' keeps the conv
 output (K1's y and sums on the fused path).
+
+In the contrast train step on the card, an encoder's training forward
+and backward replay from CUDA graphs (train/graphs.py, asked first by
+HRNet.forward); `HRNet.maps` is the region they capture.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..core.config import HRNetConfig, HRNetStageSpec
 from ..ops.matmul_bn import bn_apply_stats, conv1x1_bn_stats, conv_out_bn
 from ..parallel.batchnorm import GlobalBatchNorm2d
 from ..parallel.mesh import all_reduce_sum, world_size
-from ..train import remat
+from ..train import graphs, remat
 from ..train.remat import region
 
 # flax momentum 0.99 (hrnet.py bn_momentum) == torch momentum 0.01
@@ -388,8 +392,16 @@ class HRNet(nn.Module):
             pre = cur
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        d = self.compute_dtype
-        x = x.to(dtype=d, memory_format=torch.channels_last)
+        maps = graphs.replay(self, x)
+        if maps is not None:
+            return maps
+        return self.maps(x.to(dtype=self.compute_dtype,
+                              memory_format=torch.channels_last))
+
+    def maps(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The 4 maps of an input already in the compute dtype,
+        channels_last: the region a contrast step's CUDA graphs replay
+        (train/graphs.py)."""
         xs = [self.layer1(region(self._stem, x))]
         for si in (2, 3, 4):
             new = []

@@ -25,13 +25,16 @@ because that is the layout the torch weight already has.
 
 Dispatch: a CPU tensor takes the plain PyTorch version.  A CUDA tensor
 launches the hand-written Hopper kernel (csrc/matmul_bn.cu) or raises;
-there is no fallback.  Each kernel wrapper counts its launches in its
-`.launches`.
+there is no fallback.  Each kernel wrapper counts its launches on the
+host in its `.launches`: a launch captured into a CUDA graph counts
+once, and the graph's replays not at all.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -112,28 +115,56 @@ FAST_SHAPES = ((64, 256), (256, 64), (64, 64))
 # zero.  Launches on one stream run in order, so they share a counter
 # safely; launches on two streams may overlap, so each stream has its own.
 _counters: dict = {}
+# the counter of the CUDA graph this thread is capturing (graph_counter)
+_capture = threading.local()
+
+
+def new_counter(device) -> torch.Tensor:
+    """A zeroed generic-path counter on `device`: a stream's, or a CUDA
+    graph's (graph_counter)."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def graph_counter(counter: torch.Tensor):
+    """K1's generic path takes `counter` in a CUDA graph that this thread
+    captures inside this block: a graph's own, allocated and zeroed
+    before its capture (new_counter).  Its launches replay in order on
+    one stream and each launch's last CTA resets the counter, so a
+    replay leaves it at zero, and eager launches, on their stream's
+    counter, never share it."""
+    before = getattr(_capture, "counter", None)
+    _capture.counter = counter
+    try:
+        yield counter
+    finally:
+        _capture.counter = before
 
 
 def _k1_counter(dev: int, stream: int) -> torch.Tensor:
-    """The generic path's counter of (device, raw stream).  Refuses while
-    the current stream is being captured into a CUDA graph: a replayed
-    graph would reuse the captured counter's address beside eager
-    launches, and how a graph keeps its own is ROADMAP.md S1's design."""
+    """The generic path's counter: while this thread captures a CUDA
+    graph, the graph's own (graph_counter; a capture without one raises),
+    else that of (device, raw stream)."""
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "mm_bn_stats_cuda: K1 cannot be captured into a CUDA graph yet: "
-            "its generic path keeps a completion counter per (device, "
-            "stream), and a graph's own counter is ROADMAP.md S1's design")
+        counter = getattr(_capture, "counter", None)
+        if counter is None:
+            raise RuntimeError(
+                "mm_bn_stats_cuda: a CUDA graph that captures K1 needs a "
+                "generic-path counter of its own: capture inside "
+                "matmul_bn.graph_counter(matmul_bn.new_counter(device))")
+        return counter
     key = (dev, stream)
     if key not in _counters:
-        _counters[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+        _counters[key] = new_counter(dev)
     return _counters[key]
 
 
 def mm_bn_stats_cuda(x2d: torch.Tensor, w: torch.Tensor):
     """Launch K1 on x2d's device and current stream.  `.launches` counts
-    every launch, `.generic_launches` those of the generic path.  Raises
-    during CUDA graph capture (see _k1_counter)."""
+    every launch on the host, `.generic_launches` those of the generic
+    path.  Under
+    CUDA graph capture the generic path takes the graph's counter
+    (_k1_counter)."""
     fn = "mm_bn_stats_cuda"
     r, k = _rows_cols(fn, "x2d", x2d)
     if w.dim() != 2 or w.shape[1] != k:

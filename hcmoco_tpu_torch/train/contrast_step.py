@@ -64,6 +64,7 @@ from ..core.config import TrainConfig
 from ..parallel.mesh import (all_reduce_grads, gather_rows, gather_rows_grad,
                              global_sum, my_rows, world_size)
 from ..utils.spans import span
+from . import graphs
 from .remat import check_policy, recompute
 from .schedules import learning_rate_fn
 from .state import TrainState
@@ -543,12 +544,19 @@ def make_contrast_train_step(cfg: TrainConfig, model: torch.nn.Module,
     `train_step`, its global step attached; inside it each microbatch's
     `forward` and `nce` (HCMoCo's loss_fn; the bank baselines' is not
     split), `backward` and `bank_update`, then `optimizer` (the
-    gradients' all-reduce as `grad_sync` inside it) and `metrics`."""
+    gradients' all-reduce as `grad_sync` inside it) and `metrics`.
+    The model's HRNet encoders replay their forward and backward from
+    CUDA graphs where the step runs one microbatch and
+    train/graphs.py::engages holds (on the card, a world of one, no
+    recompute): the same kernels, bit for bit, each forward replay a span
+    `encoder_graph` inside `forward`."""
     if cfg.mem == "moco":
         return make_moco_train_step(cfg, model, steps_per_epoch)
     loss_fn = make_contrast_loss_fn(cfg, model)
     n_micro = max(cfg.microbatch, 1)
     lr_fn = learning_rate_fn(cfg, steps_per_epoch)
+    if n_micro == 1:
+        graphs.install(model)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator]

@@ -105,6 +105,12 @@ def replaying() -> bool:
     return tape is not None and tape.replay
 
 
+def active() -> bool:
+    """Whether this thread runs under a `recompute` policy or inside a
+    region."""
+    return getattr(_local, "policy", None) is not None or _tape() is not None
+
+
 def keeps_conv_out() -> bool:
     """Whether this thread runs a region under 'conv_out'."""
     tape = _tape()

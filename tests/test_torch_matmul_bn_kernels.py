@@ -122,18 +122,46 @@ def test_generic_path_on_two_streams_at_once():
 
 @pytest.mark.cuda
 def test_k1_refuses_graph_capture():
-    """Run on the card only: K1's wrapper raises, naming ROADMAP S1,
-    while its stream is captured into a CUDA graph."""
+    """Run on the card only: K1's wrapper refuses a CUDA graph capture
+    without a generic-path counter of the graph's own; with one
+    (matmul_bn.graph_counter), its generic path is captured and replayed
+    between eager launches on the same stream, on new contents of the
+    captured x, with y and the sums equal to the eager launch's bit for
+    bit, the graph's counter back at zero after each replay and the
+    stream's eager counter untouched; the wrapper counts the capture as
+    one launch and a replay as none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
-    x = torch.randn((3200, 144), device="cuda").bfloat16()
-    w = torch.randn((18, 144), device="cuda").bfloat16()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((3200, 144), generator=g, device="cuda").bfloat16()
+    w = torch.randn((18, 144), generator=g, device="cuda").bfloat16()
     matmul_bn.mm_bn_stats_cuda(x, w)  # built and warmed outside the capture
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="S1"):
-        with torch.cuda.graph(graph):
+    with pytest.raises(RuntimeError, match="counter of its own"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
             matmul_bn.mm_bn_stats_cuda(x, w)
+    eager = dict(matmul_bn._counters)
+    counter = matmul_bn.new_counter(x.device)
+    graph = torch.cuda.CUDAGraph()
+    fn = matmul_bn.mm_bn_stats_cuda
+    n0 = (fn.launches, fn.generic_launches)
+    with matmul_bn.graph_counter(counter), torch.cuda.graph(graph):
+        got = fn(x, w)
+    assert dict(matmul_bn._counters) == eager
+    # host launches: the capture counts once, a replay not at all
+    assert (fn.launches, fn.generic_launches) == (n0[0] + 1, n0[1] + 1)
+    for i in range(3):
+        x.copy_(torch.randn((3200, 144), generator=g,
+                            device="cuda").bfloat16())
+        before = fn(x, w)
+        graph.replay()
+        after = fn(x, w)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, before, after):
+            assert torch.equal(a, b) and torch.equal(a, c), f"replay {i}"
+        assert int(counter) == 0
+        assert all(int(c) == 0 for c in matmul_bn._counters.values())
+        assert fn.launches == n0[0] + 1 + 2 * (i + 1)
 
 
 @pytest.mark.cuda

@@ -31,10 +31,10 @@ if str(ROOT) not in sys.path:
 
 # the train step's phases; grad_sync lies inside optimizer, and
 # HRNetPN's point branch (depth2pts, pn_sa, pn_fp; pts2depth in stage 2)
-# inside forward
+# and the HRNet encoders' graph replays (encoder_graph) inside forward
 PHASES = ("forward", "nce", "backward", "bank_update", "optimizer",
           "grad_sync", "metrics", "depth2pts", "pn_sa", "pn_fp",
-          "pts2depth")
+          "pts2depth", "encoder_graph")
 TILE = ("forward", "nce", "backward", "bank_update", "optimizer", "metrics")
 
 
